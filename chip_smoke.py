@@ -1,0 +1,585 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``cockroach_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds both CUDA kernels from ``cockroach_tpu_torch/csrc`` at first use,
+holds each kernel against its plain PyTorch version on the card (exact
+equality: every output is an integer or a bool), drives YCSB-E at
+bench.py's configuration (2^20 keys, 512 ops, 64-row scans, 128-way
+batches) through the port's engine on the card, checks the engine on the
+card against the same engine on the CPU, and times both kernels.
+
+The line before the last is ``{"kernels": [...]}``, the line before that
+the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
+exits non-zero; without CUDA it exits non-zero before any result.
+"""
+
+from __future__ import annotations
+
+import bisect
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cockroach_tpu_torch import _build
+from cockroach_tpu_torch.storage import cuda_merge, cuda_scan, mvcc
+from cockroach_tpu_torch.storage.keys import flip, key_words
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+K1_BYTES_PER_ROW = 16 + 8 + 8 + 1 + 1 + 2  # key, ts, txn, tomb, mask; 2 out
+K2_BYTES_PER_ROW = 16 + 8 + 8 + 1  # key, ts, seq, mask in
+K2_PERM_BYTES = 4
+
+
+def log(msg: str) -> None:
+    print(f"# {msg}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+
+
+def scan_windows(rng, B: int, window: int, nkeys: int = 30,
+                 versions: int = 3) -> dict[str, np.ndarray]:
+    """Random MVCC windows in the multi-scan layout: each row holds sorted
+    (key asc, ts desc) entries with intents of txns 1 and 2, tombstones
+    and a dead tail."""
+    n = B * window
+    f = {"key": np.zeros((n, 16), np.uint8), "ts": np.zeros(n, np.int64),
+         "seq": np.zeros(n, np.int64), "txn": np.zeros(n, np.int64),
+         "tomb": np.zeros(n, bool), "value": np.zeros((n, 8), np.uint8),
+         "vlen": np.zeros(n, np.int32), "mask": np.zeros(n, bool)}
+    for b in range(B):
+        entries = []
+        for _ in range(int(rng.integers(5, max(6, window // 2)))):
+            key = b"k%06d" % rng.integers(0, nkeys)
+            for _ in range(int(rng.integers(1, versions + 1))):
+                entries.append((key, int(rng.integers(1, 100)),
+                                int(rng.integers(0, 3)),
+                                bool(rng.random() < 0.2)))
+        entries.sort(key=lambda e: (e[0], -e[1]))
+        for i, (key, t, x, tb) in enumerate(entries[:window]):
+            j = b * window + i
+            f["key"][j, :len(key)] = np.frombuffer(key, np.uint8)
+            f["ts"][j], f["txn"][j], f["tomb"][j] = t, x, tb
+            f["mask"][j] = True
+    return f
+
+
+def edge_windows(window: int) -> dict[str, np.ndarray]:
+    """Three rows: empty, one key with every version a tombstone, and one
+    key run spanning the whole row."""
+    n = 3 * window
+    f = {"key": np.zeros((n, 16), np.uint8), "ts": np.zeros(n, np.int64),
+         "seq": np.zeros(n, np.int64), "txn": np.zeros(n, np.int64),
+         "tomb": np.zeros(n, bool), "value": np.zeros((n, 8), np.uint8),
+         "vlen": np.zeros(n, np.int32), "mask": np.zeros(n, bool)}
+    for i in range(20):
+        j = window + i
+        f["key"][j, :4] = np.frombuffer(b"aaaa", np.uint8)
+        f["ts"][j], f["tomb"][j], f["mask"][j] = 100 - i, True, True
+    for i in range(window):
+        j = 2 * window + i
+        f["key"][j, :4] = np.frombuffer(b"bbbb", np.uint8)
+        f["ts"][j], f["mask"][j] = 10_000 - i, True
+        f["txn"][j] = 3 if i % 97 == 5 else 0
+    return f
+
+
+def user_keys(ids: np.ndarray) -> np.ndarray:
+    """b"user%07d" keys, zero-padded to 16 bytes."""
+    out = np.zeros((len(ids), 16), np.uint8)
+    out[:, :4] = np.frombuffer(b"user", np.uint8)
+    d = ids.astype(np.int64).copy()
+    for p in range(7):
+        out[:, 10 - p] = d % 10 + ord("0")
+        d //= 10
+    return out
+
+
+def sorted_run(rng, n: int, cap: int, nkeys: int, device,
+               ties: bool = False) -> mvcc.KVBlock:
+    """A sorted run of `cap` rows, n of them written (about 5% dead), the
+    rest a dead pad tail. With `ties`, every row shares ts and seq, so
+    equal keys are equal composite keys."""
+    f = {"key": np.zeros((cap, 16), np.uint8), "ts": np.zeros(cap, np.int64),
+         "seq": np.zeros(cap, np.int64), "txn": np.zeros(cap, np.int64),
+         "tomb": np.zeros(cap, bool), "value": np.zeros((cap, 8), np.uint8),
+         "vlen": np.zeros(cap, np.int32), "mask": np.zeros(cap, bool)}
+    f["key"][:n] = user_keys(rng.integers(0, nkeys, n))
+    f["ts"][:n] = 7 if ties else rng.integers(1, 1000, n)
+    f["seq"][:n] = 9 if ties else rng.integers(1, 1 << 40, n)
+    f["txn"][:n] = rng.integers(0, 2, n)
+    f["tomb"][:n] = rng.random(n) < 0.15
+    f["value"][:n, :4] = np.arange(n, dtype=np.int32).view(np.uint8).reshape(
+        n, 4)
+    f["vlen"][:n] = 4
+    f["mask"][:n] = True if ties else rng.random(n) < 0.95
+    return mvcc.sort_block(mvcc.kvblock_from_numpy(f, device))
+
+
+def live_rows(blk: mvcc.KVBlock) -> dict[str, np.ndarray]:
+    m = blk.mask
+    return {f: getattr(blk, f)[m].cpu().numpy() for f in mvcc.FIELDS}
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[f], b[f]) for f in mvcc.FIELDS)
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+
+
+def check_scan_filter(dev) -> int:
+    """K1 against its plain version on the card; returns the max abs
+    difference (0 or the phase raises)."""
+    rng = np.random.default_rng(11)
+    cases = [("ycsb 128x640", scan_windows(rng, 128, 640), 640),
+             ("grown 4x4096", scan_windows(rng, 4, 4096, nkeys=60,
+                                           versions=40), 4096),
+             ("edges x640", edge_windows(640), 640),
+             ("edges x2048", edge_windows(2048), 2048)]
+    worst = 0
+    for name, f, window in cases:
+        blk = mvcc.kvblock_from_numpy(f, dev)
+        for read_ts, reader in ((50, 0), (10, 0), (50, 1), (200, 2),
+                                (50_000, 0), (50_000, 3)):
+            got = cuda_scan.scan_filter(blk, read_ts, reader, window)
+            want = cuda_scan.scan_filter_plain(blk, read_ts, reader, window)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("selected", "conflict")):
+                err = int((g.to(torch.int8) - w.to(torch.int8)).abs().max())
+                worst = max(worst, err)
+                if err:
+                    raise AssertionError(
+                        f"scan_filter {what} differs from its plain version "
+                        f"on {name} at read_ts={read_ts} reader={reader}")
+        log(f"K1 scan_filter == plain on {name} "
+            f"({int(blk.mask.sum())} live lanes)")
+    return worst
+
+
+def _plain_pair(a, b):
+    return cuda_merge.gather_merged(a, b, cuda_merge.merge_perm_plain(a, b))
+
+
+def check_merge(dev) -> int:
+    """K2 against its plain version on the card: permutations and merged
+    live rows equal, and equal to merge_blocks' stable sort."""
+    rng = np.random.default_rng(5)
+    worst = 0
+
+    def pair_case(name, a, b):
+        nonlocal worst
+        got = cuda_merge.merge_perm(a, b)
+        want = cuda_merge.merge_perm_plain(a, b)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"merge permutation differs on {name}")
+        merged = cuda_merge.gather_merged(a, b, got)
+        ref = mvcc.merge_blocks((a, b), cap=merged.capacity)
+        if not same_rows(live_rows(merged), live_rows(ref)):
+            raise AssertionError(f"merged live rows differ on {name}")
+        log(f"K2 bitonic merge == plain on {name} "
+            f"({int(merged.mask.sum())} live rows)")
+
+    pair_case("2x4096 with dead padding",
+              sorted_run(rng, 3000, 4096, 500, dev),
+              sorted_run(rng, 4096, 4096, 500, dev))
+    pair_case("2x2^17 (YCSB load shape)",
+              sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev),
+              sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev))
+    pair_case("live (key, ts, seq) ties",
+              sorted_run(rng, 900, 1024, 40, dev, ties=True),
+              sorted_run(rng, 1024, 1024, 40, dev, ties=True))
+
+    runs = tuple(sorted_run(rng, int(rng.integers(500, 2048)), 2048, 300,
+                            dev) for _ in range(4))
+    got = cuda_merge.merge_runs(runs)
+    want = runs
+    while len(want) > 1:
+        want = tuple(_plain_pair(want[i], want[i + 1])
+                     for i in range(0, len(want), 2))
+    ref = mvcc.merge_blocks(runs, cap=got.capacity)
+    torch.cuda.synchronize()
+    for f in mvcc.FIELDS:
+        if not torch.equal(getattr(got, f), getattr(want[0], f)):
+            raise AssertionError(f"4-run tournament differs in {f}")
+    if not same_rows(live_rows(got), live_rows(ref)):
+        raise AssertionError("4-run tournament live rows differ from sort")
+    log(f"K2 4-run tournament == plain ({int(got.mask.sum())} live rows)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# YCSB-E with a scan oracle
+
+
+class YcsbRecorder:
+    """Records the main engine's writes and batched scans, in order, so
+    that every scan can be replayed against a host dict afterwards."""
+
+    def __init__(self, engine_cls):
+        self.cls = engine_cls
+        self.events: list[tuple] = []
+        self.orig = {n: getattr(engine_cls, n)
+                     for n in ("put", "ingest", "scan_batch")}
+
+    def __enter__(self):
+        rec, orig = self, self.orig
+
+        def put(eng, key, value, ts, txn=0):
+            rec.events.append(("put", id(eng), bytes(key), bytes(value),
+                               int(ts)))
+            return orig["put"](eng, key, value, ts, txn)
+
+        def ingest(eng, keys, values, ts, seq=None, vlens=None,
+                   presorted=False):
+            vl = (np.full(len(keys), values.shape[1]) if vlens is None
+                  else np.asarray(vlens))
+            rec.events.append(("ingest", id(eng), np.array(keys),
+                               np.array(values), vl, int(ts)))
+            return orig["ingest"](eng, keys, values, ts, seq=seq,
+                                  vlens=vlens, presorted=presorted)
+
+        def scan_batch(eng, starts, ts, txn=0, max_keys=64):
+            out = orig["scan_batch"](eng, starts, ts, txn=txn,
+                                     max_keys=max_keys)
+            rec.events.append(("scan", id(eng), list(starts), int(ts),
+                               int(max_keys), out))
+            return out
+
+        self.cls.put, self.cls.ingest = put, ingest
+        self.cls.scan_batch = scan_batch
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.cls, n, fn)
+
+    def check(self) -> int:
+        """Replays the scanned engine's history into a host dict and holds
+        every recorded scan result against it; returns the scans checked."""
+        scanned = {e[1] for e in self.events if e[0] == "scan"}
+        if len(scanned) != 1:
+            raise AssertionError(f"expected one scanned engine: {scanned}")
+        eid = scanned.pop()
+        newest: dict[bytes, tuple[int, bytes]] = {}
+        order: list[bytes] = []
+        checked = 0
+        for e in self.events:
+            if e[1] != eid:
+                continue
+            if e[0] == "put":
+                _, _, k, v, ts = e
+                if k not in newest:
+                    bisect.insort(order, k)
+                if k not in newest or ts >= newest[k][0]:
+                    newest[k] = (ts, v)
+            elif e[0] == "ingest":
+                _, _, keys, vals, vl, ts = e
+                for row, val, n in zip(keys, vals, vl):
+                    k = bytes(row).rstrip(b"\x00")
+                    if k not in newest:
+                        order.append(k)
+                    if k not in newest or ts >= newest[k][0]:
+                        newest[k] = (ts, bytes(val[:n]))
+                order.sort()
+            else:
+                _, _, starts, ts, max_keys, out = e
+                for s, got in zip(starts, out):
+                    want, i = [], bisect.bisect_left(order, bytes(s))
+                    while len(want) < max_keys and i < len(order):
+                        k = order[i]
+                        if newest[k][0] <= ts:
+                            want.append((k, newest[k][1]))
+                        i += 1
+                    if got != want:
+                        raise AssertionError(
+                            f"scan from {s!r} at ts {ts}: engine returned "
+                            f"{got[:3]}..., oracle {want[:3]}...")
+                    checked += 1
+        return checked
+
+
+def run_ycsb(card: str) -> dict:
+    from cockroach_tpu_torch.bench.ycsb import run_ycsb_e
+    from cockroach_tpu_torch.storage.lsm import Engine
+
+    with YcsbRecorder(Engine) as rec:
+        cuda_scan.scan_filter.launches = 0
+        cuda_merge.merge_perm.launches = 0
+        t0 = time.perf_counter()
+        y = run_ycsb_e(n_keys=1 << 20, ops=512, scan_len=64,
+                       concurrency=128, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                    "bitonic_merge": cuda_merge.merge_perm.launches}
+    if not y["bit_identical"]:
+        raise AssertionError("YCSB ingest and put paths disagree")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} never launched on the main path")
+    checked = rec.check()
+    if checked < 128:
+        raise AssertionError(f"only {checked} scans held against the oracle")
+    log(f"YCSB-E: {checked} scans match the host oracle; launches {launches}")
+    print(json.dumps({"ycsb_e": y, "wall_s": wall, "card": card,
+                      "launches": launches}), flush=True)
+    return launches
+
+
+def profile_ycsb() -> dict:
+    """A second YCSB-E run at the same configuration under torch.profiler:
+    the device's busy time (sum of kernel and copy durations on the card)
+    against the run's wall time, and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cockroach_tpu_torch.bench.ycsb import run_ycsb_e
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_ycsb_e(n_keys=1 << 20, ops=512, scan_len=64, concurrency=128,
+                   seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + e.time_range.elapsed_us())
+    busy_us = sum(per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_s": wall_us / 1e6,
+           "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
+           "device_idle_share": (1 - busy_us / wall_us) if busy_us
+           else "not measured",
+           "top_device_ms": {n[:80]: us / 1e3 for n, us in top}}
+    print(json.dumps({"ycsb_e_profile": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# engine parity: the same operation sequence on two engines
+
+
+def _key(i: int) -> bytes:
+    return b"k%07d" % i
+
+
+def parity_ops(make_engine, intent_error, n_keys: int = 2000) -> list:
+    """A fixed sequence of writes, intents, resolutions, flushes and
+    compactions on one engine; returns every read result (and every
+    WriteIntentError as (keys, txns)) in order."""
+    rng = np.random.default_rng(17)
+    eng = make_engine(key_width=16, val_width=16, memtable_size=256,
+                      l0_trigger=4)
+    out: list = []
+
+    def read(tag, fn):
+        try:
+            out.append((tag, fn()))
+        except intent_error as e:
+            out.append((tag, "WriteIntentError", list(e.keys),
+                        list(e.txns)))
+
+    def reads(tag, ts, txn=0):
+        starts = [_key(int(i)) for i in rng.integers(0, n_keys, 24)]
+        read(f"{tag}/batch", lambda: eng.scan_batch(starts, ts=ts, txn=txn,
+                                                    max_keys=16))
+        lo = int(rng.integers(0, n_keys - 100))
+        read(f"{tag}/scan", lambda: eng.scan(_key(lo), _key(lo + 60), ts=ts,
+                                             txn=txn))
+        read(f"{tag}/scan_max", lambda: eng.scan(_key(lo), None, ts=ts,
+                                                 txn=txn, max_keys=40))
+        for i in rng.integers(0, n_keys + 50, 6):
+            read(f"{tag}/get{int(i)}",
+                 lambda i=i: eng.get(_key(int(i)), ts=ts, txn=txn))
+
+    keys = np.zeros((n_keys, 16), np.uint8)
+    vals = np.zeros((n_keys, 16), np.uint8)
+    for i in range(n_keys):
+        keys[i, :8] = np.frombuffer(_key(i), np.uint8)
+        vals[i, :6] = np.frombuffer(b"v%05d" % (i % 100000), np.uint8)
+    eng.ingest(keys[: n_keys // 2], vals[: n_keys // 2], ts=1)
+    eng.ingest(keys[n_keys // 2:], vals[n_keys // 2:], ts=1)
+    reads("ingested", ts=5)
+    for i in range(700):
+        k = _key(int(rng.integers(0, n_keys)))
+        if i % 7 == 3:
+            eng.delete(k, ts=2 + i // 100)
+        else:
+            eng.put(k, b"p%05d" % i, ts=2 + i // 100)
+    reads("written", ts=6)
+    reads("past", ts=3)
+    for i in range(60):
+        eng.put(_key(int(rng.integers(0, n_keys))), b"t101-%d" % i, ts=20,
+                txn=101)
+        eng.put(_key(int(rng.integers(0, n_keys))), b"t202-%d" % i, ts=21,
+                txn=202)
+    reads("intents", ts=25)
+    reads("own101", ts=25, txn=101)
+    reads("below-intents", ts=15)
+    eng.resolve_intents(101, commit_ts=30, commit=True)
+    eng.resolve_intents(202, commit_ts=31, commit=False)
+    reads("resolved", ts=35)
+    for i in range(1500):
+        eng.put(_key(int(rng.integers(0, n_keys))), b"c%05d" % i,
+                ts=40 + i // 300)
+    reads("compacted", ts=50)
+    eng.compact(bottom=True)
+    reads("bottom", ts=50)
+    read("full", lambda: eng.scan(None, None, ts=60))
+    read("stats", lambda: (eng.stats.compactions, eng.stats.runs,
+                           eng.stats.flushes))
+    eng.close()
+    return out
+
+
+def check_parity() -> None:
+    from cockroach_tpu_torch.storage.lsm import Engine, WriteIntentError
+
+    def factory(device):
+        return lambda **kw: Engine(device=device, **kw)
+
+    merge0 = cuda_merge.merge_perm.launches
+    scan0 = cuda_scan.scan_filter.launches
+    on_card = parity_ops(factory("cuda"), WriteIntentError)
+    on_cpu = parity_ops(factory("cpu"), WriteIntentError)
+    if on_card != on_cpu:
+        bad = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
+                   if a != b)
+        raise AssertionError(f"engine on the card differs from the CPU at "
+                             f"read {bad}: {on_card[bad][0]}")
+    errors = sum(1 for r in on_card if r[1] == "WriteIntentError")
+    stats = on_card[-1][1]
+    if stats[0] == 0 or errors == 0:
+        raise AssertionError("parity sequence ran no compaction or intent")
+    log(f"engine parity card == CPU over {len(on_card)} reads "
+        f"({errors} WriteIntentErrors, compactions/runs/flushes {stats}; "
+        f"merges {cuda_merge.merge_perm.launches - merge0}, "
+        f"filters {cuda_scan.scan_filter.launches - scan0} on the card)")
+
+
+# ---------------------------------------------------------------------------
+# timing
+
+
+def device_ms(fn, reps: int = 30, lead_cycles: int = 20_000_000) -> float:
+    """Median device time of fn(): each call is bracketed by CUDA events
+    behind a spin kernel, so the host's enqueue time stays out of it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(lead_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_kernels(dev, launches: dict, errs: dict) -> list[dict]:
+    rng = np.random.default_rng(3)
+    win = mvcc.kvblock_from_numpy(scan_windows(rng, 128, 640), dev)
+    rows = win.capacity
+    k1 = {
+        "name": "scan_filter", "route": "cuda",
+        "source": "cockroach_tpu_torch/csrc/scan_filter.cu",
+        "replaces": "cockroach_tpu/storage/pallas_scan.py:169",
+        "launches": launches["scan_filter"],
+        "max_abs_err": errs["scan_filter"],
+        "ms": device_ms(lambda: cuda_scan.scan_filter(win, 50, 0, 640)),
+        "plain_ms": device_ms(
+            lambda: cuda_scan.scan_filter_plain(win, 50, 0, 640)),
+        "bound_ms": rows * K1_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"128 windows x 640 lanes ({rows} rows)",
+    }
+    a = sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev)
+    b = sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev)
+    n = cuda_merge.merged_rows(a.capacity, b.capacity)
+    packed = flip(key_words(torch.cat([a.key, b.key]))[:, 0])
+    k2 = {
+        "name": "bitonic_merge", "route": "cuda",
+        "source": "cockroach_tpu_torch/csrc/bitonic_merge.cu",
+        "replaces": "cockroach_tpu/storage/pallas_merge.py:181",
+        "launches": launches["bitonic_merge"],
+        "max_abs_err": errs["bitonic_merge"],
+        "ms": device_ms(lambda: cuda_merge.merge_perm(a, b)),
+        "plain_ms": device_ms(lambda: cuda_merge.merge_perm_plain(a, b)),
+        "bound_ms": ((a.capacity + b.capacity) * K2_BYTES_PER_ROW
+                     + n * K2_PERM_BYTES) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": device_ms(
+            lambda: torch.sort(packed, stable=True)),
+        "shape": f"2 x 2^17 rows -> {n} slots",
+    }
+    return [k1, k2]
+
+
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    log(f"built {list(_build.SOURCES)} in {secs:.1f}s")
+    for name in _build.SOURCES:
+        rep = _build.OUT / f"{name}.log"
+        if rep.is_file():
+            for line in rep.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"{name}: {line.strip()}")
+    errs = {"scan_filter": check_scan_filter(dev),
+            "bitonic_merge": check_merge(dev)}
+    launches = run_ycsb(card)
+    profile_ycsb()
+    check_parity()
+    kernels = time_kernels(dev, launches, errs)
+    torch.cuda.synchronize()
+    log(f"total {time.perf_counter() - t0:.1f}s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

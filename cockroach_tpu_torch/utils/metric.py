@@ -1,0 +1,77 @@
+"""Metrics — the counters, gauges and histogram the storage slice bumps
+(names as in ``cockroach_tpu.utils.metric``)."""
+
+from __future__ import annotations
+
+import bisect
+import threading
+
+
+class Counter:
+    """Monotonically increasing value."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._value += delta
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Set-to-current value."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Fixed-bucket histogram."""
+
+    def __init__(self, name: str, buckets: tuple[float, ...]):
+        self.name = name
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)
+        self.n = 0
+        self.sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self.counts[bisect.bisect_left(self.buckets, v)] += 1
+            self.n += 1
+            self.sum += v
+
+
+ENGINE_FLUSHES = Counter("storage_flushes")
+ENGINE_COMPACTIONS = Counter("storage_compactions")
+ENGINE_INGESTS = Counter("storage_ingests")
+ENGINE_WRITES = Counter("storage_writes")
+ENGINE_SCANS = Counter("storage_scans")
+ENGINE_RUNS = Gauge("storage_runs")
+BLOOM_SKIPS = Counter("storage_bloom_skips")
+BLOOM_CORRUPTIONS = Counter("storage_bloom_corruptions")
+BLOCKCACHE_HITS = Counter("storage_blockcache_hits")
+BLOCKCACHE_MISSES = Counter("storage_blockcache_misses")
+BLOCKCACHE_EVICTIONS = Counter("storage_blockcache_evictions")
+BLOCKCACHE_BYTES = Gauge("storage_blockcache_bytes")
+INGEST_ROWS = Counter("storage_ingest_rows")
+INGEST_BYTES = Counter("storage_ingest_bytes")
+COMPACTION_PACING_DELAY = Histogram(
+    "storage_compaction_pacing_delay_seconds",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0))
+FAULTS_INJECTED = Counter("faults_injected")

@@ -105,16 +105,41 @@ def user_keys(ids: np.ndarray) -> np.ndarray:
     return out
 
 
+def grown_row(rng, lanes: int) -> dict[str, np.ndarray]:
+    """One window row of `lanes` lanes, as window growth makes them: key
+    runs of random length (ts descending within a run) of which none
+    starts at a multiple of 1,024 lanes, so a run crosses every chunk
+    edge of the scan-filter kernel; intents of txns 1-3, tombstones,
+    scattered dead lanes and a dead tail."""
+    i = np.arange(lanes)
+    starts = np.unique(np.concatenate(
+        [[0], rng.integers(1, lanes, lanes // 6)]))
+    starts = starts[(starts % 1024 != 0) | (starts == 0)]
+    run = np.searchsorted(starts, i, side="right") - 1
+    dec = np.cumsum(rng.integers(1, 12, lanes))
+    f = {"key": user_keys(run), "seq": np.zeros(lanes, np.int64),
+         "ts": (rng.integers(20, 400, len(starts))[run]
+                - (dec - dec[starts[run]])).astype(np.int64),
+         "txn": rng.choice(np.array([0, 0, 0, 0, 1, 2, 3]), lanes),
+         "tomb": rng.random(lanes) < 0.15,
+         "value": np.zeros((lanes, 8), np.uint8),
+         "vlen": np.zeros(lanes, np.int32),
+         "mask": (rng.random(lanes) < 0.98) & (i < lanes - lanes // 20)}
+    return f
+
+
 def sorted_run(rng, n: int, cap: int, nkeys: int, device,
-               ties: bool = False) -> mvcc.KVBlock:
-    """A sorted run of `cap` rows, n of them written (about 5% dead), the
-    rest a dead pad tail. With `ties`, every row shares ts and seq, so
+               ties: bool = False, key_lo: int = 0,
+               dead: float = 0.05) -> mvcc.KVBlock:
+    """A sorted run of `cap` rows, n of them written (a `dead` share of
+    them dead) with keys from [key_lo, key_lo + nkeys), the rest a dead
+    pad tail. With `ties`, every row is live and shares ts and seq, so
     equal keys are equal composite keys."""
     f = {"key": np.zeros((cap, 16), np.uint8), "ts": np.zeros(cap, np.int64),
          "seq": np.zeros(cap, np.int64), "txn": np.zeros(cap, np.int64),
          "tomb": np.zeros(cap, bool), "value": np.zeros((cap, 8), np.uint8),
          "vlen": np.zeros(cap, np.int32), "mask": np.zeros(cap, bool)}
-    f["key"][:n] = user_keys(rng.integers(0, nkeys, n))
+    f["key"][:n] = user_keys(key_lo + rng.integers(0, nkeys, n))
     f["ts"][:n] = 7 if ties else rng.integers(1, 1000, n)
     f["seq"][:n] = 9 if ties else rng.integers(1, 1 << 40, n)
     f["txn"][:n] = rng.integers(0, 2, n)
@@ -122,7 +147,7 @@ def sorted_run(rng, n: int, cap: int, nkeys: int, device,
     f["value"][:n, :4] = np.arange(n, dtype=np.int32).view(np.uint8).reshape(
         n, 4)
     f["vlen"][:n] = 4
-    f["mask"][:n] = True if ties else rng.random(n) < 0.95
+    f["mask"][:n] = True if ties else rng.random(n) >= dead
     return mvcc.sort_block(mvcc.kvblock_from_numpy(f, device))
 
 
@@ -144,13 +169,20 @@ def check_scan_filter(dev) -> int:
     difference (0 or the phase raises)."""
     rng = np.random.default_rng(11)
     cases = [("ycsb 128x640", scan_windows(rng, 128, 640), 640),
+             ("window 64x128", scan_windows(rng, 64, 128), 128),
              ("grown 4x4096", scan_windows(rng, 4, 4096, nkeys=60,
                                            versions=40), 4096),
+             ("grown row 1x65536", grown_row(rng, 65536), 65536),
              ("edges x640", edge_windows(640), 640),
              ("edges x2048", edge_windows(2048), 2048)]
+    cases = [(name, mvcc.kvblock_from_numpy(f, dev), window)
+             for name, f, window in cases]
+    # the same rows one row into larger tensors: ts, txn, tomb and mask
+    # lose the alignment of the kernel's wide loads (keys keep 16 bytes)
+    cases.append(("ycsb 128x640 as offset views",
+                  cases[0][1].map(lambda x: torch.cat([x[:1], x])[1:]), 640))
     worst = 0
-    for name, f, window in cases:
-        blk = mvcc.kvblock_from_numpy(f, dev)
+    for name, blk, window in cases:
         for read_ts, reader in ((50, 0), (10, 0), (50, 1), (200, 2),
                                 (50_000, 0), (50_000, 3)):
             got = cuda_scan.scan_filter(blk, read_ts, reader, window)
@@ -172,6 +204,27 @@ def _plain_pair(a, b):
     return cuda_merge.gather_merged(a, b, cuda_merge.merge_perm_plain(a, b))
 
 
+def check_tournament(runs: tuple) -> None:
+    """merge_runs on the card against the same tournament of plain
+    merges, field by field, and its live rows against merge_blocks."""
+    got = cuda_merge.merge_runs(runs)
+    want = runs
+    while len(want) > 1:
+        nxt = [_plain_pair(want[i], want[i + 1])
+               for i in range(0, len(want) - 1, 2)]
+        want = tuple(nxt + list(want[len(want) - len(want) % 2:]))
+    ref = mvcc.merge_blocks(runs, cap=got.capacity)
+    torch.cuda.synchronize()
+    for f in mvcc.FIELDS:
+        if not torch.equal(getattr(got, f), getattr(want[0], f)):
+            raise AssertionError(f"{len(runs)}-run tournament differs in {f}")
+    if not same_rows(live_rows(got), live_rows(ref)):
+        raise AssertionError(f"{len(runs)}-run tournament live rows differ "
+                             f"from sort")
+    log(f"K2 {len(runs)}-run tournament == plain "
+        f"({int(got.mask.sum())} live rows)")
+
+
 def check_merge(dev) -> int:
     """K2 against its plain version on the card: permutations and merged
     live rows equal, and equal to merge_blocks' stable sort."""
@@ -191,34 +244,44 @@ def check_merge(dev) -> int:
         ref = mvcc.merge_blocks((a, b), cap=merged.capacity)
         if not same_rows(live_rows(merged), live_rows(ref)):
             raise AssertionError(f"merged live rows differ on {name}")
-        log(f"K2 bitonic merge == plain on {name} "
+        log(f"K2 merge_path == plain on {name} "
             f"({int(merged.mask.sum())} live rows)")
 
+    big = 1 << 17
     pair_case("2x4096 with dead padding",
               sorted_run(rng, 3000, 4096, 500, dev),
               sorted_run(rng, 4096, 4096, 500, dev))
     pair_case("2x2^17 (YCSB load shape)",
-              sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev),
-              sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev))
+              sorted_run(rng, big, big, big // 2, dev),
+              sorted_run(rng, big, big, big // 2, dev))
     pair_case("live (key, ts, seq) ties",
               sorted_run(rng, 900, 1024, 40, dev, ties=True),
               sorted_run(rng, 1024, 1024, 40, dev, ties=True))
+    low = sorted_run(rng, 20_000, 1 << 15, 5000, dev, dead=0.0)
+    high = sorted_run(rng, 1 << 15, 1 << 15, 5000, dev, key_lo=5000,
+                      dead=0.0)
+    pair_case("all of A below all of B", low, high)
+    pair_case("all of A above all of B", high, low)
+    one = sorted_run(rng, 1, 1, 10, dev)
+    many = sorted_run(rng, big, big, big // 2, dev)
+    pair_case("1 row against 2^17", one, many)
+    pair_case("2^17 rows against 1", many, one)
+    pair_case("2x8192 live ties of one key over many tiles",
+              sorted_run(rng, 8192, 8192, 1, dev, ties=True),
+              sorted_run(rng, 8192, 8192, 1, dev, ties=True))
+    pair_case("dead tails of unequal lengths",
+              sorted_run(rng, 500, 8192, 300, dev, dead=0.3),
+              sorted_run(rng, 2000, 2048, 300, dev))
+    pair_case("2x2^20 (several waves)",
+              sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev),
+              sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev))
 
-    runs = tuple(sorted_run(rng, int(rng.integers(500, 2048)), 2048, 300,
-                            dev) for _ in range(4))
-    got = cuda_merge.merge_runs(runs)
-    want = runs
-    while len(want) > 1:
-        want = tuple(_plain_pair(want[i], want[i + 1])
-                     for i in range(0, len(want), 2))
-    ref = mvcc.merge_blocks(runs, cap=got.capacity)
-    torch.cuda.synchronize()
-    for f in mvcc.FIELDS:
-        if not torch.equal(getattr(got, f), getattr(want[0], f)):
-            raise AssertionError(f"4-run tournament differs in {f}")
-    if not same_rows(live_rows(got), live_rows(ref)):
-        raise AssertionError("4-run tournament live rows differ from sort")
-    log(f"K2 4-run tournament == plain ({int(got.mask.sum())} live rows)")
+    check_tournament(tuple(
+        sorted_run(rng, int(rng.integers(500, 2048)), 2048, 300, dev)
+        for _ in range(4)))
+    check_tournament(tuple(
+        sorted_run(rng, int(rng.integers(1, cap + 1)), cap, 3000, dev)
+        for cap in (4096, 8192, 1024, 8192, 2048, 4096, 8192, 1)))
     return worst
 
 
@@ -326,7 +389,7 @@ def run_ycsb(card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                    "bitonic_merge": cuda_merge.merge_perm.launches}
+                    "merge_path": cuda_merge.merge_perm.launches}
     if not y["bit_identical"]:
         raise AssertionError("YCSB ingest and put paths disagree")
     for k, n in launches.items():
@@ -498,41 +561,74 @@ def device_ms(fn, reps: int = 30, lead_cycles: int = 20_000_000) -> float:
     return statistics.median(times)
 
 
-def time_kernels(dev, launches: dict, errs: dict) -> list[dict]:
+def kernels_per_call(fn) -> int | str:
+    """CUDA kernels one call of fn() runs, from a torch.profiler trace of
+    a second call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or "not measured"
+
+
+def time_kernels(dev, errs: dict) -> list[dict]:
+    """Both kernels at the main path's shapes, each row with an empty
+    launch's time (`floor_ms`) beside it; `launches` is filled in from
+    the main path's run."""
     rng = np.random.default_rng(3)
+    floor = device_ms(lambda: torch.cuda._sleep(0))
     win = mvcc.kvblock_from_numpy(scan_windows(rng, 128, 640), dev)
     rows = win.capacity
     k1 = {
         "name": "scan_filter", "route": "cuda",
         "source": "cockroach_tpu_torch/csrc/scan_filter.cu",
         "replaces": "cockroach_tpu/storage/pallas_scan.py:169",
-        "launches": launches["scan_filter"],
+        "launches": None,
         "max_abs_err": errs["scan_filter"],
         "ms": device_ms(lambda: cuda_scan.scan_filter(win, 50, 0, 640)),
         "plain_ms": device_ms(
             lambda: cuda_scan.scan_filter_plain(win, 50, 0, 640)),
         "bound_ms": rows * K1_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes", "library_ms": None, "floor_ms": floor,
         "shape": f"128 windows x 640 lanes ({rows} rows)",
     }
     a = sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev)
     b = sorted_run(rng, 1 << 17, 1 << 17, 1 << 16, dev)
     n = cuda_merge.merged_rows(a.capacity, b.capacity)
     packed = flip(key_words(torch.cat([a.key, b.key]))[:, 0])
+    a20 = sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev)
+    b20 = sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev)
+
+    def k2_bound(x, y):
+        return ((x.capacity + y.capacity) * K2_BYTES_PER_ROW
+                + cuda_merge.merged_rows(x.capacity, y.capacity)
+                * K2_PERM_BYTES) / HBM_BYTES_PER_S * 1e3
+
     k2 = {
-        "name": "bitonic_merge", "route": "cuda",
-        "source": "cockroach_tpu_torch/csrc/bitonic_merge.cu",
+        "name": "merge_path", "route": "cuda",
+        "source": "cockroach_tpu_torch/csrc/merge_path.cu",
         "replaces": "cockroach_tpu/storage/pallas_merge.py:181",
-        "launches": launches["bitonic_merge"],
-        "max_abs_err": errs["bitonic_merge"],
+        "launches": None,
+        "max_abs_err": errs["merge_path"],
         "ms": device_ms(lambda: cuda_merge.merge_perm(a, b)),
         "plain_ms": device_ms(lambda: cuda_merge.merge_perm_plain(a, b)),
-        "bound_ms": ((a.capacity + b.capacity) * K2_BYTES_PER_ROW
-                     + n * K2_PERM_BYTES) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": k2_bound(a, b),
         "bound_by": "bytes",
         "library_ms": device_ms(
             lambda: torch.sort(packed, stable=True)),
+        "floor_ms": floor,
+        "cuda_launches_per_call": kernels_per_call(
+            lambda: cuda_merge.merge_perm(a, b)),
         "shape": f"2 x 2^17 rows -> {n} slots",
+        # several waves of blocks, where bytes rather than latency bound it
+        "ms_2x2^20": device_ms(lambda: cuda_merge.merge_perm(a20, b20)),
+        "bound_ms_2x2^20": k2_bound(a20, b20),
     }
     return [k1, k2]
 
@@ -566,11 +662,15 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"{name}: {line.strip()}")
     errs = {"scan_filter": check_scan_filter(dev),
-            "bitonic_merge": check_merge(dev)}
+            "merge_path": check_merge(dev)}
+    # timed before the YCSB phases: a torch.profiler session after the
+    # long profiled run records no device events on the card
+    kernels = time_kernels(dev, errs)
     launches = run_ycsb(card)
     profile_ycsb()
     check_parity()
-    kernels = time_kernels(dev, launches, errs)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(card)

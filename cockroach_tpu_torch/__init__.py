@@ -12,8 +12,8 @@ Slice 1 covers the MVCC LSM storage engine under the YCSB-E workload:
   compaction, bounded and batched scans, point gets, intent resolution;
 - ``storage.cuda_scan``: the MVCC window scan filter (CUDA kernel
   ``csrc/scan_filter.cu``);
-- ``storage.cuda_merge``: the LSM bitonic run merge (CUDA kernel
-  ``csrc/bitonic_merge.cu``);
+- ``storage.cuda_merge``: the LSM run merge (CUDA merge-path kernel
+  ``csrc/merge_path.cu``);
 - ``bench.ycsb.run_ycsb_e``: the YCSB-E workload.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a

@@ -21,7 +21,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 OUT = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan_filter", "bitonic_merge")
+SOURCES = ("scan_filter", "merge_path")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

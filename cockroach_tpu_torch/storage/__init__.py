@@ -5,7 +5,7 @@ Counterparts in ``cockroach_tpu.storage``:
   the batched-scan window filter runs as the CUDA kernel in
   ``cuda_scan`` (counterpart of ``pallas_scan``).
 - ``mvcc.merge_blocks``      <- the k-way merge as one stable sort; the
-  compaction and bulk-ingest merges run as the CUDA bitonic merge in
+  compaction and bulk-ingest merges run as the CUDA merge-path merge in
   ``cuda_merge`` (counterpart of ``pallas_merge``).
 - ``lsm.Engine``             <- the Pebble wrapper: WAL, memtable, sorted
   runs, compaction, reads.

@@ -1,14 +1,16 @@
-"""LSM run merge — the CUDA bitonic merge ``csrc/bitonic_merge.cu`` and
+"""LSM run merge — the CUDA merge-path kernel ``csrc/merge_path.cu`` and
 its wrappers (counterpart of ``cockroach_tpu.storage.pallas_merge``).
 
-Two sorted runs, the second reversed, form a bitonic sequence that
-log2(N) compare-exchange stages sort; K runs merge as a pairwise
-tournament of log2(K) rounds. Only the permutation into [A; B] leaves the
-kernel; ``merge_pair`` gathers the block once from it.
+Two runs, each sorted under the canonical MVCC order (dead rows
+included), merge in one launch: each block finds where its slice of the
+output crosses the merge path and merges that slice in shared memory. K
+runs merge as a pairwise tournament of log2(K) rounds. Only the
+permutation into [A; B] leaves the kernel; ``merge_pair`` gathers the
+block once from it.
 
 The permutation equals that of a stable sort of [A; B] under the
-canonical MVCC order (``mvcc._mvcc_sort_operands``), ties included: the
-kernel breaks ties on the row index. The plain version
+canonical MVCC order (``mvcc._mvcc_sort_operands``), ties included: on
+equal composite keys the kernel takes A's row first. The plain version
 (``merge_perm_plain``) is that stable sort. On CPU tensors
 ``merge_perm`` runs the plain version; on CUDA tensors it launches the
 kernel or raises.
@@ -25,14 +27,15 @@ from . import mvcc
 from .keys import INT64_MIN
 
 # Re-derived for the card. The TPU kernel held the whole merge in VMEM
-# (2^17 rows). This kernel stages through device memory, so only device
-# memory bounds it. A merge of N output rows holds a 40-byte record and a
-# 4-byte permutation entry per row, the concatenated inputs and the
-# gathered output block (62 B/row each at 16-byte keys and values):
-# about 170 B/row. 2^26 rows is then ~11 GB, under a seventh of an H100's
-# 80 GB, leaving the rest to the resident runs; the row index also stays
-# far inside int32. The YCSB bulk-load merge (2 x 2^17 rows, bound
-# 2 * 2 * 2^17 = 2^19) is well inside it.
+# (2^17 rows). This kernel reads the runs from device memory and keeps
+# only one 1,024-slot tile per block in shared memory, so only device
+# memory bounds it. A merge of N output rows holds a 4-byte permutation
+# entry per row, the concatenated inputs and the gathered output block
+# (62 B/row each at 16-byte keys and values): about 130 B/row. 2^26 rows
+# is then ~8.7 GB, about a ninth of an H100's 80 GB, leaving the rest to
+# the resident runs; the row index also stays far inside int32. The YCSB
+# bulk-load merge (2 x 2^17 rows, bound 2 * 2 * 2^17 = 2^19) is well
+# inside it.
 MAX_MERGE_ROWS = 1 << 26
 _MIN_HALF = 64  # the reference's smallest merge (one 128-lane row)
 
@@ -42,16 +45,14 @@ _lib = None
 def _kernel() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("bitonic_merge")
+        lib = _build.load("merge_path")
         p = ctypes.c_void_p
         i64 = ctypes.c_longlong
-        lib.ct_bitonic_merge.argtypes = [p, p, p, p, i64, p, p, p, p, i64,
-                                         i64, p, p, p]
-        lib.ct_bitonic_merge.restype = ctypes.c_int
-        lib.ct_bitonic_merge_error.argtypes = [ctypes.c_int]
-        lib.ct_bitonic_merge_error.restype = ctypes.c_char_p
-        lib.ct_bitonic_record_bytes.argtypes = []
-        lib.ct_bitonic_record_bytes.restype = ctypes.c_longlong
+        lib.ct_merge_path.argtypes = [p, p, p, p, i64, p, p, p, p, i64, i64,
+                                      p, p]
+        lib.ct_merge_path.restype = ctypes.c_int
+        lib.ct_merge_path_error.argtypes = [ctypes.c_int]
+        lib.ct_merge_path_error.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -99,7 +100,9 @@ def _check(blk: mvcc.KVBlock, dev: torch.device) -> None:
 
 def merge_perm(a: mvcc.KVBlock, b: mvcc.KVBlock) -> torch.Tensor:
     """Permutation merging two sorted runs: indices into [A; B], sorted by
-    the canonical MVCC order, pads (-1) last."""
+    the canonical MVCC order, pads (-1) last. Each run must be sorted
+    under that order, dead rows included (as ``mvcc.sort_block`` and
+    ``gather_merged`` leave them)."""
     if a.key.device.type == "cpu" and b.key.device.type == "cpu":
         return merge_perm_plain(a, b)
     dev = a.key.device
@@ -112,18 +115,16 @@ def merge_perm(a: mvcc.KVBlock, b: mvcc.KVBlock) -> torch.Tensor:
     if n > MAX_MERGE_ROWS:
         raise ValueError(f"merge_perm: {n} rows exceed MAX_MERGE_ROWS")
     lib = _kernel()
-    scratch = torch.empty(n * lib.ct_bitonic_record_bytes(),
-                          dtype=torch.uint8, device=dev)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ct_bitonic_merge(
+    rc = lib.ct_merge_path(
         a.key.data_ptr(), a.ts.data_ptr(), a.seq.data_ptr(),
         a.mask.data_ptr(), n_a, b.key.data_ptr(), b.ts.data_ptr(),
-        b.seq.data_ptr(), b.mask.data_ptr(), n_b, n // 2,
-        scratch.data_ptr(), perm.data_ptr(), stream)
+        b.seq.data_ptr(), b.mask.data_ptr(), n_b, n, perm.data_ptr(),
+        stream)
     if rc:
-        raise RuntimeError("bitonic merge kernel launch failed: "
-                           + lib.ct_bitonic_merge_error(rc).decode())
+        raise RuntimeError("merge path kernel launch failed: "
+                           + lib.ct_merge_path_error(rc).decode())
     merge_perm.launches += 1
     return perm
 
@@ -169,7 +170,7 @@ def eligible(blocks: tuple[mvcc.KVBlock, ...]) -> bool:
 
 
 def merge_runs(blocks: tuple[mvcc.KVBlock, ...]) -> mvcc.KVBlock:
-    """K-way merge as a pairwise tournament of bitonic merges."""
+    """K-way merge as a pairwise tournament of merge-path merges."""
     runs = list(blocks)
     while len(runs) > 1:
         nxt = [merge_pair(runs[i], runs[i + 1])

@@ -3,7 +3,7 @@ counterpart of ``cockroach_tpu.storage.ingest``).
 
 ``RunBuilder`` buffers host column batches; at ``target_rows`` they
 upload once, sort per batch with ``mvcc.sort_block``, merge with the
-bitonic merge (``cuda_merge``) when eligible (concat + sort otherwise),
+merge-path kernel (``cuda_merge``) when eligible (concat + sort otherwise),
 dedup in one pass, and land in the LSM as one run through
 ``Engine.ingest(presorted=True)``.
 """
@@ -102,8 +102,8 @@ class RunBuilder:
     def _merge(self, blocks: tuple) -> mvcc.KVBlock:
         if len(blocks) == 1:
             return blocks[0]
-        # the compaction merge picker's rule: bitonic merge when eligible,
-        # concat + sort otherwise
+        # the compaction merge picker's rule: the merge-path kernel when
+        # eligible, concat + sort otherwise
         if self.engine.key_width == 16 and cuda_merge.eligible(blocks):
             return cuda_merge.merge_runs(blocks)
         total = sum(b.capacity for b in blocks)

@@ -5,7 +5,7 @@ the engine's device.
 - writes append to an on-disk WAL and a host memtable;
 - ``flush`` sorts the memtable into an immutable run (an "SST");
 - past ``l0_trigger`` runs, a size-tiered compaction merges the smallest
-  runs (the bitonic merge kernel when eligible, else concat + sort) and
+  runs (the merge-path kernel when eligible, else concat + sort) and
   applies the MVCC GC filter; ``compact(bottom=True)`` merges everything;
 - reads never mutate the run set: bounded reads gather the in-range rows
   of each source into small candidate tiles and merge those; batched
@@ -648,9 +648,9 @@ class Engine:
             self.governor.note_compaction()
 
     def _merge_for_compaction(self, blocks, total: int) -> mvcc.KVBlock:
-        """The bitonic merge (storage/cuda_merge.py) when the key width and
-        size allow it, else concat + sort. The post-GC sort + _shrink in
-        compact() trims the kernel's padded capacity either way."""
+        """The merge-path kernel (storage/cuda_merge.py) when the key width
+        and size allow it, else concat + sort. The post-GC sort + _shrink
+        in compact() trims the kernel's padded capacity either way."""
         from . import cuda_merge
 
         if self.key_width == 16 and cuda_merge.eligible(blocks):

@@ -11,6 +11,13 @@ bench.py's configuration (2^20 keys, 512 ops, 64-row scans, 128-way
 batches) through the port's engine on the card, checks the engine on the
 card against the same engine on the CPU, and times both kernels.
 
+Before YCSB it runs the SQL executor: TPC-H q1 and q3 at SF0.01 on the
+card against the CPU, then at SF1 (bench.py's seed) on the card, every
+run held to the numpy oracle (``bench/tpch_oracle.py``), timed by
+``bench/tpch_run.run_tpch`` and profiled once; it prints the
+``{"tpch": ...}`` line. Neither storage kernel runs on that path
+(``on_tpch_path`` in the kernel table counts their launches there).
+
 The line before the last is ``{"kernels": [...]}``, the line before that
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -438,6 +445,199 @@ def profile_ycsb() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# TPC-H: the SQL executor (q1, q3) on the card
+
+
+TPCH_SEED = 19920101  # bench.py's seed
+
+
+def device_profile(fn) -> dict:
+    """Run fn() once under torch.profiler: the device's busy time (sum of
+    kernel, copy and memset durations on the card) against the run's wall
+    time, and the device operations that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = per_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us()
+            acc[1] += 1
+    busy_us = sum(v[0] for v in per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_s": wall_us / 1e6,
+            "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
+            "idle_share": (1 - busy_us / wall_us) if busy_us
+            else "not measured",
+            "top_device_ops": [{"name": n[:120], "ms": v[0] / 1e3,
+                                "calls": v[1]} for n, v in top]}
+
+
+def tpch_results(sf: float, devices, seed: int = TPCH_SEED) -> list:
+    """q1 and q3 through the port's plan builder and runtime over a
+    catalog generated on each of `devices`: one {query: result} per
+    device."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    out = []
+    for dev in devices:
+        cat = gen_tpch(sf=sf, seed=seed, device=dev)
+        out.append({q: run_operator(builder.build(Q.QUERIES[q](cat).plan,
+                                                  cat))
+                    for q in Q.QUERIES})
+    return out
+
+
+def check_tpch_parity(dev, sf: float = 0.01) -> None:
+    """The same TPC-H data on the card and on the CPU give the same q1 and
+    q3 results (the FLOAT64 averages within the oracle's bound)."""
+    from cockroach_tpu_torch.bench import tpch_oracle
+
+    on_card, on_cpu = tpch_results(sf, (dev, "cpu"))
+    for q in on_card:
+        bad = tpch_oracle.mismatch(q, on_card[q], on_cpu[q])
+        if bad is not None:
+            raise AssertionError(f"TPC-H SF{sf} card != CPU: {bad}")
+    log(f"TPC-H SF{sf}: q1 and q3 on the card equal the CPU's")
+
+
+def time_dense_agg(cat) -> dict:
+    """The first candidate for a hand-written kernel on the TPC-H path:
+    q1's per-tile dense aggregation (SmallGroupAggregateOp.tile_states:
+    group codes, then every state by index_add_ scatter) on the first
+    lineitem tile as the main path gives it (filtered and projected),
+    timed with CUDA events; its bound counts the tile's columns, valid
+    bitmaps and mask read once (the [G] states written are negligible)."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.ops import aggregation as agg_ops
+    from cockroach_tpu_torch.plan import builder
+
+    root = builder.build(Q.q1(cat).plan, cat)
+    agg = root.child
+    root.init()
+    tile = agg.child.next_batch()
+    used = set(agg.group_cols) | {s.col for s in agg.partial_specs
+                                  if s.col is not None}
+    nbytes = tile.mask.numel() + sum(
+        c.data.numel() * c.data.element_size() + c.valid.numel()
+        for i, c in enumerate(tile.cols) if i in used)
+    code, _ = agg_ops.dense_group_codes(tile, agg.group_cols, agg.strides,
+                                        agg.key_sizes, agg.key_lows)
+    seg = torch.where(tile.mask, code, agg.G)
+    vals = tile.cols[agg.partial_specs[0].col].data
+    # the reference's accelerator formulation (a [rows, G] one-hot
+    # membership matrix) on the same tile, held equal to the scatter
+    scatter, _ = agg_ops.dense_scatter_states(
+        tile, agg.base_schema, code, agg.G, agg.partial_specs)
+    onehot, _ = agg_ops.smallgroup_partial_states(
+        tile, agg.base_schema, code, agg.G, agg.partial_specs)
+    for (sd, sv), (od, ov) in zip(scatter, onehot):
+        if not (torch.equal(sd, od) and torch.equal(sv, ov)):
+            raise AssertionError("one-hot dense states != scatter states")
+    one_bytes = (vals.numel() * vals.element_size()
+                 + seg.numel() * seg.element_size())
+    out = {"op": "SmallGroupAggregateOp.tile_states (dense_group_codes + "
+                 "dense_scatter_states)",
+           "rows": tile.capacity, "groups": agg.G,
+           "states": len(agg.partial_specs),
+           "ms": device_ms(lambda: agg.tile_states(tile)),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "onehot_ms": device_ms(
+               lambda: agg_ops.smallgroup_partial_states(
+                   tile, agg.base_schema, code, agg.G, agg.partial_specs)),
+           "index_add_ms": device_ms(
+               lambda: torch.zeros(agg.G + 1, dtype=vals.dtype,
+                                   device=vals.device).index_add_(
+                                       0, seg, vals)),
+           "index_add_bytes": one_bytes,
+           "index_add_bound_ms": one_bytes / HBM_BYTES_PER_S * 1e3}
+    root.close()
+    return out
+
+
+def operator_breakdown(root) -> dict:
+    """Wall time per operator (exclusive of its children) over one run
+    with per-operator stats on: the card is synchronized around every
+    tile pull, so each operator's time holds its own device work, and
+    the sum exceeds an unobserved run's time by those waits."""
+    from cockroach_tpu_torch.flow.runtime import run_operator
+
+    root.collect_stats(True)
+    run_operator(root)
+    root.collect_stats(False)
+    out = {}
+    stack = [root]
+    while stack:
+        op = stack.pop()
+        out[f"{len(out)}:{type(op).__name__}"] = (
+            op.stats.exclusive(op.children()) * 1e3)
+        stack.extend(reversed(op.children()))
+    return out
+
+
+def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
+    """The SQL main path at SF1 on the card: generate the catalog on the
+    card, time q1 and q3 through run_tpch (every run held to the numpy
+    oracle), then profile one more run of each."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.bench.tpch_run import run_tpch
+    from cockroach_tpu_torch.flow.runtime import host_syncs, run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    check_tpch_parity(torch.device("cuda"))
+    t0 = time.perf_counter()
+    cat = gen_tpch(sf=sf, seed=TPCH_SEED, device="cuda")
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    res = run_tpch(("q1", "q3"), sf=sf, seed=TPCH_SEED, runs=5,
+                   device="cuda", catalog=cat)
+    storage_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                        "merge_path": cuda_merge.merge_perm.launches}
+    profiles = {}
+    syncs = {}
+    operator_ms = {}
+    for q in ("q1", "q3"):
+        root = builder.build(Q.QUERIES[q](cat).plan, cat)
+        run_operator(root)
+        profiles[q] = device_profile(lambda root=root: run_operator(root))
+        syncs[q] = sum(host_syncs(root).values())
+        operator_ms[q] = operator_breakdown(root)
+    candidate = time_dense_agg(cat)
+    out = {"sf": sf, "lineitem_rows": res["lineitem_rows"], "gen_s": gen_s,
+           "q1": res["q1"], "q3": res["q3"],
+           "idle_share": profiles["q3"]["idle_share"],
+           "device_busy_s": profiles["q3"]["device_busy_s"],
+           "top_device_ops": profiles["q3"]["top_device_ops"],
+           "q1_profile": profiles["q1"],
+           "kernel_candidate": candidate,
+           "syncs_per_query": syncs,
+           "operator_exclusive_ms": operator_ms,
+           "storage_kernel_launches": storage_launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "card_vs_cpu_sf0.01": True, "card": card}
+    log(f"TPC-H SF{sf}: q1 {res['q1']['median_s'] * 1e3:.1f} ms, "
+        f"q3 {res['q3']['median_s'] * 1e3:.1f} ms (median), equal to the "
+        "numpy oracle")
+    print(json.dumps({"tpch": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # engine parity: the same operation sequence on two engines
 
 
@@ -663,14 +863,16 @@ def main() -> int:
                     log(f"{name}: {line.strip()}")
     errs = {"scan_filter": check_scan_filter(dev),
             "merge_path": check_merge(dev)}
-    # timed before the YCSB phases: a torch.profiler session after the
-    # long profiled run records no device events on the card
+    # timed and profiled before the YCSB phases: a torch.profiler session
+    # after the long profiled run records no device events on the card
     kernels = time_kernels(dev, errs)
+    tpch = run_tpch_phase(card)
     launches = run_ycsb(card)
     profile_ycsb()
     check_parity()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["on_tpch_path"] = tpch["storage_kernel_launches"][k["name"]] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(card)

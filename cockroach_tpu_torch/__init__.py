@@ -16,6 +16,18 @@ Slice 1 covers the MVCC LSM storage engine under the YCSB-E workload:
   ``csrc/merge_path.cu``);
 - ``bench.ycsb.run_ycsb_e``: the YCSB-E workload.
 
+The SQL slice runs the vectorized executor as far as TPC-H Q1 and Q3:
+
+- ``coldata``, ``catalog``: columnar tiles and the resident table catalog
+  (``catalog.catalog_from_host`` loads tables given as numpy arrays);
+- ``ops``: expressions, sort keys and sorts, sort-based and dense
+  aggregation, unique-build joins;
+- ``flow``, ``plan``, ``sql.rel``: the operators, the runtime
+  (``flow.runtime.run_operator``), the plan builder and ``Rel``;
+- ``bench.tpch``, ``bench.queries``, ``bench.tpch_run.run_tpch``: the
+  seeded TPC-H generator, q1 and q3, and their timed, oracle-checked
+  runs (``bench.tpch_oracle``).
+
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a
 card it raises unless the caller passes ``device="cpu"``. On CPU tensors
 each kernel wrapper runs its plain PyTorch version; on CUDA tensors it

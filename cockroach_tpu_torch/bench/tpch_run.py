@@ -1,0 +1,85 @@
+"""TPC-H queries through the port, timed — the counterpart of bench.py's
+``_bench_query``.
+
+    python3 -m cockroach_tpu_torch.bench.tpch_run [--sf 1.0] [--runs 5]
+
+For each query: one operator tree, built once and re-run. The first run
+is timed alone (``cold_s``), then the second (``warm_s``), then the
+median of ``runs`` more (``median_s``); ``rows_per_sec`` is lineitem's
+row count over the median, as bench.py reports it. Every run's result is
+held to ``bench/tpch_oracle.py``; a mismatch raises. Prints one JSON
+object with the figures, the host syncs per query and the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+from ..device import resolve_device
+from ..flow.runtime import host_syncs, run_operator
+from ..plan import builder as plan_builder
+from . import queries as Q
+from . import tpch_oracle
+from .tpch import gen_tpch
+
+
+def _timed_run(root, dev: torch.device):
+    t0 = time.perf_counter()
+    res = run_operator(root)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def run_tpch(queries=("q1", "q3"), sf: float = 1.0, seed: int = 19920101,
+             runs: int = 5, device="cuda", catalog=None) -> dict:
+    """Time `queries` on `device` over a TPC-H catalog at scale `sf` (or
+    the given `catalog`, on the same device); every result is checked
+    against the numpy oracle."""
+    dev = resolve_device(device)
+    cat = catalog if catalog is not None else gen_tpch(sf=sf, seed=seed,
+                                                       device=dev)
+    if cat.device != dev:
+        raise ValueError(f"catalog lives on {cat.device}, not {dev}")
+    nrows = cat.get("lineitem").num_rows
+    out = {"sf": sf, "lineitem_rows": nrows, "device": str(dev)}
+    for q in queries:
+        root = plan_builder.build(Q.QUERIES[q](cat).plan, cat)
+        want = tpch_oracle.ORACLES[q](cat)
+        times = []
+        for _ in range(runs + 2):
+            res, secs = _timed_run(root, dev)
+            bad = tpch_oracle.mismatch(q, res, want)
+            if bad is not None:
+                raise AssertionError(f"{q} disagrees with the oracle: {bad}")
+            times.append(secs)
+        med = statistics.median(times[2:])
+        out[q] = {"cold_s": times[0], "warm_s": times[1], "median_s": med,
+                  "rows_per_sec": nrows / med, "equal": True,
+                  "host_syncs": host_syncs(root)}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=19920101)
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--queries", default="q1,q3")
+    a = ap.parse_args()
+    res = run_tpch(tuple(a.queries.split(",")), sf=a.sf, seed=a.seed,
+                   runs=a.runs, device=a.device)
+    if res["device"].startswith("cuda"):
+        res["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,141 @@
+"""Plan -> operator tree — the colbuilder.NewColOperator analog; the port
+of ``cockroach_tpu.plan.builder`` for the node kinds of TPC-H Q1 and Q3
+(TableScan, Filter, Project, Aggregate, Sort, Limit, HashJoin). Any other
+node raises NotImplementedError. The reference then fuses stateless
+per-tile chains (flow/fuse.py); the port runs the tree unfused.
+"""
+
+from __future__ import annotations
+
+from ..catalog import Catalog
+from ..coldata.types import Family
+from ..flow import operators as ops
+from ..flow.operator import Operator
+from ..ops import expr as ex
+from ..ops.aggregation import STAT_FUNCS
+from ..utils import settings
+from . import spec as S
+
+# maximum dense group-code space (product of per-key bounds) for the
+# dense aggregation path; larger key spaces group by sorting (the
+# reference's sql.distsql.dense_agg_states default)
+DENSE_AGG_STATES = 1 << 23
+
+
+def _plan_dense_agg(child: Operator, group_cols, aggs):
+    """(key_sizes, key_lows) for the dense aggregation when every group
+    key is bounded — by catalog stats (integer families) or dictionary
+    size (strings) — and the packed code space fits DENSE_AGG_STATES."""
+    for spec in aggs:
+        if spec.func not in ("sum", "count", "count_rows", "min", "max",
+                             "avg", "any_not_null") + STAT_FUNCS:
+            return None
+    sizes, lows = [], []
+    G = 1
+    for gi in group_cols:
+        t = child.output_schema.types[gi]
+        if t.family is Family.STRING and gi in child.dictionaries:
+            size, lo = len(child.dictionaries[gi]), 0
+        elif t.family in (Family.FLOAT, Family.BYTES, Family.JSON,
+                          Family.STRING):
+            return None
+        else:
+            st = child.col_stats.get(gi)
+            if st is None:
+                return None
+            lo, hi = int(st[0]), int(st[1])
+            size = hi - lo + 1
+            if size <= 0:
+                return None
+        sizes.append(size)
+        lows.append(lo)
+        G *= size + 1  # +1: the per-key NULL code (dense_layout)
+        if G > DENSE_AGG_STATES:
+            return None
+    return tuple(sizes), tuple(lows)
+
+
+def _clustered_input(plan: S.PlanNode, group_cols, catalog: Catalog):
+    """(ordered, prefix_live) for an Aggregate's input chain: ordered when
+    the walk down Project/Filter reaches a TableScan whose Table.ordering
+    prefix IS the group key set; prefix_live when no Filter interleaves
+    dead rows."""
+    cols = list(group_cols)
+    prefix_live = True
+    node = plan
+    while True:
+        if isinstance(node, S.Project):
+            mapped = []
+            for c in cols:
+                e = node.exprs[c]
+                if not isinstance(e, ex.ColRef):
+                    return False, False
+                mapped.append(e.idx)
+            cols = mapped
+            node = node.input
+        elif isinstance(node, S.Filter):
+            prefix_live = False
+            node = node.input
+        elif isinstance(node, S.TableScan):
+            table = catalog.get(node.table)
+            ordering = tuple(table.ordering or ())
+            if not ordering or len(cols) > len(ordering):
+                return False, False
+            names = tuple(node.columns or table.schema.names)
+            try:
+                keynames = {names[c] for c in cols}
+            except IndexError:
+                return False, False
+            if keynames == set(ordering[: len(cols)]):
+                return True, prefix_live
+            return False, False
+        else:
+            return False, False
+
+
+def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
+    """Instantiate the operator tree for `plan` over `catalog`'s tables."""
+    if isinstance(plan, S.TableScan):
+        if plan.shard is not None:
+            raise NotImplementedError(
+                "sharded scans wait for the port's multi-device slice "
+                "(ROADMAP Queue 1)")
+        return ops.ScanOp(catalog.get(plan.table), plan.columns,
+                          tile=settings.get("sql.distsql.tile_size"))
+    if isinstance(plan, S.Filter):
+        return ops.FilterOp(build(plan.input, catalog), plan.predicate)
+    if isinstance(plan, S.Project):
+        return ops.ProjectOp(build(plan.input, catalog), plan.exprs,
+                             plan.names, plan.dict_overrides)
+    if isinstance(plan, S.Aggregate):
+        child = build(plan.input, catalog)
+        if plan.key_sizes is not None and plan.mode == "complete":
+            return ops.SmallGroupAggregateOp(
+                child, plan.group_cols, plan.aggs, plan.key_sizes)
+        if plan.mode == "complete":
+            dense = _plan_dense_agg(child, plan.group_cols, plan.aggs)
+            if dense is not None:
+                sizes, lows = dense
+                return ops.SmallGroupAggregateOp(
+                    child, plan.group_cols, plan.aggs, sizes, key_lows=lows)
+        ordered, prefix_live = (
+            _clustered_input(plan.input, plan.group_cols, catalog)
+            if plan.mode in ("complete", "partial") else (False, False))
+        return ops.AggregateOp(child, plan.group_cols, plan.aggs, plan.mode,
+                               ordered=ordered, prefix_live=prefix_live)
+    if isinstance(plan, S.Sort):
+        return ops.SortOp(build(plan.input, catalog), plan.keys)
+    if isinstance(plan, S.Limit):
+        return ops.LimitOp(build(plan.input, catalog), plan.limit,
+                           plan.offset)
+    if isinstance(plan, S.HashJoin):
+        return ops.HashJoinOp(
+            build(plan.probe, catalog), build(plan.build, catalog),
+            plan.probe_keys, plan.build_keys, plan.spec)
+    if isinstance(plan, S.Exchange):
+        # single-device build: the shuffle is the identity
+        return build(plan.input, catalog)
+    raise NotImplementedError(
+        f"plan node {type(plan).__name__} (TopK, ScalarAggregate, Distinct, "
+        "Window, MergeJoin, Union, IndexScan and the distribution nodes) "
+        "waits for a later SQL slice of the port (ROADMAP Queue 1)")

@@ -1,0 +1,225 @@
+"""Physical plan IR — the port of ``cockroach_tpu.plan.spec``, the
+execinfrapb.ProcessorSpec analog. The port's builder (plan/builder.py)
+instantiates the node kinds of its slice and raises NotImplementedError
+for the others.
+
+Reference: pkg/sql/execinfrapb/processors*.proto defines ProcessorSpec (core +
+post-processing) wired by stream edges into a FlowSpec; colbuilder's
+NewColOperator (pkg/sql/colexec/colbuilder/execplan.go:736) maps each spec to
+an operator. Here the IR is a tree of frozen dataclasses; plan/builder.py maps
+it to flow operators. Distribution nodes (Exchange) mirror OutputRouterSpec /
+InputSyncSpec (execinfrapb/data.proto:111,149).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..coldata.types import Schema
+from ..ops.aggregation import AggSpec
+from ..ops.expr import Expr
+from ..ops.join import JoinSpec
+from ..ops.sort import SortKey
+
+
+class PlanNode:
+    pass
+
+
+@dataclass(frozen=True)
+class TableScan(PlanNode):
+    table: str
+    columns: tuple[str, ...] | None = None  # None = all
+    # cross-host partitioned read: this scan covers row range
+    # [i*rows//n, (i+1)*rows//n) of the table — the TableReader span
+    # partitioning a SetupFlow ships to each node (PartitionSpans role)
+    shard: tuple[int, int] | None = None  # (shard index, shard count)
+
+
+@dataclass(frozen=True)
+class IndexScan(PlanNode):
+    """Index-backed read: scan the secondary index keyspace for values in
+    [lo, hi], then fetch the matched primary rows through the Streamer
+    (joinreader/kvstreamer role). Output capacity is sized by the match
+    count, not the table."""
+
+    table: str
+    index: str  # IndexDesc.name
+    lo: int | None  # inclusive value bounds in the indexed column's
+    hi: int | None  # int-encoded domain (None = unbounded)
+    columns: tuple[str, ...] | None = None
+
+
+@dataclass(frozen=True)
+class HashBucket(PlanNode):
+    """Keep only rows whose key-hash bucket equals `part` of `n_parts` —
+    one outgoing stream of a HashRouter (colflow/routers.go:420): a
+    producer plans one HashBucket per consumer over the same input."""
+
+    input: PlanNode
+    keys: tuple[int, ...]
+    n_parts: int
+    part: int
+
+
+@dataclass(frozen=True)
+class RemoteStream(PlanNode):
+    """Leaf that attaches to a peer host's registered flow stream and
+    yields its batches — the StreamEndpointSpec REMOTE type
+    (execinfrapb/data.proto) + Inbox (colrpc/inbox.go:48)."""
+
+    addr: tuple  # (host, port)
+    flow_id: str
+    stream_id: int
+    schema: Schema
+
+
+@dataclass(frozen=True)
+class StreamUnion(PlanNode):
+    """Unordered fan-in of several inputs with one puller thread per
+    input (ParallelUnorderedSynchronizer role) — used for inbound remote
+    streams so hosts stream concurrently."""
+
+    inputs: tuple[PlanNode, ...]
+
+
+@dataclass(frozen=True)
+class Filter(PlanNode):
+    input: PlanNode
+    predicate: Expr
+
+
+@dataclass(frozen=True)
+class Project(PlanNode):
+    input: PlanNode
+    exprs: tuple[Expr, ...]
+    names: tuple[str, ...]
+    # (output index, Dictionary) pairs for STRING outputs whose dictionary
+    # the expr machinery cannot infer (e.g. host-side string transforms)
+    dict_overrides: tuple = ()
+
+
+@dataclass(frozen=True)
+class Aggregate(PlanNode):
+    input: PlanNode
+    group_cols: tuple[int, ...]
+    aggs: tuple[AggSpec, ...]
+    # "complete" | "partial" | "final" — partial/final mirror CRDB's
+    # local/final aggregation stages around a shuffle
+    mode: str = "complete"
+    # planner hint: every group key is a dense code of known cardinality
+    # (dictionary size); enables the sort-free dense-state aggregation path
+    key_sizes: tuple[int, ...] | None = None
+    # for mode="final": the schema the original aggs/group_cols were written
+    # against (the partial stage's input), needed to recompute the shared
+    # partial-state layout on the far side of an Exchange
+    base_schema: Schema | None = None
+
+
+@dataclass(frozen=True)
+class HashJoin(PlanNode):
+    probe: PlanNode
+    build: PlanNode
+    probe_keys: tuple[int, ...]
+    build_keys: tuple[int, ...]
+    spec: JoinSpec = JoinSpec()
+
+
+@dataclass(frozen=True)
+class Sort(PlanNode):
+    input: PlanNode
+    keys: tuple[SortKey, ...]
+
+
+@dataclass(frozen=True)
+class Limit(PlanNode):
+    input: PlanNode
+    limit: int
+    offset: int = 0
+
+
+@dataclass(frozen=True)
+class TopK(PlanNode):
+    """ORDER BY ... LIMIT k as a device k-selection (sorttopk.go analog):
+    fold a per-tile stable top-k over the input instead of spooling and
+    fully sorting it. Output is the sorted first-k rows — bit-identical
+    to Sort + Limit, which plan/topkopt.py rewrites into this node."""
+
+    input: PlanNode
+    keys: tuple[SortKey, ...]
+    k: int
+
+
+@dataclass(frozen=True)
+class Distinct(PlanNode):
+    input: PlanNode
+    cols: tuple[int, ...] | None = None  # None = all columns
+
+
+@dataclass(frozen=True)
+class Exchange(PlanNode):
+    """Repartition rows across the mesh by key hash — the HashRouter +
+    Outbox/Inbox shuffle (colflow/routers.go:420, colrpc) as an ICI
+    all-to-all. No-op on a single device."""
+
+    input: PlanNode
+    keys: tuple[int, ...]
+
+
+@dataclass(frozen=True)
+class Broadcast(PlanNode):
+    """Replicate the input on every device (all_gather over the mesh) —
+    the broadcast-join placement the reference's planner picks for small
+    build sides (PhysicalPlan mergeResultStreams to every node)."""
+
+    input: PlanNode
+
+
+@dataclass(frozen=True)
+class Gather(PlanNode):
+    """Collect all partitions onto every device (all_gather) — the
+    final-stage fan-in to the gateway node (DistSQLReceiver role) for
+    globally-ordered operators (Sort/Limit at the plan root)."""
+
+    input: PlanNode
+
+
+@dataclass(frozen=True)
+class ScalarAggregate(PlanNode):
+    """Aggregation without GROUP BY: always exactly one output row."""
+
+    input: PlanNode
+    aggs: tuple[AggSpec, ...]
+    mode: str = "complete"
+
+
+@dataclass(frozen=True)
+class Window(PlanNode):
+    """Window functions over (partition, order) — colexecwindow analog.
+    specs are ops.window.WindowSpec; output appends one column per spec."""
+
+    input: PlanNode
+    partition_cols: tuple[int, ...]
+    order_keys: tuple[SortKey, ...]
+    specs: tuple = ()
+
+
+@dataclass(frozen=True)
+class Union(PlanNode):
+    """UNION ALL: concatenation of same-schema inputs (execinfrapb's
+    unordered synchronizer fan-in role for plan-level unions)."""
+
+    inputs: tuple[PlanNode, ...]
+
+
+@dataclass(frozen=True)
+class MergeJoin(PlanNode):
+    """Merge join over order-preserving key lanes (mergejoiner.go analog).
+    probe_key/build_key: one column index or a tuple of them (composite
+    ordered keys, compared lexicographically)."""
+
+    probe: PlanNode
+    build: PlanNode
+    probe_key: int | tuple[int, ...]
+    build_key: int | tuple[int, ...]
+    spec: JoinSpec = JoinSpec()

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..coldata.batch import pack_be_words
+
 DEFAULT_KEY_WIDTH = 24  # 3 word lanes
 
 INT64_MIN = -(1 << 63)
@@ -31,21 +33,6 @@ def flip(x: torch.Tensor) -> torch.Tensor:
     """int64 word bit patterns -> int64 values whose signed order is the
     words' unsigned order."""
     return x ^ INT64_MIN
-
-
-def pack_be_words(data: torch.Tensor) -> torch.Tensor:
-    """[N, W] uint8 -> [N, ceil(W/8)] int64 big-endian word bit patterns.
-
-    Widths not a multiple of 8 are zero-padded on the right (order
-    preserving for zero-padded fixed-width rows). Each group of 8 bytes is
-    byte-reversed and reinterpreted as a little-endian int64, which is the
-    big-endian word's bit pattern."""
-    n, w = data.shape
-    if w % 8:
-        data = torch.nn.functional.pad(data, (0, 8 - w % 8))
-        w = data.shape[1]
-    groups = data.reshape(n, w // 8, 8).flip(-1).contiguous()
-    return groups.view(torch.int64).reshape(n, w // 8)
 
 
 def encode_keys(keys: list[bytes | str], width: int = DEFAULT_KEY_WIDTH

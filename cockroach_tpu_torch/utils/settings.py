@@ -1,5 +1,5 @@
 """Cluster settings — the subset of ``cockroach_tpu.utils.settings`` the
-storage slice reads, with the reference's defaults.
+port reads, with the reference's defaults.
 
 The reference's ``storage.pallas_filter`` / ``storage.pallas_merge``
 knobs have no counterpart: in the port, the device of the tensors picks
@@ -23,6 +23,17 @@ _DEFAULTS: dict[str, Any] = {
     "storage.compaction.pacing.max_debt_runs": 8,
     # write pacing proportional to L0 overload
     "admission.io_pacing.enabled": True,
+    # static scan tile capacity; resident tables pad to a tile multiple
+    "sql.distsql.tile_size": 1 << 20,
+    # tables larger than this stream tile by tile (not ported: such
+    # scans raise)
+    "sql.distsql.scan_stream_rows": 1 << 23,
+    # pad sub-tile resident tables up the catalog.SHAPE_BUCKETS ladder
+    "sql.distsql.shape_buckets.enabled": True,
+    # per-operator spool budgets (rows / device bytes); past them the
+    # reference swaps in its external operators, which the port has not
+    "sql.distsql.workmem_rows": 1 << 21,
+    "sql.distsql.workmem_bytes": 2 << 30,
 }
 
 

@@ -12,11 +12,16 @@ batches) through the port's engine on the card, checks the engine on the
 card against the same engine on the CPU, and times both kernels.
 
 Before YCSB it runs the SQL executor: TPC-H q1 and q3 at SF0.01 on the
-card against the CPU, then at SF1 (bench.py's seed) on the card, every
-run held to the numpy oracle (``bench/tpch_oracle.py``), timed by
-``bench/tpch_run.run_tpch`` and profiled once; it prints the
-``{"tpch": ...}`` line. Neither storage kernel runs on that path
-(``on_tpch_path`` in the kernel table counts their launches there).
+card against the CPU; all 22 queries at SF0.05 with 2^16-row tiles on
+the card against the CPU, through both ``rel.plan`` and
+``rel.optimized_plan()``; then at SF1 (bench.py's seed) on the card
+bench.py's ladder (q1, q3, q9, q18), every run held to the numpy oracle
+(``bench/tpch_oracle.py``), timed by ``bench/tpch_run.run_tpch`` and
+profiled once; it prints the ``{"tpch": ...}`` line. Then the other 18
+queries at SF1 on the card, each cold and warm (the warm result equal to
+the cold one), on the ``{"tpch22": ...}`` line. Neither storage kernel
+runs on that path (``on_tpch_path`` in the kernel table counts their
+launches over all 22 queries).
 
 The line before the last is ``{"kernels": [...]}``, the line before that
 the card's name and power limit; the last line is
@@ -481,10 +486,11 @@ def device_profile(fn) -> dict:
                                 "calls": v[1]} for n, v in top]}
 
 
-def tpch_results(sf: float, devices, seed: int = TPCH_SEED) -> list:
-    """q1 and q3 through the port's plan builder and runtime over a
-    catalog generated on each of `devices`: one {query: result} per
-    device."""
+def tpch_results(sf: float, devices, seed: int = TPCH_SEED,
+                 queries=("q1", "q3"), optimized: bool = False) -> list:
+    """`queries` through the port's plan builder and runtime (over
+    ``rel.plan``, or ``rel.optimized_plan()``) over a catalog generated
+    on each of `devices`: one {query: result} per device."""
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
     from cockroach_tpu_torch.flow.runtime import run_operator
@@ -493,9 +499,12 @@ def tpch_results(sf: float, devices, seed: int = TPCH_SEED) -> list:
     out = []
     for dev in devices:
         cat = gen_tpch(sf=sf, seed=seed, device=dev)
-        out.append({q: run_operator(builder.build(Q.QUERIES[q](cat).plan,
-                                                  cat))
-                    for q in Q.QUERIES})
+        res = {}
+        for q in queries:
+            rel = Q.QUERIES[q](cat)
+            plan = rel.optimized_plan() if optimized else rel.plan
+            res[q] = run_operator(builder.build(plan, cat))
+        out.append(res)
     return out
 
 
@@ -510,6 +519,41 @@ def check_tpch_parity(dev, sf: float = 0.01) -> None:
         if bad is not None:
             raise AssertionError(f"TPC-H SF{sf} card != CPU: {bad}")
     log(f"TPC-H SF{sf}: q1 and q3 on the card equal the CPU's")
+
+
+def check_tpch22_parity(dev, sf: float = 0.05, tile: int = 1 << 16) -> dict:
+    """All 22 queries at `sf` with `tile`-row scan tiles (so lineitem
+    spans several tiles), on the card against the CPU, through rel.plan
+    and through rel.optimized_plan() (TopK for q2, q3, q10, q18, q21):
+    integer, DECIMAL, DATE, BOOL and STRING columns exactly, FLOAT within
+    rtol=1e-12. Returns the result rows per query."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_oracle
+    from cockroach_tpu_torch.utils import settings
+
+    queries = tuple(Q.QUERIES)
+    saved = settings.get("sql.distsql.tile_size")
+    settings._DEFAULTS["sql.distsql.tile_size"] = tile
+    try:
+        runs = {opt: tpch_results(sf, (dev, "cpu"), queries=queries,
+                                  optimized=opt) for opt in (False, True)}
+    finally:
+        settings._DEFAULTS["sql.distsql.tile_size"] = saved
+    rows = {}
+    for q in queries:
+        want = runs[False][1][q]
+        for opt in (False, True):
+            for side, res in zip(("card", "CPU"), runs[opt]):
+                bad = tpch_oracle.mismatch(q, res[q], want)
+                if bad is not None:
+                    raise AssertionError(
+                        f"TPC-H SF{sf} {side} "
+                        f"({'optimized_plan' if opt else 'plan'}) != CPU "
+                        f"(plan): {bad}")
+        rows[q] = len(next(iter(want.values())))
+    log(f"TPC-H SF{sf}, {tile}-row tiles: all 22 queries on the card equal "
+        "the CPU's, through plan and optimized_plan")
+    return rows
 
 
 def time_dense_agg(cat) -> dict:
@@ -588,52 +632,66 @@ def operator_breakdown(root) -> dict:
 
 
 def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
-    """The SQL main path at SF1 on the card: generate the catalog on the
-    card, time q1 and q3 through run_tpch (every run held to the numpy
-    oracle), then profile one more run of each."""
+    """The SQL main path on the card: the SF0.01 and SF0.05 parity checks,
+    then at SF1 bench.py's ladder through run_tpch (every run held to the
+    numpy oracle), one profiled run of each ladder query, and the other
+    18 queries cold and warm."""
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
-    from cockroach_tpu_torch.bench.tpch_run import run_tpch
+    from cockroach_tpu_torch.bench.tpch_run import LADDER, run_tpch
     from cockroach_tpu_torch.flow.runtime import host_syncs, run_operator
     from cockroach_tpu_torch.plan import builder
 
     check_tpch_parity(torch.device("cuda"))
+    rows_sf005 = check_tpch22_parity(torch.device("cuda"))
     t0 = time.perf_counter()
     cat = gen_tpch(sf=sf, seed=TPCH_SEED, device="cuda")
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
-    res = run_tpch(("q1", "q3"), sf=sf, seed=TPCH_SEED, runs=5,
+    res = run_tpch(LADDER, sf=sf, seed=TPCH_SEED, runs=5,
                    device="cuda", catalog=cat)
-    storage_launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                        "merge_path": cuda_merge.merge_perm.launches}
     profiles = {}
     syncs = {}
     operator_ms = {}
-    for q in ("q1", "q3"):
-        root = builder.build(Q.QUERIES[q](cat).plan, cat)
+    for q in LADDER:
+        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
         run_operator(root)
         profiles[q] = device_profile(lambda root=root: run_operator(root))
         syncs[q] = sum(host_syncs(root).values())
         operator_ms[q] = operator_breakdown(root)
     candidate = time_dense_agg(cat)
+    others = tuple(q for q in Q.QUERIES if q not in LADDER)
+    rest = run_tpch(others, sf=sf, seed=TPCH_SEED, runs=0, device="cuda",
+                    catalog=cat)
+    storage_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                        "merge_path": cuda_merge.merge_perm.launches}
     out = {"sf": sf, "lineitem_rows": res["lineitem_rows"], "gen_s": gen_s,
-           "q1": res["q1"], "q3": res["q3"],
+           **{q: res[q] for q in LADDER},
            "idle_share": profiles["q3"]["idle_share"],
            "device_busy_s": profiles["q3"]["device_busy_s"],
            "top_device_ops": profiles["q3"]["top_device_ops"],
            "q1_profile": profiles["q1"],
+           "q9_profile": profiles["q9"], "q18_profile": profiles["q18"],
            "kernel_candidate": candidate,
            "syncs_per_query": syncs,
            "operator_exclusive_ms": operator_ms,
            "storage_kernel_launches": storage_launches,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "card_vs_cpu_sf0.01": True, "card": card}
-    log(f"TPC-H SF{sf}: q1 {res['q1']['median_s'] * 1e3:.1f} ms, "
-        f"q3 {res['q3']['median_s'] * 1e3:.1f} ms (median), equal to the "
-        "numpy oracle")
+           "card_vs_cpu_sf0.01": True,
+           "card_vs_cpu_sf0.05_22_rows": rows_sf005, "card": card}
+    log(f"TPC-H SF{sf}: " + ", ".join(
+        f"{q} {res[q]['median_s'] * 1e3:.1f} ms" for q in LADDER)
+        + " (median), equal to the numpy oracle")
     print(json.dumps({"tpch": out}), flush=True)
+    tpch22 = {q: {"cold_s": rest[q]["cold_s"], "warm_s": rest[q]["warm_s"],
+                  "rows": rest[q]["rows"],
+                  "host_syncs": sum(rest[q]["host_syncs"].values())}
+              for q in others}
+    log(f"TPC-H SF{sf}: the other {len(others)} queries ran cold and warm, "
+        "warm equal to cold")
+    print(json.dumps({"tpch22": tpch22, "card": card}), flush=True)
     return out
 
 
@@ -872,7 +930,8 @@ def main() -> int:
     check_parity()
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        k["on_tpch_path"] = tpch["storage_kernel_launches"][k["name"]] > 0
+        k["tpch_launches"] = tpch["storage_kernel_launches"][k["name"]]
+        k["on_tpch_path"] = k["tpch_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(card)

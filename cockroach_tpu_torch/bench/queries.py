@@ -1,6 +1,7 @@
-"""TPC-H queries as relational plans — the port of Q1 and Q3 of
-``cockroach_tpu.bench.queries``, written against ``sql.rel.Rel``.
-Plain numpy answers for both live in ``bench/tpch_oracle.py``.
+"""TPC-H queries as relational plans — the port of
+``cockroach_tpu.bench.queries`` (all 22, their definitions unchanged, so
+plans equal the reference's), written against ``sql.rel.Rel``. Plain
+numpy answers for q1, q3, q9 and q18 live in ``bench/tpch_oracle.py``.
 """
 
 from __future__ import annotations
@@ -92,4 +93,662 @@ def q3(cat: Catalog, segment: str = "BUILDING",
     return g.sort([("revenue", True), ("o_orderdate", False)]).limit(10)
 
 
-QUERIES = {"q1": q1, "q3": q3}
+def q6(cat: Catalog, date: str = "1994-01-01", discount: float = 0.06,
+       quantity: int = 24) -> Rel:
+    """Forecast revenue change: pure scan-filter-aggregate."""
+    li = Rel.scan(cat, "lineitem", (
+        "l_quantity", "l_extendedprice", "l_discount", "l_shipdate",
+    ))
+    dt = li.type_of("l_discount")
+    pred = ex.and_(
+        ex.Cmp("ge", li.c("l_shipdate"), ex.lit(d(date))),
+        ex.Cmp("lt", li.c("l_shipdate"), ex.lit(d(date) + 365)),
+        ex.between(li.c("l_discount"),
+                   ex.Const(discount - 0.01, dt), ex.Const(discount + 0.01, dt)),
+        ex.Cmp("lt", li.c("l_quantity"),
+               ex.Const(quantity, li.type_of("l_quantity"))),
+    )
+    li = li.filter(pred)
+    li = li.project([
+        ("rev", ex.BinOp("*", li.c("l_extendedprice"), li.c("l_discount"))),
+    ])
+    return li.scalar_agg([("revenue", "sum", "rev")])
+
+
+def q5(cat: Catalog, region: str = "ASIA", date: str = "1994-01-01") -> Rel:
+    """Local supplier volume: 6-way join, group by nation."""
+    reg = Rel.scan(cat, "region", ("r_regionkey", "r_name"))
+    reg = reg.filter(reg.str_eq("r_name", region))
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name", "n_regionkey"))
+    nat = nat.join(reg, on=[("n_regionkey", "r_regionkey")], how="semi")
+    cust = Rel.scan(cat, "customer", ("c_custkey", "c_nationkey"))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_nationkey"))
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_custkey", "o_orderdate"))
+    orders = orders.filter(ex.and_(
+        ex.Cmp("ge", orders.c("o_orderdate"), ex.lit(d(date))),
+        ex.Cmp("lt", orders.c("o_orderdate"), ex.lit(d(date) + 365)),
+    ))
+    li = Rel.scan(cat, "lineitem", (
+        "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
+    ))
+    j = li.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    j = j.join(cust, on=[("o_custkey", "c_custkey")], how="inner")
+    j = j.join(supp, on=[("l_suppkey", "s_suppkey")], how="inner")
+    # same-nation constraint: customer and supplier nation must match
+    j = j.filter(ex.Cmp("eq", j.c("c_nationkey"), j.c("s_nationkey")))
+    j = j.join(nat, on=[("s_nationkey", "n_nationkey")], how="inner")
+    one = ex.Const(1.0, j.type_of("l_discount"))
+    rev = ex.BinOp("*", j.c("l_extendedprice"),
+                   ex.BinOp("-", one, j.c("l_discount")))
+    j = j.project([("n_name", j.c("n_name")), ("revenue", rev)])
+    g = j.groupby(["n_name"], [("revenue", "sum", "revenue")])
+    return g.sort([("revenue", True)])
+
+
+def q4(cat: Catalog, date: str = "1993-07-01") -> Rel:
+    """Order priority checking: EXISTS (late lineitem) as a semi join."""
+    late = Rel.scan(cat, "lineitem", ("l_orderkey", "l_commitdate",
+                                      "l_receiptdate"))
+    late = late.filter(
+        ex.Cmp("lt", late.c("l_commitdate"), late.c("l_receiptdate"))
+    )
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_orderdate",
+                                      "o_orderpriority"))
+    orders = orders.filter(ex.and_(
+        ex.Cmp("ge", orders.c("o_orderdate"), ex.lit(d(date))),
+        ex.Cmp("lt", orders.c("o_orderdate"), ex.lit(d(date) + 92)),
+    ))
+    j = orders.join(late, on=[("o_orderkey", "l_orderkey")], how="semi",
+                    build_unique=False)
+    g = j.groupby(["o_orderpriority"], [("order_count", "count_rows", None)])
+    return g.sort([("o_orderpriority", False)])
+
+
+def q9(cat: Catalog, color: str = "green") -> Rel:
+    """Product type profit: 6-way join, LIKE filter on p_name, profit by
+    (nation, year of order date)."""
+    part = Rel.scan(cat, "part", ("p_partkey", "p_name"))
+    part = part.filter(part.str_pred("p_name", lambda s: color in s))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_nationkey"))
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    ps = Rel.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey",
+                                    "ps_supplycost"))
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_orderdate"))
+    li = Rel.scan(cat, "lineitem", (
+        "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+        "l_extendedprice", "l_discount",
+    ))
+    j = li.join(part, on=[("l_partkey", "p_partkey")], how="semi")
+    j = j.join(ps, on=[("l_partkey", "ps_partkey"),
+                       ("l_suppkey", "ps_suppkey")], how="inner")
+    j = j.join(supp, on=[("l_suppkey", "s_suppkey")], how="inner")
+    j = j.join(nat, on=[("s_nationkey", "n_nationkey")], how="inner")
+    j = j.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    one = ex.Const(1.0, j.type_of("l_discount"))
+    amount = ex.BinOp(
+        "-",
+        ex.BinOp("*", j.c("l_extendedprice"),
+                 ex.BinOp("-", one, j.c("l_discount"))),
+        ex.BinOp("*", j.c("ps_supplycost"), j.c("l_quantity")),
+    )
+    j = j.project([
+        ("nation", j.c("n_name")),
+        ("o_year", ex.ExtractYear(j.c("o_orderdate"))),
+        ("amount", amount),
+    ])
+    g = j.groupby(["nation", "o_year"], [("sum_profit", "sum", "amount")])
+    return g.sort([("nation", False), ("o_year", True)])
+
+
+def q10(cat: Catalog, date: str = "1993-10-01") -> Rel:
+    """Returned item reporting: top 20 customers by lost revenue."""
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_custkey",
+                                      "o_orderdate"))
+    orders = orders.filter(ex.and_(
+        ex.Cmp("ge", orders.c("o_orderdate"), ex.lit(d(date))),
+        ex.Cmp("lt", orders.c("o_orderdate"), ex.lit(d(date) + 92)),
+    ))
+    li = Rel.scan(cat, "lineitem", ("l_orderkey", "l_extendedprice",
+                                    "l_discount", "l_returnflag"))
+    li = li.filter(li.str_eq("l_returnflag", "R"))
+    j = li.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    cust = Rel.scan(cat, "customer", (
+        "c_custkey", "c_name", "c_acctbal", "c_nationkey", "c_phone",
+        "c_address", "c_comment",
+    ))
+    j = j.join(cust, on=[("o_custkey", "c_custkey")], how="inner")
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    j = j.join(nat, on=[("c_nationkey", "n_nationkey")], how="inner")
+    one = ex.Const(1.0, j.type_of("l_discount"))
+    rev = ex.BinOp("*", j.c("l_extendedprice"),
+                   ex.BinOp("-", one, j.c("l_discount")))
+    j = j.project([
+        ("c_custkey", j.c("c_custkey")), ("c_name", j.c("c_name")),
+        ("rev", rev), ("c_acctbal", j.c("c_acctbal")),
+        ("n_name", j.c("n_name")), ("c_address", j.c("c_address")),
+        ("c_phone", j.c("c_phone")), ("c_comment", j.c("c_comment")),
+    ])
+    g = j.groupby(
+        ["c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+         "c_address", "c_comment"],
+        [("revenue", "sum", "rev")],
+    )
+    return g.sort([("revenue", True), ("c_custkey", False)]).limit(20)
+
+
+def q12(cat: Catalog, mode1: str = "MAIL", mode2: str = "SHIP",
+        date: str = "1994-01-01") -> Rel:
+    """Shipping modes and order priority: CASE aggregation."""
+    li = Rel.scan(cat, "lineitem", (
+        "l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate",
+        "l_shipdate",
+    ))
+    li = li.filter(ex.and_(
+        li.str_in("l_shipmode", [mode1, mode2]),
+        ex.Cmp("lt", li.c("l_commitdate"), li.c("l_receiptdate")),
+        ex.Cmp("lt", li.c("l_shipdate"), li.c("l_commitdate")),
+        ex.Cmp("ge", li.c("l_receiptdate"), ex.lit(d(date))),
+        ex.Cmp("lt", li.c("l_receiptdate"), ex.lit(d(date) + 365)),
+    ))
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_orderpriority"))
+    j = li.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    high = j.str_in("o_orderpriority", ["1-URGENT", "2-HIGH"])
+    one, zero = ex.lit(1), ex.lit(0)
+    j = j.project([
+        ("l_shipmode", j.c("l_shipmode")),
+        ("high", ex.Case(((high, one),), zero)),
+        ("low", ex.Case(((ex.Not(high), one),), zero)),
+    ])
+    g = j.groupby(["l_shipmode"], [
+        ("high_line_count", "sum", "high"),
+        ("low_line_count", "sum", "low"),
+    ])
+    return g.sort([("l_shipmode", False)])
+
+
+def q14(cat: Catalog, date: str = "1995-09-01") -> Rel:
+    """Promotion effect: 100 * promo revenue / total revenue."""
+    li = Rel.scan(cat, "lineitem", ("l_partkey", "l_extendedprice",
+                                    "l_discount", "l_shipdate"))
+    li = li.filter(ex.and_(
+        ex.Cmp("ge", li.c("l_shipdate"), ex.lit(d(date))),
+        ex.Cmp("lt", li.c("l_shipdate"), ex.lit(d(date) + 30)),
+    ))
+    part = Rel.scan(cat, "part", ("p_partkey", "p_type"))
+    j = li.join(part, on=[("l_partkey", "p_partkey")], how="inner")
+    promo = j.str_pred("p_type", lambda s: s.startswith("PROMO"))
+    one = ex.Const(1.0, j.type_of("l_discount"))
+    rev = ex.BinOp("*", j.c("l_extendedprice"),
+                   ex.BinOp("-", one, j.c("l_discount")))
+    zero = ex.Const(0.0, ex.expr_type(rev, j.schema))
+    j = j.project([
+        ("promo_rev", ex.Case(((promo, rev),), zero)),
+        ("rev", rev),
+    ])
+    g = j.scalar_agg([
+        ("promo", "sum", "promo_rev"), ("total", "sum", "rev"),
+    ])
+    ratio = ex.BinOp("/", g.c("promo"), g.c("total"))
+    hundred = ex.Const(100.0, ex.expr_type(ratio, g.schema))
+    return g.project([("promo_revenue", ex.BinOp("*", hundred, ratio))])
+
+
+def q18(cat: Catalog, quantity: int = 300) -> Rel:
+    """Large volume customer: HAVING subquery as groupby-filter-semi-join,
+    top 100 by order value."""
+    li = Rel.scan(cat, "lineitem", ("l_orderkey", "l_quantity"))
+    big = li.groupby(["l_orderkey"], [("sum_qty", "sum", "l_quantity")])
+    big = big.filter(ex.Cmp(
+        "gt", big.c("sum_qty"), ex.Const(quantity, big.type_of("sum_qty"))
+    ))
+    orders = Rel.scan(cat, "orders", (
+        "o_orderkey", "o_custkey", "o_orderdate", "o_totalprice",
+    ))
+    orders = orders.join(big, on=[("o_orderkey", "l_orderkey")], how="semi")
+    cust = Rel.scan(cat, "customer", ("c_custkey", "c_name"))
+    j = orders.join(cust, on=[("o_custkey", "c_custkey")], how="inner")
+    li2 = Rel.scan(cat, "lineitem", ("l_orderkey", "l_quantity"))
+    j2 = li2.join(j, on=[("l_orderkey", "o_orderkey")], how="inner")
+    g = j2.groupby(
+        ["c_name", "c_custkey", "o_orderkey", "o_orderdate", "o_totalprice"],
+        [("sum_qty", "sum", "l_quantity")],
+    )
+    return g.sort([("o_totalprice", True), ("o_orderdate", False)]).limit(100)
+
+
+def _revenue(rel: Rel, price: str = "l_extendedprice",
+             disc: str = "l_discount") -> ex.Expr:
+    one = ex.Const(1.0, rel.type_of(disc))
+    return ex.BinOp("*", rel.c(price), ex.BinOp("-", one, rel.c(disc)))
+
+
+def _const_key(rel: Rel, keep: list[tuple[str, ex.Expr]]) -> Rel:
+    """Append a constant join key (the scalar-subquery bridge: a 1-row side
+    joins on the constant, attaching its value to every row)."""
+    return rel.project(keep + [("__k", ex.lit(1))])
+
+
+def q2(cat: Catalog, size: int = 15, type_suffix: str = "BRASS",
+       region: str = "EUROPE") -> Rel:
+    """Minimum-cost supplier: the correlated MIN subquery decorrelates into
+    a per-part MIN aggregate joined back on (partkey, supplycost)."""
+    reg = Rel.scan(cat, "region", ("r_regionkey", "r_name"))
+    reg = reg.filter(reg.str_eq("r_name", region))
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name", "n_regionkey"))
+    nat = nat.join(reg, on=[("n_regionkey", "r_regionkey")], how="semi")
+    supp = Rel.scan(cat, "supplier", (
+        "s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone",
+        "s_acctbal", "s_comment",
+    ))
+    supp = supp.join(nat, on=[("s_nationkey", "n_nationkey")], how="inner")
+    ps = Rel.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey",
+                                    "ps_supplycost"))
+    eps = ps.join(supp, on=[("ps_suppkey", "s_suppkey")], how="inner")
+    mi = eps.groupby(["ps_partkey"], [("min_cost", "min", "ps_supplycost")])
+    mi = mi.project([("mk", mi.c("ps_partkey")), ("min_cost", mi.c("min_cost"))])
+    part = Rel.scan(cat, "part", ("p_partkey", "p_mfgr", "p_type", "p_size"))
+    part = part.filter(ex.and_(
+        ex.Cmp("eq", part.c("p_size"),
+               ex.Const(size, part.type_of("p_size"))),
+        part.str_pred("p_type", lambda s: s.endswith(type_suffix)),
+    ))
+    j = eps.join(part, on=[("ps_partkey", "p_partkey")], how="inner")
+    j = j.join(mi, on=[("ps_partkey", "mk")], how="inner")
+    j = j.filter(ex.Cmp("eq", j.c("ps_supplycost"), j.c("min_cost")))
+    j = j.project([
+        ("s_acctbal", j.c("s_acctbal")), ("s_name", j.c("s_name")),
+        ("n_name", j.c("n_name")), ("p_partkey", j.c("p_partkey")),
+        ("p_mfgr", j.c("p_mfgr")), ("s_address", j.c("s_address")),
+        ("s_phone", j.c("s_phone")), ("s_comment", j.c("s_comment")),
+    ])
+    return j.sort([("s_acctbal", True), ("n_name", False),
+                   ("s_name", False), ("p_partkey", False)]).limit(100)
+
+
+def q7(cat: Catalog, nation1: str = "FRANCE",
+       nation2: str = "GERMANY") -> Rel:
+    """Volume shipping between two nations: nation scanned twice (n1/n2)
+    with the symmetric pair condition as a disjunction."""
+    li = Rel.scan(cat, "lineitem", (
+        "l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
+        "l_shipdate",
+    ))
+    li = li.filter(ex.and_(
+        ex.Cmp("ge", li.c("l_shipdate"), ex.lit(d("1995-01-01"))),
+        ex.Cmp("le", li.c("l_shipdate"), ex.lit(d("1996-12-31"))),
+    ))
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_custkey"))
+    cust = Rel.scan(cat, "customer", ("c_custkey", "c_nationkey"))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_nationkey"))
+    n1 = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    n1 = n1.project([("n1key", n1.c("n_nationkey")),
+                     ("supp_nation", n1.c("n_name"))])
+    n2 = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    n2 = n2.project([("n2key", n2.c("n_nationkey")),
+                     ("cust_nation", n2.c("n_name"))])
+    j = li.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    j = j.join(cust, on=[("o_custkey", "c_custkey")], how="inner")
+    j = j.join(supp, on=[("l_suppkey", "s_suppkey")], how="inner")
+    j = j.join(n1, on=[("s_nationkey", "n1key")], how="inner")
+    j = j.join(n2, on=[("c_nationkey", "n2key")], how="inner")
+    j = j.filter(ex.or_(
+        ex.and_(j.str_eq("supp_nation", nation1),
+                j.str_eq("cust_nation", nation2)),
+        ex.and_(j.str_eq("supp_nation", nation2),
+                j.str_eq("cust_nation", nation1)),
+    ))
+    j = j.project([
+        ("supp_nation", j.c("supp_nation")),
+        ("cust_nation", j.c("cust_nation")),
+        ("l_year", ex.ExtractYear(j.c("l_shipdate"))),
+        ("volume", _revenue(j)),
+    ])
+    g = j.groupby(["supp_nation", "cust_nation", "l_year"],
+                  [("revenue", "sum", "volume")])
+    return g.sort([("supp_nation", False), ("cust_nation", False),
+                   ("l_year", False)])
+
+
+def q8(cat: Catalog, nation: str = "BRAZIL", region: str = "AMERICA",
+       ptype: str = "ECONOMY ANODIZED STEEL") -> Rel:
+    """National market share: CASE-gated share of revenue per order year."""
+    part = Rel.scan(cat, "part", ("p_partkey", "p_type"))
+    part = part.filter(part.str_eq("p_type", ptype))
+    li = Rel.scan(cat, "lineitem", (
+        "l_orderkey", "l_partkey", "l_suppkey", "l_extendedprice",
+        "l_discount",
+    ))
+    li = li.join(part, on=[("l_partkey", "p_partkey")], how="semi")
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_custkey",
+                                      "o_orderdate"))
+    orders = orders.filter(ex.and_(
+        ex.Cmp("ge", orders.c("o_orderdate"), ex.lit(d("1995-01-01"))),
+        ex.Cmp("le", orders.c("o_orderdate"), ex.lit(d("1996-12-31"))),
+    ))
+    j = li.join(orders, on=[("l_orderkey", "o_orderkey")], how="inner")
+    cust = Rel.scan(cat, "customer", ("c_custkey", "c_nationkey"))
+    j = j.join(cust, on=[("o_custkey", "c_custkey")], how="inner")
+    reg = Rel.scan(cat, "region", ("r_regionkey", "r_name"))
+    reg = reg.filter(reg.str_eq("r_name", region))
+    n1 = Rel.scan(cat, "nation", ("n_nationkey", "n_regionkey"))
+    n1 = n1.join(reg, on=[("n_regionkey", "r_regionkey")], how="semi")
+    j = j.join(n1, on=[("c_nationkey", "n_nationkey")], how="semi")
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_nationkey"))
+    j = j.join(supp, on=[("l_suppkey", "s_suppkey")], how="inner")
+    n2 = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    n2 = n2.project([("n2key", n2.c("n_nationkey")),
+                     ("nation", n2.c("n_name"))])
+    j = j.join(n2, on=[("s_nationkey", "n2key")], how="inner")
+    vol = _revenue(j)
+    volt = ex.expr_type(vol, j.schema)
+    is_nat = j.str_eq("nation", nation)
+    j = j.project([
+        ("o_year", ex.ExtractYear(j.c("o_orderdate"))),
+        ("volume", vol),
+        ("nat_volume", ex.Case(((is_nat, vol),), ex.Const(0.0, volt))),
+    ])
+    g = j.groupby(["o_year"], [("nat", "sum", "nat_volume"),
+                               ("total", "sum", "volume")])
+    g = g.project([
+        ("o_year", g.c("o_year")),
+        ("mkt_share", ex.BinOp("/", g.c("nat"), g.c("total"))),
+    ])
+    return g.sort([("o_year", False)])
+
+
+def q11(cat: Catalog, nation: str = "GERMANY",
+        fraction: float = 0.0001) -> Rel:
+    """Important stock: HAVING against a scalar subquery — the global
+    threshold attaches via a constant-key join against the 1-row aggregate."""
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    nat = nat.filter(nat.str_eq("n_name", nation))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_nationkey"))
+    supp = supp.join(nat, on=[("s_nationkey", "n_nationkey")], how="semi")
+    ps = Rel.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey",
+                                    "ps_supplycost", "ps_availqty"))
+    ps = ps.join(supp, on=[("ps_suppkey", "s_suppkey")], how="semi")
+    ps = ps.project([
+        ("ps_partkey", ps.c("ps_partkey")),
+        ("value", ex.BinOp("*", ps.c("ps_supplycost"),
+                           ps.c("ps_availqty"))),
+    ])
+    g = ps.groupby(["ps_partkey"], [("value", "sum", "value")])
+    tot = ps.scalar_agg([("total", "sum", "value")])
+    tot = _const_key(tot, [("thr", ex.BinOp(
+        "*", tot.c("total"), ex.lit(fraction)))])
+    g = _const_key(g, [("ps_partkey", g.c("ps_partkey")),
+                       ("value", g.c("value"))])
+    j = g.join(tot, on=[("__k", "__k")], how="inner")
+    j = j.filter(ex.Cmp("gt", j.c("value"), j.c("thr")))
+    j = j.project([("ps_partkey", j.c("ps_partkey")),
+                   ("value", j.c("value"))])
+    return j.sort([("value", True)])
+
+
+def q13(cat: Catalog, word1: str = "special",
+        word2: str = "requests") -> Rel:
+    """Customer order-count distribution: LEFT JOIN + COUNT of the nullable
+    side, then a second aggregation over the counts."""
+    import re as _re
+
+    pat = _re.compile(f".*{word1}.*{word2}.*", _re.DOTALL)
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_custkey",
+                                      "o_comment"))
+    orders = orders.filter(
+        ex.Not(orders.str_pred("o_comment", lambda s: bool(pat.match(s))))
+    )
+    orders = orders.project([("o_orderkey", orders.c("o_orderkey")),
+                             ("o_custkey", orders.c("o_custkey"))])
+    cust = Rel.scan(cat, "customer", ("c_custkey",))
+    j = cust.join(orders, on=[("c_custkey", "o_custkey")], how="left",
+                  build_unique=False)
+    g = j.groupby(["c_custkey"], [("c_count", "count", "o_orderkey")])
+    g2 = g.groupby(["c_count"], [("custdist", "count_rows", None)])
+    return g2.sort([("custdist", True), ("c_count", True)])
+
+
+def q15(cat: Catalog, date: str = "1996-01-01") -> Rel:
+    """Top supplier: total revenue per supplier equal to the global MAX
+    (scalar subquery via constant-key join)."""
+    li = Rel.scan(cat, "lineitem", ("l_suppkey", "l_extendedprice",
+                                    "l_discount", "l_shipdate"))
+    li = li.filter(ex.and_(
+        ex.Cmp("ge", li.c("l_shipdate"), ex.lit(d(date))),
+        ex.Cmp("lt", li.c("l_shipdate"), ex.lit(d(date) + 90)),
+    ))
+    li = li.project([("l_suppkey", li.c("l_suppkey")),
+                     ("rev", _revenue(li))])
+    rev = li.groupby(["l_suppkey"], [("total_revenue", "sum", "rev")])
+    mx = rev.scalar_agg([("mx", "max", "total_revenue")])
+    mx = _const_key(mx, [("mx", mx.c("mx"))])
+    rev = _const_key(rev, [("l_suppkey", rev.c("l_suppkey")),
+                           ("total_revenue", rev.c("total_revenue"))])
+    j = rev.join(mx, on=[("__k", "__k")], how="inner")
+    j = j.filter(ex.Cmp("eq", j.c("total_revenue"), j.c("mx")))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_name", "s_address",
+                                      "s_phone"))
+    j = supp.join(j, on=[("s_suppkey", "l_suppkey")], how="inner")
+    j = j.project([
+        ("s_suppkey", j.c("s_suppkey")), ("s_name", j.c("s_name")),
+        ("s_address", j.c("s_address")), ("s_phone", j.c("s_phone")),
+        ("total_revenue", j.c("total_revenue")),
+    ])
+    return j.sort([("s_suppkey", False)])
+
+
+def q16(cat: Catalog, brand: str = "Brand#45",
+        type_prefix: str = "MEDIUM POLISHED",
+        sizes: tuple[int, ...] = (49, 14, 23, 45, 19, 3, 36, 9)) -> Rel:
+    """Parts/supplier relationship: COUNT(DISTINCT) as distinct+count, and
+    NOT IN as an anti join over provably non-null supplier keys."""
+    part = Rel.scan(cat, "part", ("p_partkey", "p_brand", "p_type",
+                                  "p_size"))
+    part = part.filter(ex.and_(
+        ex.Not(part.str_eq("p_brand", brand)),
+        ex.Not(part.str_pred("p_type",
+                             lambda s: s.startswith(type_prefix))),
+        ex.or_(*[
+            ex.Cmp("eq", part.c("p_size"),
+                   ex.Const(s, part.type_of("p_size")))
+            for s in sizes
+        ]),
+    ))
+    ps = Rel.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey"))
+    j = ps.join(part, on=[("ps_partkey", "p_partkey")], how="inner")
+    bad = Rel.scan(cat, "supplier", ("s_suppkey", "s_comment"))
+    bad = bad.filter(bad.str_pred(
+        "s_comment",
+        lambda s: "Customer" in s and "Complaints" in s.split("Customer", 1)[1],
+    ))
+    j = j.join(bad, on=[("ps_suppkey", "s_suppkey")], how="anti")
+    dist = j.distinct(["p_brand", "p_type", "p_size", "ps_suppkey"])
+    g = dist.groupby(["p_brand", "p_type", "p_size"],
+                     [("supplier_cnt", "count_rows", None)])
+    return g.sort([("supplier_cnt", True), ("p_brand", False),
+                   ("p_type", False), ("p_size", False)])
+
+
+def q17(cat: Catalog, brand: str = "Brand#23",
+        container: str = "MED BOX") -> Rel:
+    """Small-quantity-order revenue: per-part AVG decorrelates into a
+    grouped aggregate joined back on the part key."""
+    part = Rel.scan(cat, "part", ("p_partkey", "p_brand", "p_container"))
+    part = part.filter(ex.and_(
+        part.str_eq("p_brand", brand),
+        part.str_eq("p_container", container),
+    ))
+    li = Rel.scan(cat, "lineitem", ("l_partkey", "l_quantity",
+                                    "l_extendedprice"))
+    lif = li.join(part, on=[("l_partkey", "p_partkey")], how="semi")
+    a = lif.groupby(["l_partkey"], [("avg_q", "avg", "l_quantity")])
+    a = a.project([
+        ("ak", a.c("l_partkey")),
+        ("thr", ex.BinOp("*", ex.lit(0.2), a.c("avg_q"))),
+    ])
+    j = lif.join(a, on=[("l_partkey", "ak")], how="inner")
+    j = j.filter(ex.Cmp("lt", j.c("l_quantity"), j.c("thr")))
+    g = j.scalar_agg([("s", "sum", "l_extendedprice")])
+    return g.project([("avg_yearly", ex.BinOp("/", g.c("s"),
+                                              ex.lit(7.0)))])
+
+
+def q19(cat: Catalog, qty1: int = 1, qty2: int = 10, qty3: int = 20,
+        width: int = 10, sizes: tuple[int, int, int] = (5, 10, 15)) -> Rel:
+    """Discounted revenue: disjunction of three conjunctive branches mixing
+    part and lineitem predicates (quantity windows parameterized as in
+    pkg/workload/tpch/queries.go)."""
+    li = Rel.scan(cat, "lineitem", (
+        "l_partkey", "l_quantity", "l_extendedprice", "l_discount",
+        "l_shipmode", "l_shipinstruct",
+    ))
+    li = li.filter(ex.and_(
+        li.str_in("l_shipmode", ["AIR", "AIR REG"]),
+        li.str_eq("l_shipinstruct", "DELIVER IN PERSON"),
+    ))
+    part = Rel.scan(cat, "part", ("p_partkey", "p_brand", "p_container",
+                                  "p_size"))
+    j = li.join(part, on=[("l_partkey", "p_partkey")], how="inner")
+
+    def branch(b, containers, qlo, qhi, smax):
+        qt = j.type_of("l_quantity")
+        return ex.and_(
+            j.str_eq("p_brand", b),
+            j.str_in("p_container", containers),
+            ex.between(j.c("l_quantity"), ex.Const(qlo, qt),
+                       ex.Const(qhi, qt)),
+            ex.between(j.c("p_size"), ex.Const(1, j.type_of("p_size")),
+                       ex.Const(smax, j.type_of("p_size"))),
+        )
+
+    j = j.filter(ex.or_(
+        branch("Brand#12", ["SM CASE", "SM BOX", "SM PACK", "SM PKG"],
+               qty1, qty1 + width, sizes[0]),
+        branch("Brand#23", ["MED BAG", "MED BOX", "MED PKG", "MED PACK"],
+               qty2, qty2 + width, sizes[1]),
+        branch("Brand#34", ["LG CASE", "LG BOX", "LG PACK", "LG PKG"],
+               qty3, qty3 + width, sizes[2]),
+    ))
+    j = j.project([("rev", _revenue(j))])
+    return j.scalar_agg([("revenue", "sum", "rev")])
+
+
+def q20(cat: Catalog, color: str = "forest", nation: str = "CANADA",
+        date: str = "1994-01-01") -> Rel:
+    """Potential part promotion: nested IN subqueries decorrelate into a
+    per-(part,supp) lineitem sum joined against partsupp availability."""
+    pf = Rel.scan(cat, "part", ("p_partkey", "p_name"))
+    pf = pf.filter(pf.str_pred("p_name", lambda s: s.startswith(color)))
+    li = Rel.scan(cat, "lineitem", ("l_partkey", "l_suppkey", "l_quantity",
+                                    "l_shipdate"))
+    li = li.filter(ex.and_(
+        ex.Cmp("ge", li.c("l_shipdate"), ex.lit(d(date))),
+        ex.Cmp("lt", li.c("l_shipdate"), ex.lit(d(date) + 365)),
+    ))
+    li = li.join(pf, on=[("l_partkey", "p_partkey")], how="semi")
+    s = li.groupby(["l_partkey", "l_suppkey"], [("q", "sum", "l_quantity")])
+    s = s.project([
+        ("pk2", s.c("l_partkey")), ("sk2", s.c("l_suppkey")),
+        ("thr", ex.BinOp("*", ex.lit(0.5), s.c("q"))),
+    ])
+    ps = Rel.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey",
+                                    "ps_availqty"))
+    ps = ps.join(pf, on=[("ps_partkey", "p_partkey")], how="semi")
+    j = ps.join(s, on=[("ps_partkey", "pk2"), ("ps_suppkey", "sk2")],
+                how="inner")
+    j = j.filter(ex.Cmp("gt", j.c("ps_availqty"), j.c("thr")))
+    good = j.distinct(["ps_suppkey"])
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    nat = nat.filter(nat.str_eq("n_name", nation))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_name", "s_address",
+                                      "s_nationkey"))
+    supp = supp.join(nat, on=[("s_nationkey", "n_nationkey")], how="semi")
+    supp = supp.join(good, on=[("s_suppkey", "ps_suppkey")], how="semi")
+    supp = supp.project([("s_name", supp.c("s_name")),
+                         ("s_address", supp.c("s_address"))])
+    return supp.sort([("s_name", False)])
+
+
+def q21(cat: Catalog, nation: str = "SAUDI ARABIA") -> Rel:
+    """Suppliers who kept orders waiting. The correlated EXISTS/NOT EXISTS
+    with supplier inequality decorrelate into per-order distinct-supplier
+    counts: EXISTS(other supp) == order has >= 2 distinct suppliers;
+    NOT EXISTS(other LATE supp) == exactly 1 distinct late supplier (l1
+    itself is late, so that one is l1's)."""
+    li_all = Rel.scan(cat, "lineitem", ("l_orderkey", "l_suppkey"))
+    ns = li_all.distinct(["l_orderkey", "l_suppkey"])
+    ns = ns.groupby(["l_orderkey"], [("n_supp", "count_rows", None)])
+    ns = ns.project([("ok1", ns.c("l_orderkey")),
+                     ("n_supp", ns.c("n_supp"))])
+    late = Rel.scan(cat, "lineitem", ("l_orderkey", "l_suppkey",
+                                      "l_commitdate", "l_receiptdate"))
+    late = late.filter(ex.Cmp("gt", late.c("l_receiptdate"),
+                              late.c("l_commitdate")))
+    late = late.project([("l_orderkey", late.c("l_orderkey")),
+                         ("l_suppkey", late.c("l_suppkey"))])
+    nl = late.distinct(["l_orderkey", "l_suppkey"])
+    nl = nl.groupby(["l_orderkey"], [("n_late", "count_rows", None)])
+    nl = nl.project([("ok2", nl.c("l_orderkey")),
+                     ("n_late", nl.c("n_late"))])
+    l1 = late  # the waiting lineitems themselves
+    orders = Rel.scan(cat, "orders", ("o_orderkey", "o_orderstatus"))
+    orders = orders.filter(orders.str_eq("o_orderstatus", "F"))
+    j = l1.join(orders, on=[("l_orderkey", "o_orderkey")], how="semi")
+    nat = Rel.scan(cat, "nation", ("n_nationkey", "n_name"))
+    nat = nat.filter(nat.str_eq("n_name", nation))
+    supp = Rel.scan(cat, "supplier", ("s_suppkey", "s_name", "s_nationkey"))
+    supp = supp.join(nat, on=[("s_nationkey", "n_nationkey")], how="semi")
+    j = j.join(supp, on=[("l_suppkey", "s_suppkey")], how="inner")
+    j = j.join(ns, on=[("l_orderkey", "ok1")], how="inner")
+    j = j.join(nl, on=[("l_orderkey", "ok2")], how="inner")
+    j = j.filter(ex.and_(
+        ex.Cmp("ge", j.c("n_supp"), ex.lit(2)),
+        ex.Cmp("eq", j.c("n_late"), ex.lit(1)),
+    ))
+    g = j.groupby(["s_name"], [("numwait", "count_rows", None)])
+    return g.sort([("numwait", True), ("s_name", False)]).limit(100)
+
+
+def q22(cat: Catalog,
+        codes: tuple[str, ...] = ("13", "31", "23", "29", "30", "18", "17"),
+        ) -> Rel:
+    """Global sales opportunity: SUBSTRING becomes a host-side dictionary
+    transform; the AVG subquery attaches via constant-key join; NOT EXISTS
+    (orders) is an anti join."""
+    cust = Rel.scan(cat, "customer", ("c_custkey", "c_phone", "c_acctbal"))
+    cust = cust.filter(
+        cust.str_pred("c_phone", lambda s: s[:2] in codes)
+    )
+    cntry, cdict = cust.str_transform("c_phone", lambda s: s[:2])
+    cust = cust.project([
+        ("c_custkey", cust.c("c_custkey")),
+        ("cntrycode", cntry),
+        ("c_acctbal", cust.c("c_acctbal")),
+    ]).with_dict("cntrycode", cdict)
+    pos = cust.filter(ex.Cmp("gt", cust.c("c_acctbal"),
+                             ex.Const(0.0, cust.type_of("c_acctbal"))))
+    avg = pos.scalar_agg([("a", "avg", "c_acctbal")])
+    avg = _const_key(avg, [("a", avg.c("a"))])
+    cust = _const_key(cust, [
+        ("c_custkey", cust.c("c_custkey")),
+        ("cntrycode", cust.c("cntrycode")),
+        ("c_acctbal", cust.c("c_acctbal")),
+    ])
+    # __k projection keeps the cntrycode dictionary (bare ColRef)
+    j = cust.join(avg, on=[("__k", "__k")], how="inner")
+    j = j.filter(ex.Cmp("gt", j.c("c_acctbal"), j.c("a")))
+    orders = Rel.scan(cat, "orders", ("o_custkey",))
+    j = j.join(orders, on=[("c_custkey", "o_custkey")], how="anti",
+               build_unique=False)
+    g = j.groupby(["cntrycode"], [
+        ("numcust", "count_rows", None),
+        ("totacctbal", "sum", "c_acctbal"),
+    ])
+    return g.sort([("cntrycode", False)])
+
+
+QUERIES = {
+    "q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7,
+    "q8": q8, "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
+    "q14": q14, "q15": q15, "q16": q16, "q17": q17, "q18": q18, "q19": q19,
+    "q20": q20, "q21": q21, "q22": q22,
+}

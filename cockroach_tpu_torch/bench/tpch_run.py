@@ -2,13 +2,17 @@
 ``_bench_query``.
 
     python3 -m cockroach_tpu_torch.bench.tpch_run [--sf 1.0] [--runs 5]
+        [--queries q1,q3,q9,q18 | all]
 
-For each query: one operator tree, built once and re-run. The first run
-is timed alone (``cold_s``), then the second (``warm_s``), then the
-median of ``runs`` more (``median_s``); ``rows_per_sec`` is lineitem's
-row count over the median, as bench.py reports it. Every run's result is
-held to ``bench/tpch_oracle.py``; a mismatch raises. Prints one JSON
-object with the figures, the host syncs per query and the device.
+The default is bench.py's ladder (q1, q3, q9, q18); ``all`` runs the 22.
+For each query: one operator tree over ``rel.optimized_plan()`` (what
+``Rel.run`` executes), built once and re-run. The first run is timed
+alone (``cold_s``), then the second (``warm_s``), then the median of
+``runs`` more (``median_s``); ``rows_per_sec`` is lineitem's row count
+over the median, as bench.py reports it. Every run's result is held to
+``bench/tpch_oracle.py`` where it has the query (q1, q3, q9, q18), else to
+the cold run's result; a mismatch raises. Prints one JSON object with the
+figures, the result rows and the host syncs per query, and the device.
 """
 
 from __future__ import annotations
@@ -36,11 +40,17 @@ def _timed_run(root, dev: torch.device):
     return res, time.perf_counter() - t0
 
 
-def run_tpch(queries=("q1", "q3"), sf: float = 1.0, seed: int = 19920101,
+LADDER = ("q1", "q3", "q9", "q18")
+
+
+def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
              runs: int = 5, device="cuda", catalog=None) -> dict:
-    """Time `queries` on `device` over a TPC-H catalog at scale `sf` (or
-    the given `catalog`, on the same device); every result is checked
-    against the numpy oracle."""
+    """Time `queries` (names, or "all") on `device` over a TPC-H catalog
+    at scale `sf` (or the given `catalog`, on the same device); every
+    result is checked against the numpy oracle, or without one against
+    the cold run. With runs=0 only the cold and warm runs are made."""
+    if queries == "all":
+        queries = tuple(Q.QUERIES)
     dev = resolve_device(device)
     cat = catalog if catalog is not None else gen_tpch(sf=sf, seed=seed,
                                                        device=dev)
@@ -49,18 +59,25 @@ def run_tpch(queries=("q1", "q3"), sf: float = 1.0, seed: int = 19920101,
     nrows = cat.get("lineitem").num_rows
     out = {"sf": sf, "lineitem_rows": nrows, "device": str(dev)}
     for q in queries:
-        root = plan_builder.build(Q.QUERIES[q](cat).plan, cat)
-        want = tpch_oracle.ORACLES[q](cat)
+        root = plan_builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+        oracle = tpch_oracle.ORACLES.get(q)
+        want = oracle(cat) if oracle is not None else None
         times = []
         for _ in range(runs + 2):
             res, secs = _timed_run(root, dev)
+            if want is None:
+                want = res
             bad = tpch_oracle.mismatch(q, res, want)
             if bad is not None:
-                raise AssertionError(f"{q} disagrees with the oracle: {bad}")
+                raise AssertionError(
+                    f"{q} disagrees with the "
+                    f"{'oracle' if oracle else 'cold run'}: {bad}")
             times.append(secs)
-        med = statistics.median(times[2:])
+        med = statistics.median(times[2:]) if runs else None
         out[q] = {"cold_s": times[0], "warm_s": times[1], "median_s": med,
-                  "rows_per_sec": nrows / med, "equal": True,
+                  "rows_per_sec": nrows / med if runs else None,
+                  "rows": len(next(iter(res.values()))), "equal": True,
+                  "held_to": "oracle" if oracle else "cold run",
                   "host_syncs": host_syncs(root)}
     return out
 
@@ -71,10 +88,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=19920101)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--queries", default="q1,q3")
+    ap.add_argument("--queries", default=",".join(LADDER),
+                    help='comma-separated names, or "all" for the 22')
     a = ap.parse_args()
-    res = run_tpch(tuple(a.queries.split(",")), sf=a.sf, seed=a.seed,
-                   runs=a.runs, device=a.device)
+    queries = "all" if a.queries == "all" else tuple(a.queries.split(","))
+    res = run_tpch(queries, sf=a.sf, seed=a.seed, runs=a.runs,
+                   device=a.device)
     if res["device"].startswith("cuda"):
         res["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(res))

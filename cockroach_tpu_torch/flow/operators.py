@@ -1,16 +1,18 @@
 """Flow operators — the colexec operator set over the Operator contract;
-the port of the operators of ``cockroach_tpu.flow.operators`` that TPC-H
-Q1 and Q3 run: ScanOp (resident mode), FilterOp, ProjectOp, LimitOp,
-AggregateOp (sort-groupby), SmallGroupAggregateOp (dense codes), SortOp
-and HashJoinOp (unique-build and existence joins).
+the port of the operators of ``cockroach_tpu.flow.operators`` that the
+22 TPC-H queries run on one device: ScanOp (resident mode), FilterOp,
+ProjectOp, LimitOp, AggregateOp (sort-groupby), SmallGroupAggregateOp
+(dense codes), ScalarAggregateOp, SortOp, TopKOp, DistinctOp and
+HashJoinOp (unique-build, existence and duplicate-key joins, over exact
+packed or hashed keys).
 
 Each operator runs its tile function as eager torch ops per tile (the
 reference composes streaming chains into one jitted kernel; the port runs
 the unfused tree). Buffering operators size their spools by LIVE row
 count, one counted host sync per spool, so downstream work runs at the
 smallest canonical capacity that fits the data. Paths the port has not
-brought over (streaming scans, spills to external operators, duplicate-
-key joins) raise NotImplementedError naming what waits.
+brought over (streaming scans, spills to external operators, partial-mode
+aggregation) raise NotImplementedError naming what waits.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 
 from ..catalog import SHAPE_BUCKETS, Table
 from ..coldata.batch import Batch, Column, compact, concat, empty_batch
-from ..coldata.types import Family, Schema
+from ..coldata.types import FLOAT64, Family, Schema
 from ..ops import aggregation as agg_ops
 from ..ops import expr as ex
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
+from ..ops.hashing import bucket, hash_columns
 from ..utils import settings
 from .operator import OneInputOperator, Operator, SourceOperator
 
@@ -218,12 +221,25 @@ class LimitOp(OneInputOperator):
 # Aggregation
 
 
+GRACE_PARTS = 8  # the reference's Grace aggregation partition count
+
+
 class AggregateOp(OneInputOperator):
     """GROUP BY aggregation (hashAggregator analog), complete mode: each
     input tile reduces to a partial-state tile by sort_groupby; the spool
     merges down (concat + sort_groupby over the state layout) when it
     outgrows ``sql.distsql.workmem_rows`` and once at the end, then the
-    states finalize."""
+    states finalize.
+
+    When a merge-down still exceeds the budget (the group count itself
+    does), the operator turns Grace: the spooled and every later state
+    tile split by the group key's row hash (``ops/hashing``) into
+    GRACE_PARTS group-disjoint partitions, and each partition merges,
+    finalizes and streams out as its own batch — the reference's
+    GraceAggregateOp with its partition function, so the output order
+    equals the reference's. The partitions stay on the device as masked
+    views of the state tiles; staging them on the host (flow/external.py)
+    waits for the port's SF10 slice."""
 
     def __init__(
         self,
@@ -279,7 +295,12 @@ class AggregateOp(OneInputOperator):
 
     def init(self):
         super().init()
+        self._reset()
+
+    def _reset(self):
         self._emitted = False
+        self._parts: list[list[Batch]] = []
+        self.spilled = False
 
     def _partial(self, b: Batch) -> Batch:
         # out_capacity == input capacity: groups <= live rows, so this
@@ -306,7 +327,28 @@ class AggregateOp(OneInputOperator):
                 return merged
             cap = _canonical_cap(n)
 
+    def _partitions(self, tiles: list[Batch]) -> list[list[Batch]]:
+        """Each state tile as GRACE_PARTS masked views, by the bucket of
+        its group key's row hash."""
+        k = self.num_keys
+        keys = range(k)
+        tables = {pos: d.hashes for pos, d in self.dictionaries.items()
+                  if pos < k}
+        parts: list[list[Batch]] = [[] for _ in range(GRACE_PARTS)]
+        for t in tiles:
+            h = hash_columns([t.cols[i] for i in keys],
+                             [self.state_schema.types[i] for i in keys],
+                             tables or None)
+            pid = bucket(h, GRACE_PARTS)
+            for p in range(GRACE_PARTS):
+                parts[p].append(t.with_mask(t.mask & (pid == p)))
+        return parts
+
     def _next(self):
+        if self._parts:
+            return agg_ops.finalize_states(
+                self._merge_down(self._parts.pop(0)), self.final_map,
+                self.num_keys)
         if self._emitted:
             return None
         self._emitted = True
@@ -320,15 +362,16 @@ class AggregateOp(OneInputOperator):
             part = self._partial(b)
             tiles.append(part)
             spooled += part.capacity
-            if spooled > budget:
+            if spooled > budget and not self.spilled:
                 tiles = [self._merge_down(tiles)]
                 spooled = tiles[0].capacity
-                if spooled > budget:
-                    raise NotImplementedError(
-                        "the group count exceeds sql.distsql.workmem_rows: "
-                        "the external (Grace) aggregation " + NOT_PORTED)
+                # the group count itself exceeds the budget: Grace
+                self.spilled = spooled > budget
         if not tiles:
             return None
+        if self.spilled:
+            self._parts = self._partitions(tiles)
+            return self._next()
         acc = tiles[0] if len(tiles) == 1 else self._merge_down(tiles)
         return agg_ops.finalize_states(acc, self.final_map, self.num_keys)
 
@@ -411,6 +454,46 @@ class SmallGroupAggregateOp(OneInputOperator):
             self.G, self.final_map, states, rows, key_lows=self.key_lows)
 
 
+class ScalarAggregateOp(OneInputOperator):
+    """Aggregation without GROUP BY: each tile reduces to one state per
+    aggregate (0-d tensors), folded across tiles; exactly one output row,
+    even on empty input (SQL scalar aggregate semantics). No host sync."""
+
+    def __init__(self, child: Operator, aggs: tuple[agg_ops.AggSpec, ...]):
+        super().__init__(child)
+        self.aggs = aggs
+        base = child.output_schema
+        self.base_schema = base
+        names, types = [], []
+        for spec in aggs:
+            names.append(spec.name or spec.func)
+            types.append(FLOAT64 if spec.func == "avg"
+                         else agg_ops.agg_output_type(spec, base))
+        self.output_schema = Schema(tuple(names), tuple(types))
+        self.dictionaries = {}
+        self.col_stats = {}
+
+    def init(self):
+        super().init()
+        self._emitted = False
+
+    def _next(self):
+        if self._emitted:
+            return None
+        self._emitted = True
+        acc = None
+        while True:
+            b = self.child.next_batch()
+            if b is None:
+                break
+            st = agg_ops.scalar_tile_states(b, self.aggs, self.base_schema)
+            acc = st if acc is None else agg_ops.scalar_merge_states(
+                self.aggs, acc, st)
+        return agg_ops.scalar_result_batch(
+            self.aggs, self.base_schema, self.output_schema, acc,
+            device=_source_device(self.child))
+
+
 # ---------------------------------------------------------------------------
 # Sort
 
@@ -456,24 +539,103 @@ class SortOp(OneInputOperator):
                                    self.rank_tables, self.child.col_stats)
 
 
+class TopKOp(OneInputOperator):
+    """Top-k (sorttopk.go analog): fold a per-tile stable k-selection
+    over the input, each step keeping the first k rows of the stable sort
+    order at the canonical capacity of k, so ORDER BY ... LIMIT k neither
+    spools the input nor sorts more than one tile plus 2k rows at a time.
+    The accumulator's live rows come before the new tile's in each merge,
+    so among equal keys earlier tiles' rows stay first: the output is the
+    sorted top-k tile, bit-identical to SortOp + LimitOp. No host sync."""
+
+    def __init__(self, child: Operator, keys: tuple[sort_ops.SortKey, ...],
+                 k: int):
+        super().__init__(child)
+        self.output_schema = child.output_schema
+        self.keys = keys
+        self.k = int(k)
+        self.rank_tables = {
+            key.col: child.dictionaries[key.col].ranks
+            for key in keys if key.col in child.dictionaries
+        }
+        self.acc_cap = _canonical_cap(self.k)
+
+    def init(self):
+        super().init()
+        self._emitted = False
+
+    def _select(self, b: Batch) -> Batch:
+        return sort_ops.topk_batch(b, self.output_schema, self.keys, self.k,
+                                   self.acc_cap, self.rank_tables,
+                                   self.child.col_stats)
+
+    def _next(self):
+        if self._emitted:
+            return None
+        self._emitted = True
+        acc = None
+        while True:
+            b = self.child.next_batch()
+            if b is None:
+                return acc
+            sel = self._select(b)
+            acc = sel if acc is None else self._select(
+                concat([acc, sel], capacity=2 * self.acc_cap))
+
+
+class DistinctOp(OneInputOperator):
+    """DISTINCT via grouped aggregation with no aggregates (an inner
+    AggregateOp over the child, whose host syncs count here)."""
+
+    def __init__(self, child: Operator, cols: tuple[int, ...] | None = None):
+        super().__init__(child)
+        self.cols = cols or tuple(range(len(child.output_schema)))
+        self.output_schema = child.output_schema.select(self.cols)
+        self.dictionaries = {
+            self.cols.index(i): d
+            for i, d in child.dictionaries.items() if i in self.cols
+        }
+        self.col_stats = {
+            self.cols.index(i): s
+            for i, s in child.col_stats.items() if i in self.cols
+        }
+        self._inner = AggregateOp(child, self.cols, (), mode="complete")
+
+    def init(self):
+        super().init()
+        self._inner._reset()
+        self._inner.stats = self.stats
+
+    def _next(self):
+        return self._inner._next()
+
+
 # ---------------------------------------------------------------------------
 # Join
 
 
 class HashJoinOp(OneInputOperator):
-    """hashJoiner analog for unique build keys (inner / left) and for
-    existence joins (semi / anti): spool and index the build side once,
-    stream probe tiles. The build strategy follows the reference's rule:
+    """hashJoiner analog: spool and index the build side once, stream
+    probe tiles. Unique-build joins and existence joins (semi / anti,
+    duplicate build keys included) are probe-aligned and pick their build
+    strategy by the reference's rule:
 
     - ``analytic`` when the build side is a position-preserving chain
       (Scan + Filter/Project) over a table whose first build key is an
       affine function of the row index (Table.dense_key_info);
-    - else ``lut`` when the exact packed key fits ``DENSE_LUT_BITS``;
-    - else ``sorted`` (sorted exact keys + binary search).
+    - else ``lut`` when the exact packed key fits ``DENSE_LUT_BITS`` (an
+      existence probe only asks whether a slot is set, so any duplicate
+      may win it);
+    - else ``sorted`` (sorted exact keys or row hashes + binary search).
 
-    Each probe tile's output compacts to the canonical capacity of its
-    live rows (one counted host sync per tile; the reference learns a
-    sticky capacity instead, to stay sync-free under jit)."""
+    Inner and left joins over duplicate build keys (``general``) index
+    the build side sorted and emit every match through
+    ``hash_join_general``, whose output tile is the canonical capacity
+    of the tile's total (which may exceed the probe tile).
+
+    Each probe-aligned tile's output compacts to the canonical capacity
+    of its live rows (one counted host sync per tile; the reference
+    learns a sticky capacity instead, to stay sync-free under jit)."""
 
     def __init__(
         self,
@@ -486,10 +648,6 @@ class HashJoinOp(OneInputOperator):
         super().__init__(probe)
         if spec.join_type not in ("inner", "left", "semi", "anti"):
             raise ValueError(f"unsupported join type {spec.join_type}")
-        if not spec.build_unique:
-            raise NotImplementedError(
-                f"a {spec.join_type} join over duplicate build keys "
-                "(hash_join_general) " + NOT_PORTED)
         self.build = build
         self.probe_keys = probe_keys
         self.build_keys = build_keys
@@ -504,15 +662,20 @@ class HashJoinOp(OneInputOperator):
                 self.dictionaries[off + i] = d
             for i, s in build.col_stats.items():
                 self.col_stats[off + i] = s
-        # host-side string-key bridges: build codes in the probe's space
+        # host-side string-key bridges, per key position: dictionary hash
+        # tables (hashed keys) and build codes in the probe's code space
+        self.probe_hash_tables = {}
+        self.build_hash_tables = {}
         self.build_code_remaps = {}
         for pos, (pk, bk) in enumerate(zip(probe_keys, build_keys)):
             if probe.output_schema.types[pk].family is Family.STRING:
                 pd = probe.dictionaries[pk]
                 bd = build.dictionaries[bk]
+                self.probe_hash_tables[pos] = pd.hashes
+                self.build_hash_tables[pos] = bd.hashes
                 self.build_code_remaps[pos] = np.array(
                     [pd.code_of(str(v)) for v in bd.values], dtype=np.int32)
-        # exact packed keys when every key column is bounded
+        # exact packed keys when every key column is bounded; else hashes
         self.exact_layout = join_ops.plan_exact_key(
             probe.output_schema, probe_keys,
             build.output_schema, build_keys,
@@ -521,12 +684,17 @@ class HashJoinOp(OneInputOperator):
              if pk in probe.dictionaries},
             have_remaps=True,
         )
+        # unique-build and existence probes emit probe-aligned tiles
+        self.probe_aligned = (spec.build_unique
+                              or spec.join_type in ("semi", "anti"))
         self.strategy = None
 
     def _plan_analytic(self):
         """Dense analytic build detection: the build side is a position-
         preserving chain (Scan + Filter/Project only) over a table whose
         first build-key column is an affine function of the row index."""
+        if not self.probe_aligned:
+            return None
         key = self.build_keys[0]
         op = self.build
         while not isinstance(op, ScanOp):
@@ -546,7 +714,8 @@ class HashJoinOp(OneInputOperator):
         if got is None:
             return None
         lo, fanout = got
-        if fanout > 1 and len(self.build_keys) < 2:
+        if (self.spec.build_unique and fanout > 1
+                and len(self.build_keys) < 2):
             return None  # fanout rows share the first key: not unique by it
         # the analytic build pins the whole table: honor the byte budget
         row_bytes = sum(
@@ -565,10 +734,12 @@ class HashJoinOp(OneInputOperator):
         super().init()
         self._built = False
         self._analytic = self._plan_analytic()
-        if self._analytic is None and self.exact_layout is None:
-            raise NotImplementedError(
-                "a join on unbounded key columns needs hashed keys "
-                "(ops/hashing), which " + NOT_PORTED)
+
+    def _sorted_index(self, batch: Batch):
+        return join_ops.build_index(
+            batch, self.build.output_schema, self.build_keys,
+            self.build_hash_tables or None, exact_layout=self.exact_layout,
+            exact_remaps=self.build_code_remaps or None)
 
     def _ensure_built(self):
         if self._built:
@@ -601,26 +772,23 @@ class HashJoinOp(OneInputOperator):
                 "the join build side exceeds sql.distsql.workmem_bytes: the "
                 "Grace hash join " + NOT_PORTED)
         layout = self.exact_layout
-        remaps = self.build_code_remaps or None
+        sorted_kind = "sorted" if self.probe_aligned else "general"
         if not tiles:
             self._build_batch = empty_batch(self.build.output_schema, 1024,
                                             _source_device(self.build))
-            self._index = join_ops.build_index(
-                self._build_batch, self.build.output_schema, self.build_keys,
-                exact_layout=layout, exact_remaps=remaps)
-            self.strategy = "sorted"
+            self._index = self._sorted_index(self._build_batch)
+            self.strategy = sorted_kind
             return
         big = concat(tiles, capacity=_spool_cap(self, tiles))
         self._build_batch = big
-        if layout.total_bits <= join_ops.DENSE_LUT_BITS:
+        if (self.probe_aligned and layout is not None
+                and layout.total_bits <= join_ops.DENSE_LUT_BITS):
             self.strategy = "lut"
             self._index = join_ops.build_dense_lut(
-                big, self.build_keys, layout, remaps)
+                big, self.build_keys, layout, self.build_code_remaps or None)
         else:
-            self.strategy = "sorted"
-            self._index = join_ops.build_index(
-                big, self.build.output_schema, self.build_keys,
-                exact_layout=layout, exact_remaps=remaps)
+            self.strategy = sorted_kind
+            self._index = self._sorted_index(big)
 
     def _probe(self, p: Batch) -> Batch:
         build = self._build_batch
@@ -628,15 +796,26 @@ class HashJoinOp(OneInputOperator):
             fi, fo = join_ops.dense_analytic_probe(
                 p, self.probe_keys, build, self.build_keys, self._analytic,
                 self.build_code_remaps or None)
-        elif self.strategy == "lut":
+            return join_ops.emit_unique(p, build, self.spec, fi, fo)
+        if self.strategy == "lut":
             fi, fo = join_ops.dense_lut_probe(
                 p, self.probe_keys, self.exact_layout, self._index)
-        else:
-            return join_ops.hash_join_unique(
-                p, self.child.output_schema, self.probe_keys, build,
-                self.build.output_schema, self.build_keys, self.spec,
-                index=self._index, exact_layout=self.exact_layout)
-        return join_ops.emit_unique(p, build, self.spec, fi, fo)
+            return join_ops.emit_unique(p, build, self.spec, fi, fo)
+        args = (p, self.child.output_schema, self.probe_keys, build,
+                self.build.output_schema, self.build_keys, self.spec)
+        kw = dict(probe_hash_tables=self.probe_hash_tables or None,
+                  build_hash_tables=self.build_hash_tables or None,
+                  build_code_remaps=self.build_code_remaps or None,
+                  index=self._index, exact_layout=self.exact_layout,
+                  sync=self.sync_int)
+        if self.spec.build_unique:
+            return join_ops.hash_join_unique(*args, **kw)
+        # existence probe over duplicate build keys (probe-aligned), or
+        # the general emit, already compacted at the canonical capacity of
+        # its total
+        out, _ = join_ops.hash_join_general(
+            *args, out_capacity=lambda n: _canonical_cap(max(1, n)), **kw)
+        return out
 
     def children(self):
         return [self.child, self.build]
@@ -647,6 +826,8 @@ class HashJoinOp(OneInputOperator):
         if p is None:
             return None
         out = self._probe(p)
+        if self.strategy == "general":
+            return out
         cap = _canonical_cap(max(1, self.sync_int(out.mask.sum())))
         if cap < out.capacity:
             out = compact(out, cap)
@@ -655,4 +836,3 @@ class HashJoinOp(OneInputOperator):
     def close(self):
         super().close()
         self.build.close()
-

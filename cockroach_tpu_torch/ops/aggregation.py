@@ -474,6 +474,127 @@ def dense_finalize(base: Schema, group_cols, strides, key_sizes, G,
     return finalize_states(state_batch, final_map, len(group_cols))
 
 
+# ---------------------------------------------------------------------------
+# scalar (no GROUP BY) aggregation states
+
+
+def scalar_tile_states(batch: Batch, aggs: tuple[AggSpec, ...],
+                       base: Schema):
+    """Per-tile scalar states: one (value, valid) pair of 0-d tensors per
+    aggregate (avg carries (sum, count); var/stddev (sum, sum of
+    squares, count))."""
+    out = []
+    for spec in aggs:
+        if spec.func == "count_rows":
+            out.append((batch.mask.sum(dtype=torch.int64),
+                        torch.ones((), dtype=torch.bool, device=batch.device)))
+            continue
+        c = batch.cols[spec.col]
+        t = base.types[spec.col]
+        m = batch.mask & c.valid
+        cnt = m.sum(dtype=torch.int64)
+        if spec.func == "count":
+            out.append((cnt, torch.ones((), dtype=torch.bool,
+                                        device=batch.device)))
+        elif spec.func in ("sum", "avg"):
+            if t.family is Family.FLOAT or spec.func == "avg":
+                s = torch.where(m, c.data.to(torch.float64), 0.0).sum()
+            else:
+                s = torch.where(m, c.data.to(torch.int64), 0).sum()
+            out.append(((s, cnt) if spec.func == "avg" else s, cnt > 0))
+        elif spec.func in ("min", "max"):
+            is_min = spec.func == "min"
+            vals = torch.where(m, c.data,
+                               _minmax_sentinel(c.data.dtype, is_min))
+            out.append((vals.min() if is_min else vals.max(), cnt > 0))
+        elif spec.func in STAT_FUNCS:
+            d = c.data.to(torch.float64)
+            if t.family is Family.DECIMAL:
+                d = d / (10.0 ** t.scale)
+            s_ = torch.where(m, d, 0.0).sum()
+            q_ = torch.where(m, d * d, 0.0).sum()
+            ok = cnt > 0 if spec.func.endswith("_pop") else cnt > 1
+            out.append(((s_, q_, cnt), ok))
+        elif spec.func in ("bool_and", "bool_or"):
+            is_and = spec.func == "bool_and"
+            vals = torch.where(m, c.data.to(torch.bool), is_and)
+            out.append((vals.all() if is_and else vals.any(), cnt > 0))
+        else:
+            raise ValueError(spec.func)
+    return out
+
+
+def scalar_merge_states(aggs: tuple[AggSpec, ...], acc, new):
+    """Merge two tiles' scalar states, aggregate by aggregate."""
+    out = []
+    for spec, (a, av), (n, nv) in zip(aggs, acc, new):
+        if spec.func in ("count", "count_rows"):
+            out.append((a + n, av))
+        elif spec.func == "sum":
+            out.append((a + n, av | nv))
+        elif spec.func == "avg":
+            out.append(((a[0] + n[0], a[1] + n[1]), av | nv))
+        elif spec.func in STAT_FUNCS:
+            cnt = a[2] + n[2]
+            ok = cnt > 0 if spec.func.endswith("_pop") else cnt > 1
+            out.append(((a[0] + n[0], a[1] + n[1], cnt), ok))
+        elif spec.func == "min":
+            out.append((torch.minimum(a, n), av | nv))
+        elif spec.func == "max":
+            out.append((torch.maximum(a, n), av | nv))
+        elif spec.func == "bool_and":
+            out.append((a & n, av | nv))
+        elif spec.func == "bool_or":
+            out.append((a | n, av | nv))
+        else:
+            raise ValueError(spec.func)
+    return out
+
+
+def scalar_result_batch(aggs: tuple[AggSpec, ...], base: Schema,
+                        out_schema: Schema, acc, device=None) -> Batch:
+    """States -> one-row result Batch. acc=None means empty input (its
+    row lands on `device`): counts are 0, everything else NULL."""
+    if acc is not None:
+        device = acc[0][1].device
+    cols = []
+    for spec, t, st in zip(aggs, out_schema.types,
+                           acc if acc is not None else [None] * len(aggs)):
+        if st is None:
+            if spec.func in ("count", "count_rows"):
+                d = torch.zeros(1, dtype=torch.int64, device=device)
+                v = torch.ones(1, dtype=torch.bool, device=device)
+            else:
+                d = torch.zeros(1, dtype=t.torch_dtype, device=device)
+                v = torch.zeros(1, dtype=torch.bool, device=device)
+            cols.append(Column(data=d, valid=v))
+            continue
+        val, valid = st
+        if spec.func in STAT_FUNCS:
+            sm, sq, c = val
+            n = c.to(torch.float64)
+            safe_n = torch.where(n > 0, n, 1.0)
+            mean = sm / safe_n
+            if spec.func.endswith("_pop"):
+                var = torch.clamp(sq / safe_n - mean * mean, min=0.0)
+            else:
+                denom = torch.where(n > 1, n - 1.0, 1.0)
+                var = torch.clamp((sq - n * mean * mean) / denom, min=0.0)
+            d = torch.sqrt(var) if spec.func.startswith("stddev") else var
+        elif spec.func == "avg":
+            s, c = val
+            base_t = base.types[spec.col]
+            d = s.to(torch.float64) / torch.where(c > 0, c, 1).to(
+                torch.float64)
+            if base_t.family is Family.DECIMAL:
+                d = d / (10.0**base_t.scale)
+        else:
+            d = val.to(t.torch_dtype)
+        cols.append(Column(data=d.reshape(1), valid=valid.reshape(1)))
+    return Batch(cols=tuple(cols),
+                 mask=torch.ones(1, dtype=torch.bool, device=device))
+
+
 def agg_output_schema(
     base: Schema, group_cols: tuple[int, ...], aggs: tuple[AggSpec, ...],
     mode: str = "complete",

@@ -194,6 +194,18 @@ def lit(value: Any, t: SQLType | None = None) -> Const:
     return Const(value, t)
 
 
+def and_(*args: Expr) -> Expr:
+    return BoolOp("and", tuple(args))
+
+
+def or_(*args: Expr) -> Expr:
+    return BoolOp("or", tuple(args))
+
+
+def between(e: Expr, lo: Expr, hi: Expr) -> Expr:
+    return and_(Cmp("ge", e, lo), Cmp("le", e, hi))
+
+
 # ---------------------------------------------------------------------------
 # Parameter scope (prepared-plan literal rebinding)
 

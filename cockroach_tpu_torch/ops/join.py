@@ -13,11 +13,20 @@ equal key, by one of three strategies (all exact, all probe-aligned):
 - sorted index: the packed keys sorted once per build side
   (``build_index``), each probe a binary search (``bsearch``).
 
-Packed keys follow the port's uint64 convention (int64 bit patterns,
-unsigned order after flipping bit 63); NULL-key and dead rows carry the
-all-ones sentinel, which no packed key (at most 63 bits) can equal.
-The reference's hashed keys (unbounded key columns) and its duplicate-key
-join (``hash_join_general``) are not ported yet: those plans raise.
+When a key column is unbounded (FLOAT, or no catalog stats) there is no
+exact packed key: the sorted index holds 64-bit row hashes
+(``ops/hashing``) and every candidate in a probe's run of equal hashes
+is verified column by column (``_keys_equal``).
+
+Duplicate build keys go through ``hash_join_general``: each probe row's
+matches are its run ``[lo, hi)`` in the sorted index (filtered by key
+equality under hashed keys), emitted probe row first, then sorted build
+position, into an output tile sized from the total after a host sync.
+
+Packed keys and hashes follow the port's uint64 convention (int64 bit
+patterns, unsigned order after flipping bit 63); NULL-key and dead rows
+carry the all-ones sentinel, which no packed key (at most 63 bits) can
+equal.
 
 SQL semantics: NULL join keys never match; anti-join keeps NULL-key
 probe rows (NOT EXISTS semantics).
@@ -33,6 +42,7 @@ import torch
 from ..coldata.batch import Batch, Column
 from ..coldata.types import Family, Schema
 from ..storage.keys import flip
+from .hashing import hash_columns
 from .keys import bits_for_count
 
 _SENTINEL = -1  # the uint64 all-ones word as an int64 bit pattern
@@ -40,8 +50,7 @@ _SENTINEL = -1  # the uint64 all-ones word as an int64 bit pattern
 # max packed-key bits for the dense LUT strategy (2^24 int32 slots = 64 MiB)
 DENSE_LUT_BITS = 24
 
-NOT_PORTED = ("waits for the next SQL slice of the port (ROADMAP Queue 1, "
-              "TPC-H ladder: q18/q9)")
+NOT_PORTED = "waits for a later SQL slice of the port (ROADMAP Queue 1)"
 
 
 @dataclass(frozen=True)
@@ -147,21 +156,25 @@ class DenseAnalytic:
 
 
 def _keys_equal(probe: Batch, pkeys, build: Batch, bkeys, bidx,
-                build_remaps=None):
-    """Exact key equality probe[i] == build[bidx[i]] per row; build_remaps
+                build_remaps=None, pidx=None):
+    """Exact key equality probe[i] == build[bidx[i]] per row (per pair
+    probe[pidx[j]] == build[bidx[j]] when `pidx` is given); build_remaps
     maps build dictionary codes into the probe column's code space."""
     build_remaps = build_remaps or {}
-    eq = torch.ones(probe.capacity, dtype=torch.bool, device=probe.device)
+    eq = torch.ones(bidx.shape[0], dtype=torch.bool, device=probe.device)
     for pos, (pk, bk) in enumerate(zip(pkeys, bkeys)):
         pc = probe.cols[pk]
         bc = build.cols[bk]
+        pdata, pvalid = pc.data, pc.valid
+        if pidx is not None:
+            pdata, pvalid = pdata[pidx], pvalid[pidx]
         bdata = bc.data[bidx]
         if pos in build_remaps:
             remap = torch.from_numpy(np.asarray(build_remaps[pos])).to(
                 probe.device)
             bdata = remap[torch.clamp(bdata.to(torch.int64), 0,
                                       remap.shape[0] - 1)]
-        eq = eq & (pc.data == bdata) & pc.valid & bc.valid[bidx]
+        eq = eq & (pdata == bdata) & pvalid & bc.valid[bidx]
     return eq
 
 
@@ -259,24 +272,51 @@ def bsearch(sorted_keys: torch.Tensor, queries: torch.Tensor,
     return torch.searchsorted(flip(sorted_keys), flip(queries), side=side)
 
 
+def _key_hashes(batch: Batch, keys: tuple[int, ...], schema: Schema,
+                hash_tables):
+    """(row hash, active): dead and NULL-key rows, which can never match,
+    get the sentinel."""
+    cols = [batch.cols[i] for i in keys]
+    types = [schema.types[i] for i in keys]
+    h = hash_columns(cols, types, hash_tables)
+    all_valid = batch.mask
+    for c in cols:
+        all_valid = all_valid & c.valid
+    return torch.where(all_valid, h, _SENTINEL), all_valid
+
+
 def build_index(
-    build: Batch, schema: Schema, keys: tuple[int, ...],
+    build: Batch, schema: Schema, keys: tuple[int, ...], hash_tables=None,
     exact_layout: ExactKeyLayout | None = None, exact_remaps=None,
 ):
-    """Sort build rows by exact packed key -> (sorted_keys, orig_index).
+    """Sort build rows by key (the exact packed key when the layout
+    allows, else the 64-bit row hash) -> (sorted_keys, orig_index).
     NULL-key and dead rows carry the max sentinel and sort to the end."""
-    if exact_layout is None:
-        raise NotImplementedError(
-            "a hashed join key (a key column without bounds) "
-            "needs ops/hashing, which " + NOT_PORTED)
-    if (exact_remaps is None
-            and any(k == "str" for k, _, _ in exact_layout.segs)):
-        raise ValueError(
-            "exact STRING join keys need build-code remaps (pass "
-            "exact_remaps or a precomputed index)")
-    bh, _ = exact_keys(build, keys, exact_layout, exact_remaps)
+    if exact_layout is not None:
+        if (exact_remaps is None
+                and any(k == "str" for k, _, _ in exact_layout.segs)):
+            raise ValueError(
+                "exact STRING join keys need build-code remaps (pass "
+                "exact_remaps or a precomputed index)")
+        bh, _ = exact_keys(build, keys, exact_layout, exact_remaps)
+    else:
+        bh, _ = _key_hashes(build, keys, schema, hash_tables)
     order = torch.sort(flip(bh), stable=True).indices
     return bh[order], order
+
+
+def _probe_runs(probe, probe_schema, probe_keys, sh, exact_layout,
+                probe_hash_tables):
+    """(lo, run, active): each probe row's run [lo, lo + run) of equal
+    keys (or hashes) in the sorted index; inactive rows have run 0."""
+    if exact_layout is not None:
+        ph, p_active = exact_keys(probe, probe_keys, exact_layout)
+    else:
+        ph, p_active = _key_hashes(probe, probe_keys, probe_schema,
+                                   probe_hash_tables)
+    lo = bsearch(sh, ph, side="left")
+    hi = bsearch(sh, ph, side="right")
+    return lo, torch.where(p_active, hi - lo, 0), p_active
 
 
 def hash_join_unique(
@@ -287,29 +327,151 @@ def hash_join_unique(
     build_schema: Schema,
     build_keys: tuple[int, ...],
     spec: JoinSpec,
+    probe_hash_tables=None,
+    build_hash_tables=None,
+    build_code_remaps=None,
     index=None,
     exact_layout: ExactKeyLayout | None = None,
     exact_remaps=None,
+    sync=int,
 ) -> Batch:
-    """Join with unique build keys through the sorted exact-key index.
-    Output tile is probe-capacity: probe columns followed by build columns
-    (semi/anti: probe columns only). `index` is an optional precomputed
-    build_index() result so the build sort runs once per build side."""
-    if exact_layout is None:
-        raise NotImplementedError(
-            "hash_join_unique over hashed keys " + NOT_PORTED)
+    """Join with unique build keys through the sorted index. Output tile
+    is probe-capacity: probe columns followed by build columns (semi/anti:
+    probe columns only). `index` is an optional precomputed build_index()
+    result so the build sort runs once per build side.
+
+    With an exact layout the probe is one binary search and one compare.
+    With hashed keys every candidate of the probe's run of equal hashes
+    is verified column by column and the first equal one wins; the
+    longest run bounds the steps, read through `sync` (one host sync)."""
     bcap = build.capacity
     sh, order = index if index is not None else build_index(
-        build, build_schema, build_keys,
+        build, build_schema, build_keys, build_hash_tables,
         exact_layout=exact_layout, exact_remaps=exact_remaps,
     )
-    ph, p_active = exact_keys(probe, probe_keys, exact_layout)
-    pos = bsearch(sh, ph, side="left")
-    posc = torch.clamp(pos, 0, bcap - 1)
-    found_idx = order[posc]
-    found = (pos < bcap) & (sh[posc] == ph) & p_active
-    found = found & build.mask[found_idx]
+    if exact_layout is not None:
+        ph, p_active = exact_keys(probe, probe_keys, exact_layout)
+        pos = bsearch(sh, ph, side="left")
+        posc = torch.clamp(pos, 0, bcap - 1)
+        found_idx = order[posc]
+        found = (pos < bcap) & (sh[posc] == ph) & p_active
+        found = found & build.mask[found_idx]
+        return emit_unique(probe, build, spec, found_idx, found)
+    lo, run, p_active = _probe_runs(probe, probe_schema, probe_keys, sh,
+                                    None, probe_hash_tables)
+    found = torch.zeros(probe.capacity, dtype=torch.bool,
+                        device=probe.device)
+    found_idx = torch.zeros(probe.capacity, dtype=torch.int64,
+                            device=probe.device)
+    for k in range(sync(run.max())):
+        bidx = order[torch.clamp(lo + k, 0, bcap - 1)]
+        hit = (k < run) & ~found & _keys_equal(
+            probe, probe_keys, build, build_keys, bidx, build_code_remaps)
+        found_idx = torch.where(hit, bidx, found_idx)
+        found = found | hit
+    found = found & p_active & build.mask[found_idx]
     return emit_unique(probe, build, spec, found_idx, found)
+
+
+def hash_join_general(
+    probe: Batch,
+    probe_schema: Schema,
+    probe_keys: tuple[int, ...],
+    build: Batch,
+    build_schema: Schema,
+    build_keys: tuple[int, ...],
+    spec: JoinSpec,
+    out_capacity,
+    probe_hash_tables=None,
+    build_hash_tables=None,
+    build_code_remaps=None,
+    index=None,
+    exact_layout: ExactKeyLayout | None = None,
+    exact_remaps=None,
+    sync=int,
+):
+    """General join (duplicate build keys) -> (out_batch, total_rows).
+
+    Semi and anti joins are probe-aligned (total: the rows kept). Inner
+    and left joins emit the m-th match of probe row i at slot
+    base[i] + m (base: the exclusive prefix sum of the rows each probe
+    row emits; a left join's unmatched live row emits one null-extended
+    row at its base slot), so output is ordered by probe row, then sorted
+    build position. `out_capacity` is the output tile's capacity, or a
+    function of the total that gives it; rows past it are dropped (the
+    caller compares total to it). Device scalars become host ints
+    through `sync`: one for the total, and under hashed keys one more
+    for the candidate pairs, which are verified column by column."""
+    cap = probe.capacity
+    bcap = build.capacity
+    dev = probe.device
+    sh, order = index if index is not None else build_index(
+        build, build_schema, build_keys, build_hash_tables,
+        exact_layout=exact_layout, exact_remaps=exact_remaps,
+    )
+    lo, run, p_active = _probe_runs(probe, probe_schema, probe_keys, sh,
+                                    exact_layout, probe_hash_tables)
+    rows = torch.arange(cap, device=dev)
+    if exact_layout is not None:
+        # packed-key equality is exact: the [lo, hi) run IS the match set
+        cnt = run
+
+        def match_b(p, m):
+            return order[torch.clamp(lo[p] + m, 0, bcap - 1)]
+    else:
+        # expand every candidate pair (probe row, run position), keep the
+        # pairs whose key columns are equal, in pair order
+        n = sync(run.sum())
+        pair_p = torch.repeat_interleave(rows, run, output_size=n)
+        cbase = torch.cumsum(run, 0) - run
+        pair_b = order[torch.clamp(
+            lo[pair_p] + torch.arange(n, device=dev) - cbase[pair_p],
+            0, bcap - 1)]
+        eq = _keys_equal(probe, probe_keys, build, build_keys, pair_b,
+                         build_code_remaps, pidx=pair_p) & build.mask[pair_b]
+        eq64 = eq.to(torch.int64)
+        cnt = torch.zeros(cap, dtype=torch.int64, device=dev).index_add_(
+            0, pair_p, eq64)
+        dest = torch.where(eq, torch.cumsum(eq64, 0) - eq64, n)
+        matched = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        matched.index_copy_(0, dest, pair_b)
+        mbase = torch.cumsum(cnt, 0) - cnt
+
+        def match_b(p, m):
+            return matched[torch.clamp(mbase[p] + m, 0, n)]
+
+    if spec.join_type == "semi":
+        keep = probe.mask & (cnt > 0)
+        return probe.with_mask(keep), keep.sum(dtype=torch.int64)
+    if spec.join_type == "anti":
+        keep = probe.mask & (cnt == 0)
+        return probe.with_mask(keep), keep.sum(dtype=torch.int64)
+    if spec.join_type not in ("inner", "left"):
+        raise ValueError(f"unsupported join type {spec.join_type}")
+    out_rows = cnt
+    if spec.join_type == "left":
+        out_rows = torch.where(probe.mask, torch.clamp(cnt, min=1), cnt)
+    base = torch.cumsum(out_rows, 0) - out_rows
+    total = sync(out_rows.sum())
+    oc = out_capacity(total) if callable(out_capacity) else out_capacity
+    keep = min(total, oc)
+    out_p = torch.zeros(oc, dtype=torch.int64, device=dev)
+    out_p[:keep] = torch.repeat_interleave(rows, out_rows,
+                                           output_size=total)[:keep]
+    slot = torch.arange(oc, device=dev)
+    out_live = slot < keep
+    m = slot - base[out_p]
+    out_found = out_live & (m < cnt[out_p])
+    out_b = match_b(out_p, m)
+    pcols = tuple(
+        Column(data=c.data[out_p], valid=c.valid[out_p] & out_live)
+        for c in probe.cols
+    )
+    bcols = tuple(
+        Column(data=c.data[out_b], valid=c.valid[out_b] & out_found)
+        for c in build.cols
+    )
+    return Batch(cols=pcols + bcols, mask=out_live), total
 
 
 def join_output_schema(

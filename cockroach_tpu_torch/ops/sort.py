@@ -153,6 +153,29 @@ def sort_batch(
     )
 
 
+def topk_batch(
+    batch: Batch,
+    schema: Schema,
+    keys: tuple[SortKey, ...],
+    k: int,
+    capacity: int,
+    rank_tables: dict[int, np.ndarray] | None = None,
+    col_stats: dict[int, tuple] | None = None,
+) -> Batch:
+    """Stable k-selection: the first ``k`` live rows of the stable sort
+    order, re-materialized at ``capacity`` (>= k). Equal keys at the k
+    boundary resolve by original row position — exactly the rows a full
+    sort + LIMIT k keeps — so folding per-tile selections through concat
+    (earlier tiles first) stays bit-identical with the full sort. Output
+    is sorted and compacted (dead rows masked off)."""
+    perm = sort_perm(batch, schema, keys, rank_tables, col_stats)
+    idx = torch.arange(capacity, device=batch.device)
+    take = perm[torch.clamp(idx, max=batch.capacity - 1)]
+    out = apply_perm(batch, take)
+    keep = out.mask & (idx < batch.capacity) & (idx < k)
+    return out.with_mask(keep)
+
+
 def limit_mask(batch: Batch, limit: int, offset: int = 0) -> Batch:
     """LIMIT/OFFSET over live rows in tile order (apply after sort_batch,
     whose output is compacted)."""

@@ -1,8 +1,9 @@
 """Plan -> operator tree — the colbuilder.NewColOperator analog; the port
-of ``cockroach_tpu.plan.builder`` for the node kinds of TPC-H Q1 and Q3
-(TableScan, Filter, Project, Aggregate, Sort, Limit, HashJoin). Any other
-node raises NotImplementedError. The reference then fuses stateless
-per-tile chains (flow/fuse.py); the port runs the tree unfused.
+of ``cockroach_tpu.plan.builder`` for the node kinds the 22 TPC-H queries
+use on one device (TableScan, Filter, Project, Aggregate, ScalarAggregate,
+Sort, TopK, Limit, Distinct, HashJoin, and Exchange as the identity). Any
+other node raises NotImplementedError. The reference then fuses
+stateless per-tile chains (flow/fuse.py); the port runs the tree unfused.
 """
 
 from __future__ import annotations
@@ -123,11 +124,22 @@ def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
             if plan.mode in ("complete", "partial") else (False, False))
         return ops.AggregateOp(child, plan.group_cols, plan.aggs, plan.mode,
                                ordered=ordered, prefix_live=prefix_live)
+    if isinstance(plan, S.ScalarAggregate):
+        if plan.mode != "complete":
+            raise NotImplementedError(
+                f"{plan.mode}-mode aggregation is a distributed stage, "
+                "which waits for the port's multi-device slice (ROADMAP "
+                "Queue 1)")
+        return ops.ScalarAggregateOp(build(plan.input, catalog), plan.aggs)
     if isinstance(plan, S.Sort):
         return ops.SortOp(build(plan.input, catalog), plan.keys)
+    if isinstance(plan, S.TopK):
+        return ops.TopKOp(build(plan.input, catalog), plan.keys, plan.k)
     if isinstance(plan, S.Limit):
         return ops.LimitOp(build(plan.input, catalog), plan.limit,
                            plan.offset)
+    if isinstance(plan, S.Distinct):
+        return ops.DistinctOp(build(plan.input, catalog), plan.cols)
     if isinstance(plan, S.HashJoin):
         return ops.HashJoinOp(
             build(plan.probe, catalog), build(plan.build, catalog),
@@ -136,6 +148,6 @@ def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
         # single-device build: the shuffle is the identity
         return build(plan.input, catalog)
     raise NotImplementedError(
-        f"plan node {type(plan).__name__} (TopK, ScalarAggregate, Distinct, "
-        "Window, MergeJoin, Union, IndexScan and the distribution nodes) "
-        "waits for a later SQL slice of the port (ROADMAP Queue 1)")
+        f"plan node {type(plan).__name__} (Window, MergeJoin, Union, "
+        "IndexScan and the distribution nodes) waits for a later SQL slice "
+        "of the port (ROADMAP Queue 1)")

@@ -1,29 +1,35 @@
 """Relational plan builder — the optbuilder analog; the port of the
-plan-building subset of ``cockroach_tpu.sql.rel`` that TPC-H Q1 and Q3 use
-(scan, filter, project, groupby, sort, limit, join).
+plan-building subset of ``cockroach_tpu.sql.rel`` that the 22 TPC-H
+queries use (scan, filter, project, select, groupby, scalar_agg, sort,
+limit, distinct, join, and the string predicates and transforms).
 
 ``Rel`` is a fluent builder over the plan IR that tracks output schema and
 string dictionaries as the plan grows, so string literals resolve to
-dictionary codes at plan time. ``Rel.run`` executes ``rel.plan`` as built
-(the reference's ``run`` first applies index selection and top-k
-pushdown, which the port has not brought over).
+dictionary codes and string predicates become host-prepared CodeLookup
+tables at plan time. ``Rel.run`` executes ``optimized_plan()``: top-k
+pushdown over the plan, as the reference's does (its index selection
+only rewrites scans of indexed KV tables, which the port has not
+brought over).
 """
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 
 from ..catalog import Catalog
 from ..coldata.batch import Dictionary
-from ..coldata.types import FLOAT64, INT32, Schema, SQLType
+from ..coldata.types import FLOAT64, INT32, STRING, Schema, SQLType
 from ..flow.runtime import run_plan
 from ..ops import aggregation as agg_ops
 from ..ops import expr as ex
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
 from ..plan import spec as S
+from ..plan.topkopt import push_topk
 
 
 @dataclass
@@ -53,6 +59,63 @@ class Rel:
     def str_eq(self, col: str, value: str) -> ex.Expr:
         return ex.Cmp("eq", self.c(col), self.str_lit(col, value))
 
+    def str_in(self, col: str, values: list[str]) -> ex.Expr:
+        i = self.idx(col)
+        d = self.dicts[i]
+        table = np.zeros(max(1, len(d)), dtype=bool)
+        for v in values:
+            code = d.code_of(v)
+            if code >= 0:
+                table[code] = True
+        return ex.CodeLookup(col=i, table=table)
+
+    def str_pred(self, col: str, fn: Callable[[str], bool]) -> ex.Expr:
+        """Arbitrary string predicate (LIKE etc.) evaluated per dictionary
+        entry on the host, becoming a device gather."""
+        i = self.idx(col)
+        d = self.dicts[i]
+        table = np.array([bool(fn(str(v))) for v in d.values])
+        if len(table) == 0:
+            table = np.zeros(1, dtype=bool)
+        return ex.CodeLookup(col=i, table=table)
+
+    def str_cmp(self, col: str, op: str, value: str) -> ex.Expr:
+        """Range comparison on strings, per dictionary entry."""
+        fns = {"lt": operator.lt, "le": operator.le, "gt": operator.gt,
+               "ge": operator.ge}
+        return self.str_pred(col, lambda s: fns[op](s, value))
+
+    def str_transform(self, col: str,
+                      fn: Callable[[str], str]) -> tuple[ex.Expr, Dictionary]:
+        """String-valued function of a STRING column (SUBSTRING etc.),
+        evaluated per dictionary entry on the host: returns a STRING
+        expression (a code-remap gather on the device) plus the
+        transformed values' Dictionary — attach it when projecting (see
+        with_dict)."""
+        i = self.idx(col)
+        d = self.dicts[i]
+        mapped = np.array([fn(str(v)) for v in d.values], dtype=object)
+        uvals, codes = (np.unique(mapped.astype(str), return_inverse=True)
+                        if len(mapped) else (np.array([], dtype=object),
+                                             np.zeros(0, np.int32)))
+        table = codes.astype(np.int32) if len(codes) else np.zeros(1, np.int32)
+        return (ex.CodeLookup(col=i, table=table, out_type=STRING),
+                Dictionary(uvals.astype(object)))
+
+    def with_dict(self, col: str, d: Dictionary) -> "Rel":
+        """Attach a dictionary to a STRING output column whose dictionary
+        the projection cannot infer (e.g. a str_transform output). Must
+        directly follow a project(); the override is recorded on the
+        Project plan node so the operator layer sees it."""
+        i = self.idx(col)
+        if not isinstance(self.plan, S.Project):
+            raise TypeError("with_dict must follow a project()")
+        plan = S.Project(self.plan.input, self.plan.exprs, self.plan.names,
+                         self.plan.dict_overrides + ((i, d),))
+        out = Rel(self.catalog, plan, self.schema, dict(self.dicts))
+        out.dicts[i] = d
+        return out
+
     # -- relational operators ----------------------------------------------
 
     @staticmethod
@@ -81,6 +144,9 @@ class Rel:
         }
         return Rel(self.catalog, S.Project(self.plan, exprs, names),
                    Schema(names, types), dicts)
+
+    def select(self, *names: str) -> "Rel":
+        return self.project([(n, self.c(n)) for n in names])
 
     def groupby(self, by: list[str],
                 aggs: list[tuple]) -> "Rel":
@@ -129,6 +195,20 @@ class Rel:
         }
         return Rel(self.catalog, node, Schema(names, tuple(types)), dicts)
 
+    def scalar_agg(self, aggs: list[tuple[str, str, str | None]]) -> "Rel":
+        specs = tuple(
+            agg_ops.AggSpec(f, None if cn is None else self.idx(cn), name)
+            for name, f, cn in aggs
+        )
+        node = S.ScalarAggregate(self.plan, specs)
+        names = tuple(name for name, _, _ in aggs)
+        types = tuple(
+            FLOAT64 if spec.func == "avg"
+            else agg_ops.agg_output_type(spec, self.schema)
+            for spec in specs
+        )
+        return Rel(self.catalog, node, Schema(names, types), {})
+
     def sort(self, keys: list[tuple[str, bool]]) -> "Rel":
         sk = tuple(sort_ops.SortKey(self.idx(n), desc=d) for n, d in keys)
         return Rel(self.catalog, S.Sort(self.plan, sk), self.schema,
@@ -137,6 +217,15 @@ class Rel:
     def limit(self, n: int, offset: int = 0) -> "Rel":
         return Rel(self.catalog, S.Limit(self.plan, n, offset), self.schema,
                    dict(self.dicts))
+
+    def distinct(self, cols: list[str] | None = None) -> "Rel":
+        idxs = (tuple(self.idx(n) for n in cols)
+                if cols else tuple(range(len(self.schema))))
+        schema = self.schema.select(idxs)
+        dicts = {
+            idxs.index(i): d for i, d in self.dicts.items() if i in idxs
+        }
+        return Rel(self.catalog, S.Distinct(self.plan, idxs), schema, dicts)
 
     def join(self, build: "Rel", on: list[tuple[str | int, str | int]],
              how: str = "inner", build_unique: bool = True) -> "Rel":
@@ -167,5 +256,27 @@ class Rel:
 
     # -- execution ----------------------------------------------------------
 
+    def optimized_plan(self) -> S.PlanNode:
+        """The plan after the local optimization passes: top-k pushdown
+        (plan/topkopt.py). The reference's index selection rewrites only
+        scans of KV tables with secondary indexes; the port raises for
+        those until its KV slice brings ``kv/table.py`` over."""
+        stack = [self.plan]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, S.TableScan) and getattr(
+                    self.catalog.get(node.table), "indexes", None):
+                raise NotImplementedError(
+                    f"table {node.table} has secondary indexes: index "
+                    "selection waits for the port's KV slice (ROADMAP "
+                    "Queue 1, kv/table.py)")
+            for f in node.__dataclass_fields__:
+                v = getattr(node, f)
+                if isinstance(v, S.PlanNode):
+                    stack.append(v)
+                elif isinstance(v, tuple):
+                    stack.extend(x for x in v if isinstance(x, S.PlanNode))
+        return push_topk(self.plan)
+
     def run(self) -> dict[str, np.ndarray]:
-        return run_plan(self.plan, self.catalog)
+        return run_plan(self.optimized_plan(), self.catalog)

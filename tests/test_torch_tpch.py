@@ -2,8 +2,10 @@
 (sf=0.005, seed 7): plans equal field by field, operator trees equal node
 for node (the reference's fusion nodes aside) with the same join
 strategies, results equal to the reference's run_operator (exactly, the
-FLOAT64 averages within rtol=1e-12), the numpy oracle equal to both, and
-plans outside the slice raise NotImplementedError."""
+FLOAT64 averages within rtol=1e-12), the numpy oracle equal to both; the
+duplicate-key join, TopK, ScalarAggregate and Distinct nodes equal the
+reference's, and the plans still outside the port raise
+NotImplementedError."""
 
 import numpy as np
 import pytest
@@ -132,8 +134,13 @@ def test_rerun_and_run_tpch_on_cpu(cats, runs):
     _, want, troot, _ = runs["q3"]
     assert tpch_oracle.mismatch("q3", trun(troot), want) is None
     res = run_tpch(sf=0.002, seed=SEED, runs=1, device="cpu")
+    assert list(res)[3:] == ["q1", "q3", "q9", "q18"]
     assert res["q1"]["equal"] and res["q3"]["equal"]
     assert res["q3"]["rows_per_sec"] > 0
+    assert res["q9"]["held_to"] == "oracle" and res["q9"]["rows"] > 0
+    rest = run_tpch(("q6", "q13"), catalog=cats[1], runs=0, device="cpu")
+    assert rest["q13"]["held_to"] == "cold run" and rest["q13"]["rows"] > 0
+    assert rest["q6"]["median_s"] is None and rest["q6"]["warm_s"] > 0
     assert Rel.run(tQ.q1(cats[1]))["count_order"].sum() > 0
 
 
@@ -149,45 +156,102 @@ def test_chip_smoke_tpch_helpers_on_cpu(cats):
     assert len(ms) == len(_tree(root)) and all(v >= 0 for v in ms.values())
     assert root.stats.rows == 10 and root.stats.batches == 1
     chip_smoke.check_tpch_parity("cpu", sf=0.002)
+    rows = chip_smoke.check_tpch22_parity("cpu", sf=0.002, tile=1024)
+    assert list(rows) == list(tQ.QUERIES) and rows["q16"] > 0
+    assert settings.get("sql.distsql.tile_size") == 1 << 20
 
 
 def test_reference_operator_names_exist():
     """The port's operator classes carry the reference's names, which the
     tree comparison above relies on."""
     for name in ("ScanOp", "FilterOp", "ProjectOp", "LimitOp", "AggregateOp",
-                 "SmallGroupAggregateOp", "SortOp", "HashJoinOp"):
+                 "SmallGroupAggregateOp", "ScalarAggregateOp", "SortOp",
+                 "TopKOp", "DistinctOp", "HashJoinOp"):
         assert hasattr(jops, name) and hasattr(tops, name)
 
 
 # ---------------------------------------------------------------------------
-# plans outside the slice
+# plans an earlier slice raised for, and what still raises
 
 
 def test_duplicate_key_join_raises(cats):
-    tcat = cats[1]
+    """Joins over duplicate build keys run and equal the reference's (as
+    multisets: the reference's build sort is not stable inside a run of
+    equal keys); right outer joins still raise."""
+    from cockroach_tpu.sql.rel import Rel as JRel
+    from test_torch_joins import _rows
+
+    jcat, tcat = cats
+    for how in ("inner", "semi"):
+        out = []
+        for R, cat, run, bld in ((JRel, jcat, jrun, jbuilder),
+                                 (Rel, tcat, trun, tbuilder)):
+            li = R.scan(cat, "lineitem", ("l_orderkey", "l_partkey"))
+            ps = R.scan(cat, "partsupp", ("ps_partkey", "ps_suppkey"))
+            rel = li.join(ps, on=[("l_partkey", "ps_partkey")], how=how,
+                          build_unique=False)
+            out.append(run(bld.build(rel.plan, cat)))
+        assert len(out[1]["l_orderkey"]) > 0
+        assert _rows(out[1]) == _rows(out[0])
     li = Rel.scan(tcat, "lineitem", ("l_orderkey", "l_partkey"))
     ps = Rel.scan(tcat, "partsupp", ("ps_partkey", "ps_suppkey"))
-    rel = li.join(ps, on=[("l_partkey", "ps_partkey")], build_unique=False)
-    with pytest.raises(NotImplementedError, match="hash_join_general"):
-        tbuilder.build(rel.plan, tcat)
-    semi = li.join(ps, on=[("l_partkey", "ps_partkey")], how="semi",
-                   build_unique=False)
-    with pytest.raises(NotImplementedError, match="duplicate build keys"):
-        tbuilder.build(semi.plan, tcat)
     with pytest.raises(NotImplementedError):
         li.join(ps, on=[("l_partkey", "ps_partkey")], how="right")
 
 
 def test_topk_and_other_nodes_raise(cats):
-    tcat = cats[1]
-    base = Rel.scan(tcat, "orders", ("o_orderkey", "o_totalprice")).plan
-    for node in (S.TopK(base, (tsort.SortKey(1, desc=True),), 10),
-                 S.ScalarAggregate(base, ()), S.Distinct(base),
-                 S.Union((base, base))):
-        with pytest.raises(NotImplementedError, match="later SQL slice"):
-            tbuilder.build(node, tcat)
+    """TopK, ScalarAggregate and Distinct nodes build and equal the
+    reference's; Union and partial-mode aggregation still raise."""
+    from cockroach_tpu.ops import aggregation as jagg
+    from cockroach_tpu.ops import sort as jsort
+    from cockroach_tpu.plan import spec as JS
+    from cockroach_tpu.sql.rel import Rel as JRel
+    from cockroach_tpu_torch.ops import aggregation as tagg
+
+    jcat, tcat = cats
+    cols = ("o_orderkey", "o_totalprice", "o_orderpriority")
+    jbase = JRel.scan(jcat, "orders", cols).plan
+    tbase = Rel.scan(tcat, "orders", cols).plan
+    nodes = [
+        (JS.TopK(jbase, (jsort.SortKey(1, desc=True),), 10),
+         S.TopK(tbase, (tsort.SortKey(1, desc=True),), 10)),
+        (JS.ScalarAggregate(jbase, (jagg.AggSpec("sum", 1, "s"),
+                                    jagg.AggSpec("count_rows", None, "n"))),
+         S.ScalarAggregate(tbase, (tagg.AggSpec("sum", 1, "s"),
+                                   tagg.AggSpec("count_rows", None, "n")))),
+        (JS.Distinct(jbase, (2,)), S.Distinct(tbase, (2,))),
+    ]
+    for jnode, tnode in nodes:
+        assert repr(tnode) == repr(jnode)
+        want = jrun(jbuilder.build(jnode, jcat))
+        got = trun(tbuilder.build(tnode, tcat))
+        assert list(got) == list(want) and len(got[list(got)[0]]) > 0
+        for name in want:
+            np.testing.assert_array_equal(np.asarray(got[name]),
+                                          np.asarray(want[name]))
+    with pytest.raises(NotImplementedError, match="later SQL slice"):
+        tbuilder.build(S.Union((tbase, tbase)), tcat)
     with pytest.raises(NotImplementedError, match="distributed stage"):
-        tbuilder.build(S.Aggregate(base, (0,), (), mode="partial"), tcat)
+        tbuilder.build(S.Aggregate(tbase, (0,), (), mode="partial"), tcat)
+    with pytest.raises(NotImplementedError, match="distributed stage"):
+        tbuilder.build(S.ScalarAggregate(tbase, (), mode="partial"), tcat)
+
+
+def test_run_executes_optimized_plan(cats, monkeypatch):
+    """Rel.run executes optimized_plan() (top-k pushdown), which raises
+    for a scan of a table with secondary indexes until the KV slice."""
+    tcat = cats[1]
+    rel = tQ.q3(tcat)
+    opt = rel.optimized_plan()
+    assert isinstance(opt, S.Limit) and isinstance(opt.input, S.TopK)
+    assert isinstance(rel.plan.input, S.Sort)
+    got = rel.run()
+    want = trun(tbuilder.build(rel.plan, tcat))
+    assert tpch_oracle.mismatch("q3", got, want) is None
+    monkeypatch.setattr(tcat.get("orders"), "indexes", ("o_custkey",),
+                        raising=False)
+    with pytest.raises(NotImplementedError, match="KV slice"):
+        rel.optimized_plan()
 
 
 def test_streaming_scan_raises(cats, monkeypatch):

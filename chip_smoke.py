@@ -19,9 +19,17 @@ bench.py's ladder (q1, q3, q9, q18), every run held to the numpy oracle
 (``bench/tpch_oracle.py``), timed by ``bench/tpch_run.run_tpch`` and
 profiled once; it prints the ``{"tpch": ...}`` line. Then the other 18
 queries at SF1 on the card, each cold and warm (the warm result equal to
-the cold one), on the ``{"tpch22": ...}`` line. Neither storage kernel
-runs on that path (``on_tpch_path`` in the kernel table counts their
-launches over all 22 queries).
+the cold one), on the ``{"tpch22": ...}`` line. Then TPC-H at SF10
+(BASELINE config #2's own scale, where lineitem and orders stream and
+q18's and q21's aggregations spill to the host-staged Grace
+aggregation): all 22 queries at sf=0.01 under the SF10 scaling (every
+size threshold over 1000) on the card against the CPU, with the same
+streamed scans and spills; SF10 generated; q3, q9 and q18 timed and held
+to the numpy oracle in every run and profiled once; q7 and q21 cold and
+warm; a forced Grace hash join (q3) and external sort (q7), each equal
+to its default run; the ``{"tpch_sf10": ...}`` line. Neither storage
+kernel runs on those paths (``tpch_launches`` and ``sf10_launches`` in
+the kernel table count their launches).
 
 The line before the last is ``{"kernels": [...]}``, the line before that
 the card's name and power limit; the last line is
@@ -532,13 +540,12 @@ def check_tpch22_parity(dev, sf: float = 0.05, tile: int = 1 << 16) -> dict:
     from cockroach_tpu_torch.utils import settings
 
     queries = tuple(Q.QUERIES)
-    saved = settings.get("sql.distsql.tile_size")
-    settings._DEFAULTS["sql.distsql.tile_size"] = tile
+    settings.set("sql.distsql.tile_size", tile)
     try:
         runs = {opt: tpch_results(sf, (dev, "cpu"), queries=queries,
                                   optimized=opt) for opt in (False, True)}
     finally:
-        settings._DEFAULTS["sql.distsql.tile_size"] = saved
+        settings.reset("sql.distsql.tile_size")
     rows = {}
     for q in queries:
         want = runs[False][1][q]
@@ -692,6 +699,160 @@ def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
     log(f"TPC-H SF{sf}: the other {len(others)} queries ran cold and warm, "
         "warm equal to cold")
     print(json.dumps({"tpch22": tpch22, "card": card}), flush=True)
+    return out
+
+
+# the SF10 scaling of the sf=0.01 parity run: every size threshold over
+# 1000, the dense LUT's key bits 24 -> 14, so each table and key range
+# stands to its threshold as at SF10
+SF10_SCALING = {
+    "sql.distsql.scan_stream_rows": (1 << 23) // 1000,
+    "sql.distsql.workmem_rows": (1 << 21) // 1000,
+    "sql.distsql.workmem_bytes": (2 << 30) // 1000,
+    "sql.distsql.tile_size": (1 << 20) // 1000,
+    "sql.distsql.dense_agg_states": (1 << 23) // 1000,
+    "sql.distsql.dense_lut_bits": 14,
+}
+
+
+def check_sf10_scaling_parity(dev, sf: float = 0.01) -> dict:
+    """All 22 queries at `sf` under the SF10 scaling, on the card against
+    the CPU through ``optimized_plan()``: equal results, and the same
+    scans streamed and the same operators spilled to the same external
+    operators on both. Returns {query: (streamed, spills)}."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_oracle
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow.runtime import io_report, run_operator
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.utils import settings
+
+    for n, v in SF10_SCALING.items():
+        settings.set(n, v)
+    try:
+        runs = []
+        for d in (dev, "cpu"):
+            cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=d)
+            res = {}
+            for q in Q.QUERIES:
+                root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+                out = run_operator(root)
+                rep = io_report(root)
+                res[q] = (out, (rep["streamed"], rep["spills"]))
+            runs.append(res)
+    finally:
+        settings.reset()
+    shapes = {}
+    for q in Q.QUERIES:
+        (got, gs), (want, ws) = runs[0][q], runs[1][q]
+        bad = tpch_oracle.mismatch(q, got, want)
+        if bad is not None:
+            raise AssertionError(f"SF10 scaling, sf={sf}: card != CPU: {bad}")
+        if gs != ws:
+            raise AssertionError(f"SF10 scaling {q}: card streamed/spilled "
+                                 f"{gs}, CPU {ws}")
+        shapes[q] = gs
+    log(f"SF10 scaling at sf={sf}: all 22 queries on the card equal the "
+        "CPU's, with the same streamed scans and spills")
+    return shapes
+
+
+def forced_spill(cat, q: str, setting: str, value: int, want) -> dict:
+    """Run `q` over `cat` with `setting` lowered to `value`: its result
+    must equal `want` (the default run's); returns what spilled."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_oracle
+    from cockroach_tpu_torch.flow.runtime import io_report, run_operator
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.utils import settings
+
+    settings.set(setting, value)
+    try:
+        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+        t0 = time.perf_counter()
+        got = run_operator(root)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        settings.reset(setting)
+    bad = tpch_oracle.mismatch(q, got, want)
+    if bad is not None:
+        raise AssertionError(f"{q} with {setting}={value} != default: {bad}")
+    return {"setting": setting, "value": value, "s": secs,
+            **io_report(root)}
+
+
+def run_sf10_phase(card: str, sf: float = 10.0, dev="cuda") -> dict:
+    """TPC-H at SF10, BASELINE config #2's scale: the SF10-scaling parity
+    run at sf=0.01, then SF10 generated (seed 19920101) and q3, q9, q18
+    timed through run_tpch (every run held to the numpy oracle) and
+    profiled once; q7 and q21 cold and warm (warm equal to cold); q3 with
+    workmem_bytes lowered until its orders build spills to the Grace hash
+    join, and q9 and q7 with workmem_rows at its floor, each equal to its
+    default run."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.bench.tpch_run import peak_rss_bytes, run_tpch
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    t_phase = time.perf_counter()
+    shapes = check_sf10_scaling_parity(torch.device(dev))
+    t0 = time.perf_counter()
+    cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=dev)
+    gen_s = time.perf_counter() - t0
+    gen_rss = peak_rss_bytes()
+    log(f"TPC-H SF{sf:g} generated in {gen_s:.1f}s, peak RSS "
+        f"{gen_rss / 2**30:.2f} GiB")
+    ladder = ("q3", "q9", "q18")
+    res = run_tpch(ladder, sf=sf, seed=TPCH_SEED, runs=5, device=dev,
+                   catalog=cat)
+    profiles = {}
+    for q in ladder:
+        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+        profiles[q] = device_profile(lambda root=root: run_operator(root))
+        res[q]["idle_share"] = profiles[q]["idle_share"]
+        res[q]["device_busy_s"] = profiles[q]["device_busy_s"]
+        res[q]["top_device_ops"] = profiles[q]["top_device_ops"][:5]
+        log(f"SF{sf:g} {q}: median {res[q]['median_s'] * 1e3:.1f} ms, idle "
+            f"share {profiles[q]['idle_share']}, H2D "
+            f"{res[q]['h2d_bytes'] / 1e9:.3f} GB in {res[q]['h2d_s']:.3f} s, "
+            f"syncs {res[q]['host_syncs_total']}, spills {res[q]['spills']}")
+    ext = run_tpch(("q7", "q21"), sf=sf, seed=TPCH_SEED, runs=0,
+                   device=dev, catalog=cat)
+    if not any("GraceAggregateOp" in s for s in ext["q21"]["spills"]):
+        raise AssertionError(f"q21 at SF{sf:g} did not spill its DISTINCT: "
+                             f"{ext['q21']['spills']}")
+    defaults = {q: run_operator(builder.build(
+        Q.QUERIES[q](cat).optimized_plan(), cat)) for q in ("q3", "q7", "q9")}
+    # 64 MiB at SF10: q3's orders build (about 1.4 M rows) passes it
+    # within a few tiles, while each Grace partition's build fits it
+    budget = max(1 << 16, int((64 << 20) * sf / 10))
+    forced = {
+        "q3_grace_join": forced_spill(cat, "q3", "sql.distsql.workmem_bytes",
+                                      budget, defaults["q3"]),
+        "q9_workmem_rows_floor": forced_spill(
+            cat, "q9", "sql.distsql.workmem_rows", 1024, defaults["q9"]),
+        "q7_external_sort": forced_spill(
+            cat, "q7", "sql.distsql.workmem_rows", 1024, defaults["q7"]),
+    }
+    if "HashJoinOp->GraceHashJoinOp" not in forced["q3_grace_join"]["spills"]:
+        raise AssertionError("q3's build did not spill to the Grace join: "
+                             f"{forced['q3_grace_join']['spills']}")
+    if "SortOp->ExternalSortOp" not in forced["q7_external_sort"]["spills"]:
+        raise AssertionError("q7's sort did not spill: "
+                             f"{forced['q7_external_sort']['spills']}")
+    out = {"sf": sf, "lineitem_rows": res["lineitem_rows"], "gen_s": gen_s,
+           "gen_peak_rss_bytes": gen_rss,
+           **{q: res[q] for q in ladder},
+           **{q: ext[q] for q in ("q7", "q21")},
+           "forced": forced, "sf10_scaling_sf0.01_22": shapes,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"TPC-H SF{sf:g}: q3, q9, q18 equal to the numpy oracle in every "
+        "run; q7 and q21 warm equal to cold; the forced Grace join and "
+        "external sort equal the default runs "
+        f"({out['phase_s']:.1f}s in all)")
+    print(json.dumps({"tpch_sf10": out}), flush=True)
     return out
 
 
@@ -925,13 +1086,19 @@ def main() -> int:
     # after the long profiled run records no device events on the card
     kernels = time_kernels(dev, errs)
     tpch = run_tpch_phase(card)
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    run_sf10_phase(card)
+    sf10_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                     "merge_path": cuda_merge.merge_perm.launches}
     launches = run_ycsb(card)
     profile_ycsb()
     check_parity()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["tpch_launches"] = tpch["storage_kernel_launches"][k["name"]]
-        k["on_tpch_path"] = k["tpch_launches"] > 0
+        k["sf10_launches"] = sf10_launches[k["name"]]
+        k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     print(card)

@@ -92,6 +92,43 @@ def _money(rng, lo_cents: int, hi_cents: int, n: int) -> np.ndarray:
     return rng.integers(lo_cents, hi_cents + 1, n, dtype=np.int64)
 
 
+def _pool_codes(pool, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Dictionary codes and values of the column ``pool[idx]`` without
+    building it: the values are the distinct pool strings the draws use,
+    sorted, and a row's code is its value's rank among them, which is
+    what ``np.unique(pool[idx].astype(str), return_inverse=True)``
+    gives."""
+    values, rank = np.unique(np.asarray(pool).astype(str),
+                             return_inverse=True)
+    drawn = np.bincount(idx, minlength=len(pool)) > 0
+    used = np.zeros(len(values), dtype=bool)
+    used[rank[drawn]] = True
+    lut = (np.cumsum(used) - 1)[rank].astype(np.int32)
+    return lut[idx], values[used]
+
+
+def _complaints(planted: np.ndarray, pool, idx: np.ndarray):
+    """``np.where(planted, "Customer stuff Complaints", pool[idx])`` as
+    draws from the pool with that string appended."""
+    return (list(pool) + ["Customer stuff Complaints"],
+            np.where(planted, len(pool), idx))
+
+
+def _table(name: str, schema: Schema, raw: dict, ordering=()) -> Table:
+    """A table from raw columns, where a STRING column is either an
+    array of strings or a ``(pool, idx)`` pair of draws from a pool."""
+    cols, values = {}, {}
+    for c, a in raw.items():
+        if isinstance(a, tuple):
+            cols[c], values[c] = _pool_codes(*a)
+        elif a.dtype.kind in ("O", "U", "S"):
+            v, codes = np.unique(a.astype(str), return_inverse=True)
+            cols[c], values[c] = codes.astype(np.int32), v
+        else:
+            cols[c] = a
+    return Table.from_codes(name, schema, cols, values, ordering=ordering)
+
+
 def gen_tpch(sf: float = 0.01, seed: int = 19920101,
              device="cuda") -> Catalog:
     """Generate the TPC-H catalog on the host; its tables upload to
@@ -101,15 +138,16 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
     pool = _comment_pool(rng)
 
     def comments(n):
-        return pool[rng.integers(0, _COMMENT_POOL_SIZE, n)]
+        return pool, rng.integers(0, _COMMENT_POOL_SIZE, n)
 
     n_part = int(200_000 * sf)
     n_supp = max(10, int(10_000 * sf))
     n_cust = int(150_000 * sf)
     n_order = int(1_500_000 * sf)
+    n_clerk = max(2, int(1000 * sf))
 
     # region / nation
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "region",
         Schema.of(r_regionkey=INT64, r_name=STRING, r_comment=STRING),
         {
@@ -118,7 +156,7 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
             "r_comment": comments(5),
         },
     ))
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "nation",
         Schema.of(n_nationkey=INT64, n_name=STRING, n_regionkey=INT64,
                   n_comment=STRING),
@@ -132,7 +170,7 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
 
     # supplier
     suppkey = np.arange(1, n_supp + 1, dtype=np.int64)
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "supplier",
         Schema.of(s_suppkey=INT64, s_name=STRING, s_address=STRING,
                   s_nationkey=INT64, s_phone=STRING, s_acctbal=DEC2,
@@ -148,11 +186,8 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
             ),
             "s_acctbal": _money(rng, -99_999, 999_999, n_supp),
             # dbgen plants 'Customer...Complaints' in 5 per 10k suppliers (Q16)
-            "s_comment": np.where(
-                rng.random(n_supp) < 0.0005,
-                np.array(["Customer stuff Complaints"] * n_supp, dtype=object),
-                comments(n_supp),
-            ),
+            "s_comment": _complaints(rng.random(n_supp) < 0.0005,
+                                     *comments(n_supp)),
         },
     ))
 
@@ -165,22 +200,20 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
     )
     mfgr = rng.integers(1, 6, n_part)
     brand = mfgr * 10 + rng.integers(1, 6, n_part)
-    p_type = np.array([
-        f"{TYPE_SYL1[a]} {TYPE_SYL2[b]} {TYPE_SYL3[c]}"
-        for a, b, c in zip(
-            rng.integers(0, 6, n_part), rng.integers(0, 5, n_part),
-            rng.integers(0, 5, n_part),
-        )
-    ], dtype=object)
-    container = np.array([
-        f"{CONTAINER_SYL1[a]} {CONTAINER_SYL2[b]}"
-        for a, b in zip(rng.integers(0, 5, n_part), rng.integers(0, 8, n_part))
-    ], dtype=object)
+    t1 = rng.integers(0, 6, n_part)
+    t2 = rng.integers(0, 5, n_part)
+    t3 = rng.integers(0, 5, n_part)
+    p_type = ([f"{a} {b} {c}" for a in TYPE_SYL1 for b in TYPE_SYL2
+               for c in TYPE_SYL3], (t1 * 5 + t2) * 5 + t3)
+    c1 = rng.integers(0, 5, n_part)
+    c2 = rng.integers(0, 8, n_part)
+    container = ([f"{a} {b}" for a in CONTAINER_SYL1 for b in CONTAINER_SYL2],
+                 c1 * 8 + c2)
     # dbgen retail price formula (cents): 90000 + ((pk/10)%20001) + 100*(pk%1000)
     retail = (
         90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1_000)
     ).astype(np.int64)
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "part",
         Schema.of(p_partkey=INT64, p_name=STRING, p_mfgr=STRING, p_brand=STRING,
                   p_type=STRING, p_size=INT64, p_container=STRING,
@@ -188,8 +221,8 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
         {
             "p_partkey": partkey,
             "p_name": p_name,
-            "p_mfgr": np.array([f"Manufacturer#{m}" for m in mfgr], dtype=object),
-            "p_brand": np.array([f"Brand#{b}" for b in brand], dtype=object),
+            "p_mfgr": ([f"Manufacturer#{m}" for m in range(6)], mfgr),
+            "p_brand": ([f"Brand#{b}" for b in range(56)], brand),
             "p_type": p_type,
             "p_size": rng.integers(1, 51, n_part, dtype=np.int64),
             "p_container": container,
@@ -208,7 +241,7 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
     n_ps = len(ps_partkey)
     i = np.tile(np.arange(4), n_part)
     ps_suppkey = ((ps_partkey + i * ps_stride) % n_supp) + 1
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "partsupp",
         Schema.of(ps_partkey=INT64, ps_suppkey=INT64, ps_availqty=INT64,
                   ps_supplycost=DEC2, ps_comment=STRING),
@@ -223,7 +256,7 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
 
     # customer
     custkey = np.arange(1, n_cust + 1, dtype=np.int64)
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "customer",
         Schema.of(c_custkey=INT64, c_name=STRING, c_address=STRING,
                   c_nationkey=INT64, c_phone=STRING, c_acctbal=DEC2,
@@ -238,9 +271,7 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
                 dtype=object,
             ),
             "c_acctbal": _money(rng, -99_999, 999_999, n_cust),
-            "c_mktsegment": np.array(SEGMENTS, dtype=object)[
-                rng.integers(0, 5, n_cust)
-            ],
+            "c_mktsegment": (SEGMENTS, rng.integers(0, 5, n_cust)),
             "c_comment": comments(n_cust),
         },
     ))
@@ -271,12 +302,12 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
     l_commitdate = (o_date_li + rng.integers(30, 91, n_li)).astype(np.int32)
     l_receiptdate = (l_shipdate + rng.integers(1, 31, n_li)).astype(np.int32)
     returnable = l_receiptdate <= CURRENT_DATE
-    l_returnflag = np.where(
-        returnable, np.where(rng.random(n_li) < 0.5, "R", "A"), "N"
-    ).astype(object)
-    l_linestatus = np.where(l_shipdate > CURRENT_DATE, "O", "F").astype(object)
+    l_returnflag = (("R", "A", "N"), np.where(
+        returnable, np.where(rng.random(n_li) < 0.5, 0, 1), 2))
+    li_f = l_shipdate <= CURRENT_DATE
+    l_linestatus = (("O", "F"), li_f.astype(np.int64))
 
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "lineitem",
         Schema.of(l_orderkey=INT64, l_partkey=INT64, l_suppkey=INT64,
                   l_linenumber=INT64, l_quantity=DEC2, l_extendedprice=DEC2,
@@ -298,12 +329,8 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
             "l_shipdate": l_shipdate,
             "l_commitdate": l_commitdate,
             "l_receiptdate": l_receiptdate,
-            "l_shipinstruct": np.array(INSTRUCTIONS, dtype=object)[
-                rng.integers(0, 4, n_li)
-            ],
-            "l_shipmode": np.array(SHIPMODES, dtype=object)[
-                rng.integers(0, 7, n_li)
-            ],
+            "l_shipinstruct": (INSTRUCTIONS, rng.integers(0, 4, n_li)),
+            "l_shipmode": (SHIPMODES, rng.integers(0, 7, n_li)),
             "l_comment": comments(n_li),
         },
         # np.repeat(orderkey, n_lines) clusters the fact table by order —
@@ -313,16 +340,15 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
     ))
 
     # orders status/totalprice from lineitems
-    li_f = l_linestatus == "F"
     f_per_order = np.bincount(l_orderkey - 1, weights=li_f, minlength=n_order)
     all_f = f_per_order == n_lines
     none_f = f_per_order == 0
-    o_status = np.where(all_f, "F", np.where(none_f, "O", "P")).astype(object)
+    o_status = (("F", "O", "P"), np.where(all_f, 0, np.where(none_f, 1, 2)))
     gross = l_extprice * (100 - l_discount) * (100 + l_tax) // 10_000
     o_total = np.bincount(
         l_orderkey - 1, weights=gross.astype(np.float64), minlength=n_order
     ).astype(np.int64)
-    cat.add(Table.from_strings(
+    cat.add(_table(
         "orders",
         Schema.of(o_orderkey=INT64, o_custkey=INT64, o_orderstatus=STRING,
                   o_totalprice=DEC2, o_orderdate=DATE, o_orderpriority=STRING,
@@ -333,13 +359,9 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
             "o_orderstatus": o_status,
             "o_totalprice": o_total,
             "o_orderdate": o_orderdate,
-            "o_orderpriority": np.array(PRIORITIES, dtype=object)[
-                rng.integers(0, 5, n_order)
-            ],
-            "o_clerk": np.array(
-                [f"Clerk#{k:09d}" for k in rng.integers(1, max(2, int(1000*sf)) + 1, n_order)],
-                dtype=object,
-            ),
+            "o_orderpriority": (PRIORITIES, rng.integers(0, 5, n_order)),
+            "o_clerk": ([f"Clerk#{k:09d}" for k in range(n_clerk + 1)],
+                        rng.integers(1, n_clerk + 1, n_order)),
             "o_shippriority": np.zeros(n_order, dtype=np.int64),
             "o_comment": comments(n_order),
         },

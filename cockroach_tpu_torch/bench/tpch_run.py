@@ -12,20 +12,25 @@ alone (``cold_s``), then the second (``warm_s``), then the median of
 over the median, as bench.py reports it. Every run's result is held to
 ``bench/tpch_oracle.py`` where it has the query (q1, q3, q9, q18), else to
 the cold run's result; a mismatch raises. Prints one JSON object with the
-figures, the result rows and the host syncs per query, and the device.
+figures, the result rows and the host syncs per query, what the last run
+streamed, spilled, uploaded and staged (``flow/runtime.io_report``), the
+peak device memory and host RSS per query, the generation's seconds and
+peak RSS, and the device. ``--sf 10`` (BASELINE config #2's scale)
+streams lineitem and orders; it needs about 18 GB of host RAM.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import resource
 import statistics
 import time
 
 import torch
 
 from ..device import resolve_device
-from ..flow.runtime import host_syncs, run_operator
+from ..flow.runtime import host_syncs, io_report, run_operator
 from ..plan import builder as plan_builder
 from . import queries as Q
 from . import tpch_oracle
@@ -41,6 +46,11 @@ def _timed_run(root, dev: torch.device):
 
 
 LADDER = ("q1", "q3", "q9", "q18")
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident set so far (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
@@ -62,6 +72,8 @@ def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
         root = plan_builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
         oracle = tpch_oracle.ORACLES.get(q)
         want = oracle(cat) if oracle is not None else None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         times = []
         for _ in range(runs + 2):
             res, secs = _timed_run(root, dev)
@@ -78,7 +90,10 @@ def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
                   "rows_per_sec": nrows / med if runs else None,
                   "rows": len(next(iter(res.values()))), "equal": True,
                   "held_to": "oracle" if oracle else "cold run",
-                  "host_syncs": host_syncs(root)}
+                  "host_syncs": host_syncs(root), **io_report(root),
+                  "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                        if dev.type == "cuda" else None),
+                  "peak_rss_bytes": peak_rss_bytes()}
     return out
 
 
@@ -92,8 +107,13 @@ def main() -> int:
                     help='comma-separated names, or "all" for the 22')
     a = ap.parse_args()
     queries = "all" if a.queries == "all" else tuple(a.queries.split(","))
+    t0 = time.perf_counter()
+    cat = gen_tpch(sf=a.sf, seed=a.seed, device=resolve_device(a.device))
+    gen = {"gen_s": time.perf_counter() - t0,
+           "gen_peak_rss_bytes": peak_rss_bytes()}
     res = run_tpch(queries, sf=a.sf, seed=a.seed, runs=a.runs,
-                   device=a.device)
+                   device=a.device, catalog=cat)
+    res.update(gen)
     if res["device"].startswith("cuda"):
         res["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(res))

@@ -161,18 +161,35 @@ class Table:
         """Build a table from raw host columns, dictionary-encoding STRING
         columns (object/str arrays -> int32 codes + Dictionary)."""
         cols: dict[str, np.ndarray] = {}
-        dicts: dict[str, Dictionary] = {}
+        values: dict[str, np.ndarray] = {}
         for cname, t in zip(schema.names, schema.types):
             a = raw[cname]
             if t.family is Family.STRING and a.dtype.kind in ("O", "U", "S"):
-                values, codes = np.unique(a.astype(str), return_inverse=True)
-                dicts[cname] = Dictionary(values.astype(object))
+                vals, codes = np.unique(a.astype(str), return_inverse=True)
+                values[cname] = vals
                 cols[cname] = codes.astype(np.int32)
             else:
                 cols[cname] = a
-        return Table(name=name, schema=schema, columns=cols,
-                     valids=valids or {}, dictionaries=dicts,
-                     ordering=ordering)
+        return Table.from_codes(name, schema, cols, values, valids, ordering)
+
+    @staticmethod
+    def from_codes(
+        name: str,
+        schema: Schema,
+        columns: dict[str, np.ndarray],
+        values: dict[str, np.ndarray],
+        valids: dict[str, np.ndarray] | None = None,
+        ordering: tuple[str, ...] = (),
+    ) -> "Table":
+        """Build a table whose STRING columns are already int32 codes:
+        ``values[c]`` is column c's dictionary, code i standing for
+        ``values[c][i]``."""
+        return Table(
+            name=name, schema=schema, columns=dict(columns),
+            valids=valids or {},
+            dictionaries={c: Dictionary(np.asarray(v).astype(object))
+                          for c, v in values.items()},
+            ordering=ordering)
 
 
 class Catalog:

@@ -161,20 +161,28 @@ def from_host(
     n = len(next(iter(arrays.values())))
     cap = capacity if capacity is not None else max(DEFAULT_CAPACITY, n)
     cols = []
+    # only the n rows cross to the device; the padding is zeroed there
     for name, t in zip(schema.names, schema.types):
         a = np.asarray(arrays[name])
         if len(a) != n:
             raise ValueError(f"column {name} length {len(a)} != {n}")
-        shape = (cap, t.width) if t.family is Family.BYTES else (cap,)
-        buf = np.zeros(shape, dtype=t.dtype)
-        buf[:n] = a.astype(t.dtype)
-        v = np.zeros((cap,), dtype=np.bool_)
-        v[:n] = valids.get(name, np.ones(n, dtype=np.bool_))
-        cols.append(Column(data=torch.from_numpy(buf).to(device),
-                           valid=torch.from_numpy(v).to(device)))
-    mask = np.zeros((cap,), dtype=np.bool_)
-    mask[:n] = True
-    return Batch(cols=tuple(cols), mask=torch.from_numpy(mask).to(device))
+        data = zeros_like_type(t, cap, device)
+        data[:n] = _tensor(a.astype(t.dtype, copy=False), device)
+        v = torch.zeros(cap, dtype=torch.bool, device=device)
+        if name in valids:
+            v[:n] = _tensor(np.asarray(valids[name], dtype=np.bool_), device)
+        else:
+            v[:n] = True
+        cols.append(Column(data=data, valid=v))
+    mask = torch.arange(cap, device=device) < n
+    return Batch(cols=tuple(cols), mask=mask)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch wraps only writable arrays
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def to_host(

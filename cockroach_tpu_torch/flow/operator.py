@@ -6,9 +6,9 @@ exhausted. Operators also surface plan-static metadata: ``output_schema``,
 per-column string ``dictionaries`` and (lo, hi) ``col_stats``.
 
 Every place an operator waits for the device to hand a value to the host
-(a live-row count that sizes a spool, a LIMIT's row count) counts one
-host sync in ``stats.host_syncs``; ``flow.runtime.host_syncs`` sums them
-over a tree after a query.
+(a live-row count that sizes a spool, a LIMIT's row count, a tile staged
+on the host by a spill) counts one host sync in ``stats.host_syncs``;
+``flow.runtime.host_syncs`` sums them over a tree after a query.
 """
 
 from __future__ import annotations
@@ -29,13 +29,16 @@ def _wait_device() -> None:
 class ComponentStats:
     """Per-operator execution stats (execinfrapb.ComponentStats analog)."""
 
-    __slots__ = ("batches", "rows", "time_s", "host_syncs")
+    __slots__ = ("batches", "rows", "time_s", "host_syncs", "spilled",
+                 "staged_bytes")
 
     def __init__(self):
         self.batches = 0
         self.rows = 0
         self.time_s = 0.0  # inclusive wall time in next_batch (incl. children)
         self.host_syncs = 0  # device -> host waits this run
+        self.spilled = False  # swapped in its external variant
+        self.staged_bytes = 0  # bytes staged on the host by a spill
 
     def exclusive(self, children: list["Operator"]) -> float:
         return self.time_s - sum(c.stats.time_s for c in children)

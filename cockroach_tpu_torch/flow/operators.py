@@ -1,18 +1,22 @@
 """Flow operators — the colexec operator set over the Operator contract;
 the port of the operators of ``cockroach_tpu.flow.operators`` that the
-22 TPC-H queries run on one device: ScanOp (resident mode), FilterOp,
-ProjectOp, LimitOp, AggregateOp (sort-groupby), SmallGroupAggregateOp
-(dense codes), ScalarAggregateOp, SortOp, TopKOp, DistinctOp and
-HashJoinOp (unique-build, existence and duplicate-key joins, over exact
-packed or hashed keys).
+22 TPC-H queries run on one device: ScanOp (resident and streaming),
+FilterOp, ProjectOp, LimitOp, AggregateOp (sort-groupby),
+SmallGroupAggregateOp (dense codes), ScalarAggregateOp, SortOp, TopKOp,
+DistinctOp and HashJoinOp (unique-build, existence and duplicate-key
+joins, over exact packed or hashed keys).
 
 Each operator runs its tile function as eager torch ops per tile (the
 reference composes streaming chains into one jitted kernel; the port runs
 the unfused tree). Buffering operators size their spools by LIVE row
 count, one counted host sync per spool, so downstream work runs at the
-smallest canonical capacity that fits the data. Paths the port has not
-brought over (streaming scans, spills to external operators, partial-mode
-aggregation) raise NotImplementedError naming what waits.
+smallest canonical capacity that fits the data. Past its budget
+(``sql.distsql.workmem_rows`` or the ``workmem_bytes`` account of
+``flow/memory``) a buffering operator swaps in its external variant
+(``flow/external.py``): SortOp the external sort, HashJoinOp the Grace
+hash join, AggregateOp and DistinctOp the Grace aggregation. Paths the
+port has not brought over (partial-mode aggregation, string_agg) raise
+NotImplementedError naming what waits.
 """
 
 from __future__ import annotations
@@ -23,13 +27,17 @@ import torch
 from ..catalog import SHAPE_BUCKETS, Table
 from ..coldata.batch import Batch, Column, compact, concat, empty_batch
 from ..coldata.types import FLOAT64, Family, Schema
+from ..device import resolve_device
 from ..ops import aggregation as agg_ops
 from ..ops import expr as ex
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
-from ..ops.hashing import bucket, hash_columns
 from ..utils import settings
+from .external import (ChainOp, ExternalSortOp, GraceAggregateOp,
+                       GraceHashJoinOp)
+from .memory import Allocator, batch_bytes, note_spill
 from .operator import OneInputOperator, Operator, SourceOperator
+from .upload import TileStream
 
 NOT_PORTED = join_ops.NOT_PORTED
 
@@ -66,22 +74,24 @@ def _source_device(op: Operator) -> torch.device:
     return op.table.device
 
 
-def batch_bytes(b: Batch) -> int:
-    """Device bytes of a batch's columns, bitmaps and mask."""
-    n = b.mask.numel()
-    for c in b.cols:
-        n += c.data.numel() * c.data.element_size() + c.valid.numel()
-    return n
-
-
 # ---------------------------------------------------------------------------
 # Scan
 
 
 class ScanOp(SourceOperator):
-    """Resident tile-granular scan (cFetcher analog): the table
-    materializes once on the device (catalog.Table.device_batch, padded
-    to a multiple of the tile) and bounded tiles slice from it as views."""
+    """Tile-granular scan (cFetcher analog), in one of two modes:
+
+    - resident: the table materializes once on the device
+      (catalog.Table.device_batch, padded to a multiple of the tile) and
+      bounded tiles slice from it as views;
+    - streaming: a table over ``sql.distsql.scan_stream_rows`` never
+      occupies the device whole. Its tiles upload host -> device double
+      buffered (``flow/upload.TileStream``): the next tile's upload is
+      started before the current one is handed on, so the copy overlaps
+      the downstream work. The stream tile is the reference's:
+      ``_next_pow2(max(4096, min(2^20, rows // 64)))``, or the
+      operator's tile if larger.
+    """
 
     def __init__(self, table: Table, columns: tuple[str, ...] | None = None,
                  tile: int | None = None):
@@ -103,23 +113,61 @@ class ScanOp(SourceOperator):
         self.tile = tile
         self._batch = None
         self._offset = 0
+        self.streaming = False
+        self._stream = None
 
     def init(self):
-        if self.table.num_rows > settings.get("sql.distsql.scan_stream_rows"):
-            raise NotImplementedError(
-                f"table {self.table.name} ({self.table.num_rows} rows) needs "
-                "the streaming scan, which waits for the port's TPC-H SF10 "
-                "step (ROADMAP Queue 1)")
+        self.streaming = (self.table.num_rows
+                          > settings.get("sql.distsql.scan_stream_rows"))
+        if self.streaming:
+            self._init_streaming()
+        else:
+            self._init_resident()
+        self._offset = 0
+        super().init()
+
+    def _init_resident(self):
         self._batch = self.table.device_batch(self.output_schema.names)
         cap = self._batch.capacity
         tile = self.tile
         if tile is None or tile <= 0 or cap % tile != 0:
             tile = cap  # small tables: one tile
         self._res_tile = min(tile, cap)
-        self._offset = 0
-        super().init()
+
+    def _init_streaming(self):
+        t = self.table
+        nrows = t.num_rows
+        # big tiles amortize launches; about 64 tiles per table keeps the
+        # pipeline busy at any scale
+        auto = _next_pow2(max(1 << 12, min(1 << 20, nrows // 64)))
+        tile = max(self.tile or 0, auto)
+        if self._stream is None or self._stream.tile != tile:
+            names = self.output_schema.names
+            self._stream = TileStream(
+                self.output_schema,
+                {n: np.asarray(t.columns[n]) for n in names},
+                {n: np.asarray(t.valids[n]) for n in names if n in t.valids},
+                nrows, tile, resolve_device(t.device or "cuda"))
+        self._stream.reset()
+        self._prefetched = None
+
+    def _next_streaming(self):
+        st = self._stream
+        if self._offset >= st.nrows:
+            return None
+        cur = self._prefetched
+        if cur is None:
+            cur = st.upload(self._offset)
+        nxt = self._offset + st.tile
+        # start the next upload BEFORE handing the current tile on: its
+        # copy overlaps the consumer's work on this one
+        self._prefetched = st.upload(nxt) if nxt < st.nrows else None
+        self._offset = nxt
+        return st.get(cur)
 
     def _next(self):
+        if self.streaming:
+            return self._next_streaming()
         b = self._batch
         off = self._offset
         if off >= b.capacity:
@@ -221,25 +269,18 @@ class LimitOp(OneInputOperator):
 # Aggregation
 
 
-GRACE_PARTS = 8  # the reference's Grace aggregation partition count
-
-
 class AggregateOp(OneInputOperator):
     """GROUP BY aggregation (hashAggregator analog), complete mode: each
     input tile reduces to a partial-state tile by sort_groupby; the spool
     merges down (concat + sort_groupby over the state layout) when it
-    outgrows ``sql.distsql.workmem_rows`` and once at the end, then the
-    states finalize.
+    outgrows ``sql.distsql.workmem_rows`` or its byte account, and once at
+    the end, then the states finalize.
 
-    When a merge-down still exceeds the budget (the group count itself
-    does), the operator turns Grace: the spooled and every later state
-    tile split by the group key's row hash (``ops/hashing``) into
-    GRACE_PARTS group-disjoint partitions, and each partition merges,
-    finalizes and streams out as its own batch — the reference's
-    GraceAggregateOp with its partition function, so the output order
-    equals the reference's. The partitions stay on the device as masked
-    views of the state tiles; staging them on the host (flow/external.py)
-    waits for the port's SF10 slice."""
+    When a merge-down does not shrink under budget (the group count
+    itself exceeds it), the spooled state tiles and the rest of the
+    partial stream go to the Grace aggregation (flow/external.py), which
+    stages them on the host in group-disjoint hash partitions and merges
+    and finalizes one partition per output batch."""
 
     def __init__(
         self,
@@ -292,6 +333,7 @@ class AggregateOp(OneInputOperator):
             if gi in child.dictionaries:
                 self.in_stats.setdefault(
                     gi, (0, max(0, len(child.dictionaries[gi]) - 1)))
+        self._spool_alloc = None
 
     def init(self):
         super().init()
@@ -299,8 +341,14 @@ class AggregateOp(OneInputOperator):
 
     def _reset(self):
         self._emitted = False
-        self._parts: list[list[Batch]] = []
-        self.spilled = False
+        self._tiles: list[Batch] = []
+        self._external = None
+        self._close_spool()  # a re-run: the prior account is dead
+
+    def _close_spool(self) -> None:
+        if self._spool_alloc is not None:
+            self._spool_alloc.close()
+            self._spool_alloc = None
 
     def _partial(self, b: Batch) -> Batch:
         # out_capacity == input capacity: groups <= live rows, so this
@@ -311,69 +359,106 @@ class AggregateOp(OneInputOperator):
             presorted=self.ordered, compact=not self.prefix_live)
         return part
 
+    def merge(self, tiles: list[Batch], cap: int):
+        """Merge state tiles into one tile of capacity `cap` ->
+        (merged, group count as a device scalar)."""
+        both = concat(tiles, capacity=cap)
+        # ordered partials stay in scan order per tile, so their
+        # concatenation is still clustered
+        return agg_ops.sort_groupby(
+            both, self.state_schema, tuple(range(self.num_keys)),
+            self.merge_specs, out_capacity=cap, col_stats=self.key_stats,
+            presorted=self.ordered, compact=True)
+
+    def finalize(self, state: Batch) -> Batch:
+        return agg_ops.finalize_states(state, self.final_map, self.num_keys)
+
     def _merge_down(self, tiles: list[Batch]) -> Batch:
-        k = self.num_keys
         cap = _spool_cap(self, tiles)
         while True:
-            both = concat(tiles, capacity=cap)
-            # ordered partials stay in scan order per tile, so their
-            # concatenation is still clustered
-            merged, ng = agg_ops.sort_groupby(
-                both, self.state_schema, tuple(range(k)), self.merge_specs,
-                out_capacity=cap, col_stats=self.key_stats,
-                presorted=self.ordered, compact=True)
+            merged, ng = self.merge(tiles, cap)
             n = self.sync_int(ng)
             if n <= cap:
                 return merged
             cap = _canonical_cap(n)
 
-    def _partitions(self, tiles: list[Batch]) -> list[list[Batch]]:
-        """Each state tile as GRACE_PARTS masked views, by the bucket of
-        its group key's row hash."""
-        k = self.num_keys
-        keys = range(k)
-        tables = {pos: d.hashes for pos, d in self.dictionaries.items()
-                  if pos < k}
-        parts: list[list[Batch]] = [[] for _ in range(GRACE_PARTS)]
-        for t in tiles:
-            h = hash_columns([t.cols[i] for i in keys],
-                             [self.state_schema.types[i] for i in keys],
-                             tables or None)
-            pid = bucket(h, GRACE_PARTS)
-            for p in range(GRACE_PARTS):
-                parts[p].append(t.with_mask(t.mask & (pid == p)))
-        return parts
+    def _spool(self):
+        """Spool per-tile partial states; merge down only when the spool
+        exceeds workmem (rows, or the byte account); spill to the Grace
+        aggregation when a merge-down stays over."""
+        budget = settings.get("sql.distsql.workmem_rows")
+        alloc = self._spool_alloc = Allocator("aggregation spool")
+
+        def partials():
+            while True:
+                b = self.child.next_batch()
+                if b is None:
+                    return
+                yield self._partial(b)
+
+        source = partials()
+        spooled = 0
+        for part in source:
+            self._tiles.append(part)
+            spooled += part.capacity
+            nb = batch_bytes(part)
+            over = alloc.would_exceed(nb)
+            # the tile is resident whether or not the budget likes it:
+            # account it truthfully (forcing past the refusal)
+            alloc.reserve(nb, force=over)
+            if spooled > budget or over:
+                self._tiles = [self._merge_down(self._tiles)]
+                spooled = self._tiles[0].capacity
+                alloc.release()
+                mb = batch_bytes(self._tiles[0])
+                over = alloc.would_exceed(mb)
+                alloc.reserve(mb, force=over)
+                if spooled > budget or over:
+                    # the group count itself exceeds memory: hand the
+                    # spooled states and the rest of the partial stream
+                    # to the Grace aggregation
+                    note_spill("agg")
+                    self.stats.spilled = True
+                    self._close_spool()
+                    chain = ChainOp(self._tiles, self.state_schema,
+                                    self.dictionaries, _Rest(source))
+                    chain.init()
+                    self._external = GraceAggregateOp(chain, self)
+                    self._external.init()
+                    self._external.stats = self.stats
+                    self._tiles = []
+                    return
 
     def _next(self):
-        if self._parts:
-            return agg_ops.finalize_states(
-                self._merge_down(self._parts.pop(0)), self.final_map,
-                self.num_keys)
+        if self._external is not None:
+            return self._external.next_batch()  # spilled: partitions
         if self._emitted:
             return None
+        self._spool()
+        if self._external is not None:
+            return self._external.next_batch()
         self._emitted = True
-        budget = settings.get("sql.distsql.workmem_rows")
-        tiles: list[Batch] = []
-        spooled = 0
-        while True:
-            b = self.child.next_batch()
-            if b is None:
-                break
-            part = self._partial(b)
-            tiles.append(part)
-            spooled += part.capacity
-            if spooled > budget and not self.spilled:
-                tiles = [self._merge_down(tiles)]
-                spooled = tiles[0].capacity
-                # the group count itself exceeds the budget: Grace
-                self.spilled = spooled > budget
+        tiles, self._tiles = self._tiles, []
         if not tiles:
+            self._close_spool()
             return None
-        if self.spilled:
-            self._parts = self._partitions(tiles)
-            return self._next()
         acc = tiles[0] if len(tiles) == 1 else self._merge_down(tiles)
-        return agg_ops.finalize_states(acc, self.final_map, self.num_keys)
+        self._close_spool()  # the spool tiles are dead
+        return self.finalize(acc)
+
+    def close(self):
+        super().close()
+        self._close_spool()
+
+
+class _Rest:
+    """The rest of a spilling operator's partial stream, as a source."""
+
+    def __init__(self, it):
+        self._it = it
+
+    def next_batch(self):
+        return next(self._it, None)
 
 
 class SmallGroupAggregateOp(OneInputOperator):
@@ -500,7 +585,10 @@ class ScalarAggregateOp(OneInputOperator):
 
 class SortOp(OneInputOperator):
     """Buffering sorter (NewSorter analog): spool all tiles, one stable
-    device sort at the canonical capacity fitting the spool's LIVE rows."""
+    device sort at the canonical capacity fitting the spool's LIVE rows.
+    Past ``sql.distsql.workmem_rows`` spooled rows or the byte account,
+    the spooled tiles and the rest of the input go to the external sort
+    (flow/external.py)."""
 
     def __init__(self, child: Operator, keys: tuple[sort_ops.SortKey, ...]):
         super().__init__(child)
@@ -514,24 +602,40 @@ class SortOp(OneInputOperator):
     def init(self):
         super().init()
         self._emitted = False
+        self._external = None
 
     def _next(self):
+        if self._external is not None:
+            return self._external.next_batch()
         if self._emitted:
             return None
-        self._emitted = True
         budget = settings.get("sql.distsql.workmem_rows")
+        alloc = Allocator("sort spool")
         tiles = []
         total = 0
         while True:
             b = self.child.next_batch()
             if b is None:
                 break
+            nb = batch_bytes(b)
             tiles.append(b)
             total += b.capacity
-            if total > budget:
-                raise NotImplementedError(
-                    "the sort spool exceeds sql.distsql.workmem_rows: the "
-                    "external sort " + NOT_PORTED)
+            over = alloc.would_exceed(nb)
+            # account the tile even past the budget: it is resident
+            alloc.reserve(nb, force=over)
+            if total > budget or over:
+                note_spill("sort")
+                self.stats.spilled = True
+                alloc.close()
+                chain = ChainOp(tiles, self.output_schema,
+                                self.child.dictionaries, self.child)
+                self._external = ExternalSortOp(chain, self.keys,
+                                                budget_rows=budget)
+                self._external.init()
+                self._external.stats = self.stats
+                return self._external.next_batch()
+        self._emitted = True
+        alloc.close()  # the one-shot device sort consumes the spool
         if not tiles:
             return None
         big = concat(tiles, capacity=_spool_cap(self, tiles))
@@ -609,6 +713,10 @@ class DistinctOp(OneInputOperator):
     def _next(self):
         return self._inner._next()
 
+    def close(self):
+        super().close()
+        self._inner._close_spool()
+
 
 # ---------------------------------------------------------------------------
 # Join
@@ -623,7 +731,8 @@ class HashJoinOp(OneInputOperator):
     - ``analytic`` when the build side is a position-preserving chain
       (Scan + Filter/Project) over a table whose first build key is an
       affine function of the row index (Table.dense_key_info);
-    - else ``lut`` when the exact packed key fits ``DENSE_LUT_BITS`` (an
+    - else ``lut`` when the exact packed key fits
+      ``sql.distsql.dense_lut_bits`` (an
       existence probe only asks whether a slot is set, so any duplicate
       may win it);
     - else ``sorted`` (sorted exact keys or row hashes + binary search).
@@ -733,7 +842,14 @@ class HashJoinOp(OneInputOperator):
         self.build.init()
         super().init()
         self._built = False
+        self._grace = None
+        self._close_build()  # a re-run: the prior build is dead
         self._analytic = self._plan_analytic()
+
+    def _close_build(self) -> None:
+        if getattr(self, "_build_alloc", None) is not None:
+            self._build_alloc.close()
+        self._build_alloc = None
 
     def _sorted_index(self, batch: Batch):
         return join_ops.build_index(
@@ -746,15 +862,15 @@ class HashJoinOp(OneInputOperator):
             return
         self._built = True
         tiles = []
-        while True:
-            b = self.build.next_batch()
-            if b is None:
-                break
-            tiles.append(b)
         if self._analytic is not None:
+            while True:
+                b = self.build.next_batch()
+                if b is None:
+                    break
+                tiles.append(b)
             # position-preserving concat (NO compaction): row i of the
             # build batch is row i of the table, so key arithmetic
-            # addresses it; no live-count sync
+            # addresses it; no live-count sync, no workmem spill
             self.strategy = "analytic"
             if tiles:
                 self._build_batch = Batch(
@@ -766,11 +882,32 @@ class HashJoinOp(OneInputOperator):
                     mask=torch.cat([t.mask for t in tiles]))
                 self._index = None
                 return
-        if sum(batch_bytes(t) for t in tiles) > settings.get(
-                "sql.distsql.workmem_bytes"):
-            raise NotImplementedError(
-                "the join build side exceeds sql.distsql.workmem_bytes: the "
-                "Grace hash join " + NOT_PORTED)
+        else:
+            alloc = self._build_alloc = Allocator("hash join build")
+            while True:
+                b = self.build.next_batch()
+                if b is None:
+                    break
+                nb = batch_bytes(b)
+                over = alloc.would_exceed(nb)
+                # account the tile even past the budget: it is resident
+                alloc.reserve(nb, force=over)
+                if over:
+                    # the build side exceeds workmem: both sides go to
+                    # the Grace hash join
+                    note_spill("join")
+                    self.stats.spilled = True
+                    self._close_build()
+                    chain = ChainOp(tiles + [b], self.build.output_schema,
+                                    self.build.dictionaries, self.build)
+                    self._grace = GraceHashJoinOp(
+                        self.child, chain, self.probe_keys, self.build_keys,
+                        self.spec)
+                    self._grace.init()
+                    self._grace.stats = self.stats
+                    self.strategy = "grace"
+                    return
+                tiles.append(b)
         layout = self.exact_layout
         sorted_kind = "sorted" if self.probe_aligned else "general"
         if not tiles:
@@ -782,7 +919,8 @@ class HashJoinOp(OneInputOperator):
         big = concat(tiles, capacity=_spool_cap(self, tiles))
         self._build_batch = big
         if (self.probe_aligned and layout is not None
-                and layout.total_bits <= join_ops.DENSE_LUT_BITS):
+                and layout.total_bits
+                <= settings.get("sql.distsql.dense_lut_bits")):
             self.strategy = "lut"
             self._index = join_ops.build_dense_lut(
                 big, self.build_keys, layout, self.build_code_remaps or None)
@@ -822,6 +960,8 @@ class HashJoinOp(OneInputOperator):
 
     def _next(self):
         self._ensure_built()
+        if self._grace is not None:
+            return self._grace._next()
         p = self.child.next_batch()
         if p is None:
             return None
@@ -836,3 +976,6 @@ class HashJoinOp(OneInputOperator):
     def close(self):
         super().close()
         self.build.close()
+        self._close_build()
+        if self._grace is not None:
+            self._grace.close()

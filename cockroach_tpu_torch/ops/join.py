@@ -8,7 +8,7 @@ equal key, by one of three strategies (all exact, all probe-aligned):
   function of the row index (TPC-H primary keys), so the build row index
   is arithmetic: no index at all;
 - dense LUT: the exact packed key (``plan_exact_key``) fits in
-  ``DENSE_LUT_BITS``; a direct-addressed table of build positions is
+  ``sql.distsql.dense_lut_bits``; a direct-addressed table of build positions is
   scattered once per build side and each probe is one gather;
 - sorted index: the packed keys sorted once per build side
   (``build_index``), each probe a binary search (``bsearch``).
@@ -46,9 +46,6 @@ from .hashing import hash_columns
 from .keys import bits_for_count
 
 _SENTINEL = -1  # the uint64 all-ones word as an int64 bit pattern
-
-# max packed-key bits for the dense LUT strategy (2^24 int32 slots = 64 MiB)
-DENSE_LUT_BITS = 24
 
 NOT_PORTED = "waits for a later SQL slice of the port (ROADMAP Queue 1)"
 

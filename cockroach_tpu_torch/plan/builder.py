@@ -17,22 +17,19 @@ from ..ops.aggregation import STAT_FUNCS
 from ..utils import settings
 from . import spec as S
 
-# maximum dense group-code space (product of per-key bounds) for the
-# dense aggregation path; larger key spaces group by sorting (the
-# reference's sql.distsql.dense_agg_states default)
-DENSE_AGG_STATES = 1 << 23
-
 
 def _plan_dense_agg(child: Operator, group_cols, aggs):
     """(key_sizes, key_lows) for the dense aggregation when every group
     key is bounded — by catalog stats (integer families) or dictionary
-    size (strings) — and the packed code space fits DENSE_AGG_STATES."""
+    size (strings) — and the packed code space fits
+    ``sql.distsql.dense_agg_states``; larger key spaces group by sorting."""
     for spec in aggs:
         if spec.func not in ("sum", "count", "count_rows", "min", "max",
                              "avg", "any_not_null") + STAT_FUNCS:
             return None
     sizes, lows = [], []
     G = 1
+    budget = settings.get("sql.distsql.dense_agg_states")
     for gi in group_cols:
         t = child.output_schema.types[gi]
         if t.family is Family.STRING and gi in child.dictionaries:
@@ -51,7 +48,7 @@ def _plan_dense_agg(child: Operator, group_cols, aggs):
         sizes.append(size)
         lows.append(lo)
         G *= size + 1  # +1: the per-key NULL code (dense_layout)
-        if G > DENSE_AGG_STATES:
+        if G > budget:
             return None
     return tuple(sizes), tuple(lows)
 

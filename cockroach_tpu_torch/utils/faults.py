@@ -1,5 +1,6 @@
-"""Fault-injection hooks at the storage slice's sites, with the reference's
-site names. Every hook is a no-op until ``arm`` is called."""
+"""Fault-injection hooks at the storage engine's and the external
+operators' sites, with the reference's site names. Every hook is a no-op
+until ``arm`` is called."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ SITES: dict[str, str] = {
     "storage.ingest.link": "bulk-ingest side file durable, link lost",
     "storage.compaction.swap": "crash between run swap and bookkeeping",
     "storage.bloom.build": "bloom build crash or silent bit corruption",
+    "flow.spill.partition_write": "host spill-partition write failure",
+    "flow.spill.merge_probe": "oversized-partition merge-probe run failure",
 }
 
 

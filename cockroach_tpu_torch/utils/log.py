@@ -8,6 +8,7 @@ import sys
 import time
 
 STORAGE = "STORAGE"
+SQL_EXEC = "SQL_EXEC"
 
 _SEVERITIES = ("DEBUG", "INFO", "WARNING", "ERROR")
 min_severity = "WARNING"
@@ -22,6 +23,10 @@ def _log(sev: str, channel: str, msg: str, kw: dict) -> None:
 
 def debug(channel: str, msg: str, **kw) -> None:
     _log("DEBUG", channel, msg, kw)
+
+
+def info(channel: str, msg: str, **kw) -> None:
+    _log("INFO", channel, msg, kw)
 
 
 def warning(channel: str, msg: str, **kw) -> None:

@@ -1,5 +1,6 @@
-"""Metrics — the counters, gauges and histogram the storage slice bumps
-(names as in ``cockroach_tpu.utils.metric``)."""
+"""Metrics — the counters, gauges and histograms the storage engine, the
+memory monitors and the external operators bump (names as in
+``cockroach_tpu.utils.metric``)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,20 @@ COMPACTION_PACING_DELAY = Histogram(
     "storage_compaction_pacing_delay_seconds",
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0))
 FAULTS_INJECTED = Counter("faults_injected")
+SQL_MEM_CURRENT = Gauge("sql_mem_current")
+SQL_MEM_MAX = Gauge("sql_mem_max")
+SQL_MEM_QUERY_PEAK = Histogram(
+    "sql_mem_query_peak_bytes",
+    buckets=(1 << 12, 1 << 16, 1 << 20, 1 << 22, 1 << 24, 1 << 26,
+             1 << 28, 1 << 30, 1 << 32, 1 << 34))
+SQL_MEM_QUERY_LEAKS = Counter("sql_mem_query_leaks")
+# aggregations spilled to the host-staged Grace partitions
+EXTERNAL_AGG_SPILLS = Counter("sql_external_agg_spills")
+# sorts past workmem, spilled to the range-partitioned external sort
+EXTERNAL_SORT_SPILLS = Counter("sql_external_sort_spills")
+# hash joins whose build side passed workmem_bytes (Grace hash join)
+GRACE_JOIN_SPILLS = Counter("sql_grace_join_spills")
+# Grace partitions whose build side alone passed workmem (merge runs)
+GRACE_JOIN_MERGE_PARTS = Counter("sql_grace_join_merge_parts")
+# probe rows routed through the resident heavy-hitter build table
+GRACE_JOIN_SKEW_ROUTED = Counter("sql_grace_join_skew_rows")

@@ -22,14 +22,33 @@ TABLES = ("region", "nation", "supplier", "part", "partsupp", "customer",
           "orders", "lineitem")
 
 
-@pytest.fixture(scope="module")
-def ref_cat():
-    return jtpch.gen_tpch(sf=SF, seed=SEED)
+# scales at which the port's generator (dictionary codes built straight
+# from the pool draws) is held to the reference's
+GEN_SFS = (SF, 0.01, 0.05)
 
 
 @pytest.fixture(scope="module")
-def port_cat():
-    return ttpch.gen_tpch(sf=SF, seed=SEED, device="cpu")
+def gen_cats():
+    """{sf: (reference catalog, port catalog)}, made on first use."""
+    cache = {}
+
+    def get(sf):
+        if sf not in cache:
+            cache[sf] = (jtpch.gen_tpch(sf=sf, seed=SEED),
+                         ttpch.gen_tpch(sf=sf, seed=SEED, device="cpu"))
+        return cache[sf]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def ref_cat(gen_cats):
+    return gen_cats(SF)[0]
+
+
+@pytest.fixture(scope="module")
+def port_cat(gen_cats):
+    return gen_cats(SF)[1]
 
 
 def host_tables(cat) -> dict:
@@ -53,8 +72,10 @@ def port_type(t) -> tty.SQLType:
                        t.scale)
 
 
+@pytest.mark.parametrize("sf", GEN_SFS)
 @pytest.mark.parametrize("table", TABLES)
-def test_gen_tpch_matches_reference(ref_cat, port_cat, table):
+def test_gen_tpch_matches_reference(gen_cats, table, sf):
+    ref_cat, port_cat = gen_cats(sf)
     r, p = ref_cat.get(table), port_cat.get(table)
     assert p.schema.names == tuple(r.schema.names)
     assert p.schema.types == tuple(port_type(t) for t in r.schema.types)

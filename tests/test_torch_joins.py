@@ -37,6 +37,13 @@ from test_torch_tpch import _tree
 TILE = 1024
 
 
+@pytest.fixture
+def tset():
+    """The port's settings.set, every port setting reset afterwards."""
+    yield tsettings.set
+    tsettings.reset()
+
+
 # ---------------------------------------------------------------------------
 # row hashing
 
@@ -268,10 +275,10 @@ JOINS = {
 }
 
 
-def _join_both(cats, how, kind, monkeypatch):
+def _join_both(cats, how, kind, tset):
     jcat, tcat = cats
     table, on, unique, _ = JOINS[kind]
-    monkeypatch.setitem(tsettings._DEFAULTS, "sql.distsql.tile_size", TILE)
+    tset("sql.distsql.tile_size", TILE)
     jsettings.set("sql.distsql.tile_size", TILE)
     try:
         jrel = JRel.scan(jcat, "probe").join(JRel.scan(jcat, table), on=on,
@@ -292,8 +299,8 @@ def _join_both(cats, how, kind, monkeypatch):
 
 @pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
 @pytest.mark.parametrize("kind", list(JOINS))
-def test_hash_join_op_matches_reference(join_cats, how, kind, monkeypatch):
-    want, got, jj, tj, troot = _join_both(join_cats, how, kind, monkeypatch)
+def test_hash_join_op_matches_reference(join_cats, how, kind, tset):
+    want, got, jj, tj, troot = _join_both(join_cats, how, kind, tset)
     assert list(got) == list(want) and len(want[list(want)[0]]) > 0
     assert _rows(got) == _rows(want)
     if kind.startswith("hashed"):
@@ -313,12 +320,12 @@ def test_hash_join_op_matches_reference(join_cats, how, kind, monkeypatch):
     assert sum(host_syncs(troot).values()) >= 3
 
 
-def test_general_join_output_exceeds_probe_tile(join_cats, monkeypatch):
+def test_general_join_output_exceeds_probe_tile(join_cats, tset):
     """Each 1024-row probe tile of an inner join over duplicate keys emits
     more rows than the tile holds, at the canonical capacity of its
     total; downstream operators take the larger tiles."""
     _, tcat = join_cats
-    monkeypatch.setitem(tsettings._DEFAULTS, "sql.distsql.tile_size", TILE)
+    tset("sql.distsql.tile_size", TILE)
     rel = TRel.scan(tcat, "probe").join(TRel.scan(tcat, "build"),
                                         on=[("k", "k")], build_unique=False)
     root = tbuilder.build(rel.plan, tcat)
@@ -475,11 +482,11 @@ def test_topk_batch_matches_reference(topk_batch_inputs, k, keys):
     same_host(tbatch.to_host(got, ts), tbatch.to_host(full, ts))
 
 
-def test_topk_op_folds_tiles_like_sort_limit(join_cats, monkeypatch):
+def test_topk_op_folds_tiles_like_sort_limit(join_cats, tset):
     """TopKOp over three probe tiles with ties at the boundary equals
     SortOp + LimitOp, and the reference's TopK plan."""
     jcat, tcat = join_cats
-    monkeypatch.setitem(tsettings._DEFAULTS, "sql.distsql.tile_size", TILE)
+    tset("sql.distsql.tile_size", TILE)
     rel = TRel.scan(tcat, "probe").sort([("k", True), ("s", False)])
     rel = rel.limit(50, offset=3)
     opt = rel.optimized_plan()
@@ -506,9 +513,9 @@ def test_topk_op_folds_tiles_like_sort_limit(join_cats, monkeypatch):
 
 
 @pytest.mark.parametrize("cols", [None, ["s"], ["k", "s"], ["f"]])
-def test_distinct_op_matches_reference(join_cats, cols, monkeypatch):
+def test_distinct_op_matches_reference(join_cats, cols, tset):
     jcat, tcat = join_cats
-    monkeypatch.setitem(tsettings._DEFAULTS, "sql.distsql.tile_size", TILE)
+    tset("sql.distsql.tile_size", TILE)
     jsettings.set("sql.distsql.tile_size", TILE)
     try:
         jrel = JRel.scan(jcat, "build").select("k", "s", "f").distinct(cols)
@@ -525,7 +532,7 @@ def test_distinct_op_matches_reference(join_cats, cols, monkeypatch):
 
 
 @pytest.mark.parametrize("grouped", [False, True])
-def test_grace_aggregation_matches_reference(grouped, monkeypatch):
+def test_grace_aggregation_matches_reference(grouped, tset):
     """With a 4096-row budget the group count exceeds every merge-down,
     so the aggregation splits into hash partitions; the output, batch
     order included, equals the reference's Grace aggregation."""
@@ -549,13 +556,11 @@ def test_grace_aggregation_matches_reference(grouped, monkeypatch):
             r = r.distinct(["l_orderkey", "l_suppkey"])
         root = bld.build(r.plan, cat)
         if R is TRel:
-            monkeypatch.setitem(tsettings._DEFAULTS,
-                                "sql.distsql.workmem_rows", 4096)
-            monkeypatch.setitem(tsettings._DEFAULTS,
-                                "sql.distsql.tile_size", 2048)
+            tset("sql.distsql.workmem_rows", 4096)
+            tset("sql.distsql.tile_size", 2048)
             out.append(run(root))
             agg = root if grouped else root._inner
-            assert agg.spilled
+            assert agg.stats.spilled
         else:
             jsettings.set("sql.distsql.workmem_rows", 4096)
             jsettings.set("sql.distsql.tile_size", 2048)

@@ -254,11 +254,18 @@ def test_run_executes_optimized_plan(cats, monkeypatch):
         rel.optimized_plan()
 
 
-def test_streaming_scan_raises(cats, monkeypatch):
+def test_streaming_scan_raises(cats):
+    """A table over sql.distsql.scan_stream_rows no longer raises: it
+    streams in tiles, with the same result as the resident scan."""
     tcat = cats[1]
-    monkeypatch.setitem(settings._DEFAULTS, "sql.distsql.scan_stream_rows",
-                        1024)
     rel = Rel.scan(tcat, "lineitem", ("l_quantity",))
     rel = rel.filter(tex.Cmp("gt", rel.c("l_quantity"), tex.lit(0)))
-    with pytest.raises(NotImplementedError, match="streaming scan"):
-        trun(tbuilder.build(rel.plan, tcat))
+    want = trun(tbuilder.build(rel.plan, tcat))
+    settings.set("sql.distsql.scan_stream_rows", 1024)
+    try:
+        root = tbuilder.build(rel.plan, tcat)
+        got = trun(root)
+    finally:
+        settings.reset("sql.distsql.scan_stream_rows")
+    assert root.child.streaming
+    np.testing.assert_array_equal(got["l_quantity"], want["l_quantity"])

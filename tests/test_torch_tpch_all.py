@@ -58,15 +58,14 @@ def runs(cats):
 def tiled_runs():
     """The same runs with 1024-row scan tiles in both packages (fresh
     catalogs: a table pads to a tile multiple at its first upload)."""
-    saved = tsettings._DEFAULTS["sql.distsql.tile_size"]
-    tsettings._DEFAULTS["sql.distsql.tile_size"] = TILE
+    tsettings.set("sql.distsql.tile_size", TILE)
     jsettings.set("sql.distsql.tile_size", TILE)
     try:
         return _run_all(jtpch.gen_tpch(sf=SF, seed=SEED),
                         ttpch.gen_tpch(sf=SF, seed=SEED, device="cpu"))
     finally:
         jsettings.reset("sql.distsql.tile_size")
-        tsettings._DEFAULTS["sql.distsql.tile_size"] = saved
+        tsettings.reset("sql.distsql.tile_size")
 
 
 @pytest.mark.parametrize("q", QUERIES)

@@ -31,6 +31,16 @@ to its default run; the ``{"tpch_sf10": ...}`` line. Neither storage
 kernel runs on those paths (``tpch_launches`` and ``sf10_launches`` in
 the kernel table count their launches).
 
+Fusion (``flow/fuse.py``, ``flow/dispatch.py``): all 22 queries at SF0.05
+and under the SF10 scaling fused equal to unfused bit for bit, CUDA
+graphs captured in the first fused run and none in a repeat run; at SF1
+and SF10, q3, q9 and q18 fused and unfused in turn (medians, idle share,
+host syncs, dispatches and host launch calls per tile, captures, peak
+memory) on the ``{"fusion": ...}`` line, after the SF10 phase. Result
+lines are compact JSON with floats to 4 significant digits, and the
+script prints its byte count before the kernel table: all of it has to
+fit in 24 KB, the output a remote run returns.
+
 The line before the last is ``{"kernels": [...]}``, the line before that
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -59,8 +69,35 @@ K2_BYTES_PER_ROW = 16 + 8 + 8 + 1  # key, ts, seq, mask in
 K2_PERM_BYTES = 4
 
 
+_written = 0  # bytes of standard output so far
+
+
+def write_line(line: str) -> None:
+    """One line of standard output, counted: everything the script prints
+    has to fit in 24 KB, the output a remote run returns."""
+    global _written
+    print(line, flush=True)
+    _written += len(line.encode()) + 1
+
+
 def log(msg: str) -> None:
-    print(f"# {msg}", flush=True)
+    write_line(f"# {msg}")
+
+
+def _sig4(x):
+    """Floats rounded to 4 significant digits, all the way down."""
+    if isinstance(x, float):
+        return float(f"{x:.4g}")
+    if isinstance(x, dict):
+        return {k: _sig4(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_sig4(v) for v in x]
+    return x
+
+
+def emit(obj: dict) -> None:
+    """A compact JSON result line, floats to 4 significant digits."""
+    write_line(json.dumps(_sig4(obj), separators=(",", ":")))
 
 
 # ---------------------------------------------------------------------------
@@ -419,8 +456,7 @@ def run_ycsb(card: str) -> dict:
     if checked < 128:
         raise AssertionError(f"only {checked} scans held against the oracle")
     log(f"YCSB-E: {checked} scans match the host oracle; launches {launches}")
-    print(json.dumps({"ycsb_e": y, "wall_s": wall, "card": card,
-                      "launches": launches}), flush=True)
+    emit({"ycsb_e": y, "wall_s": wall, "card": card, "launches": launches})
     return launches
 
 
@@ -452,8 +488,8 @@ def profile_ycsb() -> dict:
            "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
            "device_idle_share": (1 - busy_us / wall_us) if busy_us
            else "not measured",
-           "top_device_ms": {n[:80]: us / 1e3 for n, us in top}}
-    print(json.dumps({"ycsb_e_profile": out}), flush=True)
+           "top_device_ms": {n[:40]: us / 1e3 for n, us in top[:4]}}
+    emit({"ycsb_e_profile": out})
     return out
 
 
@@ -485,13 +521,12 @@ def device_profile(fn) -> dict:
             acc[0] += e.time_range.elapsed_us()
             acc[1] += 1
     busy_us = sum(v[0] for v in per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:3]
     return {"wall_s": wall_us / 1e6,
             "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
             "idle_share": (1 - busy_us / wall_us) if busy_us
             else "not measured",
-            "top_device_ops": [{"name": n[:120], "ms": v[0] / 1e3,
-                                "calls": v[1]} for n, v in top]}
+            "top_device_ops": [[n[:40], v[0] / 1e3, v[1]] for n, v in top]}
 
 
 def tpch_results(sf: float, devices, seed: int = TPCH_SEED,
@@ -638,11 +673,239 @@ def operator_breakdown(root) -> dict:
     return out
 
 
-def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
-    """The SQL main path on the card: the SF0.01 and SF0.05 parity checks,
-    then at SF1 bench.py's ladder through run_tpch (every run held to the
-    numpy oracle), one profiled run of each ladder query, and the other
-    18 queries cold and warm."""
+def top_ms(ms: dict, n: int = 4) -> dict:
+    """The n largest entries of an {operator: ms} breakdown."""
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
+def brief(r: dict) -> dict:
+    """One query's run_tpch figures without the per-operator detail."""
+    keep = ("cold_s", "warm_s", "median_s", "rows_per_sec", "rows",
+            "host_syncs_total", "peak_device_bytes", "streamed", "spills",
+            "h2d_bytes", "h2d_s", "upload_waits", "fill_wait_s",
+            "staged_bytes")
+    out = {k: r[k] for k in keep if k in r}
+    if "host_syncs_total" not in out and "host_syncs" in r:
+        out["host_syncs_total"] = sum(r["host_syncs"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fusion: fused against unfused on the card
+
+_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def launch_profile(fn) -> dict:
+    """One run of fn() under torch.profiler: the device's busy time and
+    idle share, the launch calls the host issued (kernels, graph replays,
+    copies, memsets: the runtime API events of those names) and the
+    device operations that ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = 0.0
+    device_ops = launches = graphs = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            device_ops += 1
+        elif e.name in _LAUNCH_APIS:
+            launches += 1
+            graphs += e.name == "cudaGraphLaunch"
+    return {"wall_s": wall_us / 1e6,
+            "idle_share": (1 - busy_us / wall_us) if busy_us
+            else "not measured",
+            "host_launches": launches, "graph_launches": graphs,
+            "device_ops": device_ops}
+
+
+def lineitem_tiles(root) -> int:
+    """Probe tiles of the run: lineitem's scan tiles."""
+    from cockroach_tpu_torch.flow.operators import ScanOp
+
+    stack = [root]
+    while stack:
+        op = stack.pop()
+        if isinstance(op, ScanOp) and op.table.name == "lineitem":
+            tile = op._stream.tile if op.streaming else op._res_tile
+            return -(-op.table.num_rows // tile)
+        stack.extend(op.children())
+    raise AssertionError("no lineitem scan in the plan")
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Bit-for-bit equal query results (NaN equal to NaN)."""
+    if list(a) != list(b):
+        return False
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.dtype == object:
+            if list(x) != list(y):
+                return False
+        elif not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            return False
+    return True
+
+
+def _fusion(on: bool):
+    from cockroach_tpu_torch.utils import settings
+
+    settings.set("sql.distsql.fusion.enabled", on)
+
+
+def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
+    """Query q over cat with fusion on or off: a cold run, a second run
+    (join capacities learned in the first take effect), then `runs` more,
+    timed; then one profiled run. Graph captures of each stage, host
+    syncs, dispatches, launches and peak memory. -> (figures, result)"""
+    import gc
+
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.flow.runtime import (host_syncs, io_report,
+                                                  run_operator)
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.utils import settings
+
+    _fusion(on)
+    try:
+        dispatch.clear_kernel_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+        caps = []
+        t_cold = None
+        for _ in range(2):
+            c0 = dispatch.captures()
+            t0 = time.perf_counter()
+            want = run_operator(root)
+            torch.cuda.synchronize()
+            t_cold = t_cold or time.perf_counter() - t0
+            caps.append(dispatch.captures() - c0)
+        c0, d0, e0 = dispatch.captures(), dispatch.total(), dispatch.eager()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            got = run_operator(root)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not same_result(got, want):
+                raise AssertionError(f"{q} (fusion {on}): a repeat run "
+                                     "differs from the first")
+        caps.append(dispatch.captures() - c0)
+        disp = (dispatch.total() - d0) / runs
+        eager = (dispatch.eager() - e0) / runs
+        r0 = dispatch.replays()
+        fill_s = io_report(root)["fill_wait_s"]
+        prof = launch_profile(lambda: run_operator(root))
+        replays = dispatch.replays() - r0
+        tiles = lineitem_tiles(root)
+        med = statistics.median(times)
+        fig = {"median_ms": med * 1e3,
+               "rows_per_sec": cat.get("lineitem").num_rows / med,
+               "cold_ms": t_cold * 1e3, "captures": caps,
+               "host_syncs": sum(host_syncs(root).values()),
+               "dispatches": disp, "dispatches_per_tile": disp / tiles,
+               "eager_dispatches": eager, "replays": replays,
+               "launches_per_tile": prof["host_launches"] / tiles,
+               "graph_launches": prof["graph_launches"],
+               "device_ops_per_tile": prof["device_ops"] / tiles,
+               "idle_share": prof["idle_share"], "tiles": tiles,
+               "fill_wait_s": fill_s, "base_gb": base / 1e9,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+        return fig, want
+    finally:
+        settings.reset("sql.distsql.fusion.enabled")
+
+
+def fusion_compare(cat, queries=("q3", "q9", "q18"), runs: int = 5) -> dict:
+    """Each query fused and unfused in turn on one card: the figures of
+    fusion_runs side by side, the two results held equal bit for bit,
+    and the fused path held to its contract: graphs captured on the first
+    run, none on a repeat run, no eager device function."""
+    out = {}
+    for q in queries:
+        unfused, a = fusion_runs(cat, q, False, runs)
+        fused, b = fusion_runs(cat, q, True, runs)
+        if not same_result(a, b):
+            raise AssertionError(f"{q}: fused != unfused")
+        if fused["captures"][0] <= 0 or fused["replays"] <= 0:
+            raise AssertionError(f"{q}: no CUDA graph captured or replayed")
+        if fused["captures"][2] or unfused["captures"][2]:
+            raise AssertionError(f"{q}: a repeat run captured graphs: "
+                                 f"{fused['captures']}")
+        if fused["eager_dispatches"]:
+            raise AssertionError(f"{q}: {fused['eager_dispatches']} per-tile "
+                                 "device functions ran outside a graph")
+        out[q] = {"unfused": unfused, "fused": fused}
+    return out
+
+
+def check_fusion22(dev, sf: float, tile: int | None = None,
+                   scaling: dict | None = None) -> dict:
+    """All 22 queries at `sf` on the card, unfused once and fused three
+    times: every fused run equal to the unfused one bit for bit, graphs
+    captured in the first fused run and none in the third (the second
+    may capture the shapes join capacities learned in the first)."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.utils import settings
+
+    sets = dict(scaling or {})
+    if tile is not None:
+        sets["sql.distsql.tile_size"] = tile
+    for n, v in sets.items():
+        settings.set(n, v)
+    caps = [0, 0, 0]
+    replays0 = dispatch.replays()
+    try:
+        cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=dev)
+        for q in Q.QUERIES:
+            plan = Q.QUERIES[q](cat).optimized_plan()
+            _fusion(False)
+            want = run_operator(builder.build(plan, cat))
+            _fusion(True)
+            root = builder.build(plan, cat)
+            for i in range(3):
+                c0 = dispatch.captures()
+                got = run_operator(root)
+                caps[i] += dispatch.captures() - c0
+                if not same_result(got, want):
+                    raise AssertionError(f"{q} at sf={sf}: fused run {i} "
+                                         "!= unfused")
+    finally:
+        settings.reset()
+    if caps[0] <= 0 or caps[2]:
+        raise AssertionError(f"captures per fused run {caps}")
+    replays = dispatch.replays() - replays0
+    log(f"fusion sf={sf}: 22 fused == unfused, captures {caps}")
+    return {"equal": True, "captures": caps, "replays": replays}
+
+
+def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0) -> dict:
+    """The SQL main path on the card: the SF0.01 and SF0.05 parity checks
+    (and at SF0.05 fused against unfused), then at SF1 bench.py's ladder
+    through run_tpch (every run held to the numpy oracle), one profiled
+    run of each ladder query, the other 18 queries cold and warm, and q3,
+    q9 and q18 fused against unfused (into `fusion`)."""
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
     from cockroach_tpu_torch.bench.tpch_run import LADDER, run_tpch
@@ -651,6 +914,8 @@ def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
 
     check_tpch_parity(torch.device("cuda"))
     rows_sf005 = check_tpch22_parity(torch.device("cuda"))
+    fusion["sf0.05_22"] = check_fusion22(torch.device("cuda"), 0.05,
+                                         tile=1 << 16)
     t0 = time.perf_counter()
     cat = gen_tpch(sf=sf, seed=TPCH_SEED, device="cuda")
     gen_s = time.perf_counter() - t0
@@ -667,7 +932,7 @@ def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
         run_operator(root)
         profiles[q] = device_profile(lambda root=root: run_operator(root))
         syncs[q] = sum(host_syncs(root).values())
-        operator_ms[q] = operator_breakdown(root)
+        operator_ms[q] = top_ms(operator_breakdown(root))
     candidate = time_dense_agg(cat)
     others = tuple(q for q in Q.QUERIES if q not in LADDER)
     rest = run_tpch(others, sf=sf, seed=TPCH_SEED, runs=0, device="cuda",
@@ -675,12 +940,8 @@ def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
     storage_launches = {"scan_filter": cuda_scan.scan_filter.launches,
                         "merge_path": cuda_merge.merge_perm.launches}
     out = {"sf": sf, "lineitem_rows": res["lineitem_rows"], "gen_s": gen_s,
-           **{q: res[q] for q in LADDER},
-           "idle_share": profiles["q3"]["idle_share"],
-           "device_busy_s": profiles["q3"]["device_busy_s"],
-           "top_device_ops": profiles["q3"]["top_device_ops"],
-           "q1_profile": profiles["q1"],
-           "q9_profile": profiles["q9"], "q18_profile": profiles["q18"],
+           **{q: brief(res[q]) for q in LADDER},
+           "profiles": profiles,
            "kernel_candidate": candidate,
            "syncs_per_query": syncs,
            "operator_exclusive_ms": operator_ms,
@@ -688,17 +949,15 @@ def run_tpch_phase(card: str, sf: float = 1.0) -> dict:
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "card_vs_cpu_sf0.01": True,
            "card_vs_cpu_sf0.05_22_rows": rows_sf005, "card": card}
-    log(f"TPC-H SF{sf}: " + ", ".join(
-        f"{q} {res[q]['median_s'] * 1e3:.1f} ms" for q in LADDER)
-        + " (median), equal to the numpy oracle")
-    print(json.dumps({"tpch": out}), flush=True)
-    tpch22 = {q: {"cold_s": rest[q]["cold_s"], "warm_s": rest[q]["warm_s"],
-                  "rows": rest[q]["rows"],
-                  "host_syncs": sum(rest[q]["host_syncs"].values())}
-              for q in others}
-    log(f"TPC-H SF{sf}: the other {len(others)} queries ran cold and warm, "
-        "warm equal to cold")
-    print(json.dumps({"tpch22": tpch22, "card": card}), flush=True)
+    log(f"SF{sf:g} ladder equal to the oracle")
+    emit({"tpch": out})
+    tpch22 = {q: [rest[q]["cold_s"], rest[q]["warm_s"], rest[q]["rows"],
+                  sum(rest[q]["host_syncs"].values())] for q in others}
+    log(f"SF{sf:g} other {len(others)}: warm equal to cold")
+    emit({"tpch22": {"columns": ["cold_s", "warm_s", "rows", "host_syncs"],
+                     **tpch22}, "card": card})
+    fusion[f"sf{sf:g}"] = fusion_compare(cat)
+    log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     return out
 
 
@@ -782,7 +1041,8 @@ def forced_spill(cat, q: str, setting: str, value: int, want) -> dict:
             **io_report(root)}
 
 
-def run_sf10_phase(card: str, sf: float = 10.0, dev="cuda") -> dict:
+def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
+                   dev="cuda") -> dict:
     """TPC-H at SF10, BASELINE config #2's scale: the SF10-scaling parity
     run at sf=0.01, then SF10 generated (seed 19920101) and q3, q9, q18
     timed through run_tpch (every run held to the numpy oracle) and
@@ -798,12 +1058,13 @@ def run_sf10_phase(card: str, sf: float = 10.0, dev="cuda") -> dict:
 
     t_phase = time.perf_counter()
     shapes = check_sf10_scaling_parity(torch.device(dev))
+    fusion["sf10_scaling_sf0.01_22"] = check_fusion22(
+        torch.device(dev), 0.01, scaling=SF10_SCALING)
     t0 = time.perf_counter()
     cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=dev)
     gen_s = time.perf_counter() - t0
     gen_rss = peak_rss_bytes()
-    log(f"TPC-H SF{sf:g} generated in {gen_s:.1f}s, peak RSS "
-        f"{gen_rss / 2**30:.2f} GiB")
+    log(f"SF{sf:g} generated {gen_s:.1f}s")
     ladder = ("q3", "q9", "q18")
     res = run_tpch(ladder, sf=sf, seed=TPCH_SEED, runs=5, device=dev,
                    catalog=cat)
@@ -811,13 +1072,10 @@ def run_sf10_phase(card: str, sf: float = 10.0, dev="cuda") -> dict:
     for q in ladder:
         root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
         profiles[q] = device_profile(lambda root=root: run_operator(root))
+        res[q] = brief(res[q])
         res[q]["idle_share"] = profiles[q]["idle_share"]
         res[q]["device_busy_s"] = profiles[q]["device_busy_s"]
-        res[q]["top_device_ops"] = profiles[q]["top_device_ops"][:5]
-        log(f"SF{sf:g} {q}: median {res[q]['median_s'] * 1e3:.1f} ms, idle "
-            f"share {profiles[q]['idle_share']}, H2D "
-            f"{res[q]['h2d_bytes'] / 1e9:.3f} GB in {res[q]['h2d_s']:.3f} s, "
-            f"syncs {res[q]['host_syncs_total']}, spills {res[q]['spills']}")
+        res[q]["top_device_ops"] = profiles[q]["top_device_ops"]
     ext = run_tpch(("q7", "q21"), sf=sf, seed=TPCH_SEED, runs=0,
                    device=dev, catalog=cat)
     if not any("GraceAggregateOp" in s for s in ext["q21"]["spills"]):
@@ -845,14 +1103,14 @@ def run_sf10_phase(card: str, sf: float = 10.0, dev="cuda") -> dict:
     out = {"sf": sf, "lineitem_rows": res["lineitem_rows"], "gen_s": gen_s,
            "gen_peak_rss_bytes": gen_rss,
            **{q: res[q] for q in ladder},
-           **{q: ext[q] for q in ("q7", "q21")},
+           **{q: brief(ext[q]) for q in ("q7", "q21")},
            "forced": forced, "sf10_scaling_sf0.01_22": shapes,
            "phase_s": time.perf_counter() - t_phase, "card": card}
-    log(f"TPC-H SF{sf:g}: q3, q9, q18 equal to the numpy oracle in every "
-        "run; q7 and q21 warm equal to cold; the forced Grace join and "
-        "external sort equal the default runs "
-        f"({out['phase_s']:.1f}s in all)")
-    print(json.dumps({"tpch_sf10": out}), flush=True)
+    log(f"SF{sf:g}: ladder equal to the oracle, forced spills equal the "
+        f"default runs, {out['phase_s']:.0f}s")
+    emit({"tpch_sf10": out})
+    fusion[f"sf{sf:g}"] = fusion_compare(cat)
+    log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     return out
 
 
@@ -1085,10 +1343,12 @@ def main() -> int:
     # timed and profiled before the YCSB phases: a torch.profiler session
     # after the long profiled run records no device events on the card
     kernels = time_kernels(dev, errs)
-    tpch = run_tpch_phase(card)
+    fusion: dict = {}
+    tpch = run_tpch_phase(card, fusion)
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
-    run_sf10_phase(card)
+    run_sf10_phase(card, fusion)
+    emit({"fusion": fusion, "card": card})
     sf10_launches = {"scan_filter": cuda_scan.scan_filter.launches,
                      "merge_path": cuda_merge.merge_perm.launches}
     launches = run_ycsb(card)
@@ -1101,7 +1361,8 @@ def main() -> int:
         k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
-    print(card)
+    write_line(card)
+    log(f"{_written} bytes written before the kernel table")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

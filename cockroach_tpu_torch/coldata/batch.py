@@ -13,6 +13,7 @@ fits them; dead rows land in a discarded trailing slot.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -176,6 +177,32 @@ def from_host(
         cols.append(Column(data=data, valid=v))
     mask = torch.arange(cap, device=device) < n
     return Batch(cols=tuple(cols), mask=mask)
+
+
+_tables: dict = {}
+# one list per CUDA graph being captured (flow/dispatch): every table a
+# captured function reads is kept alive with its graph
+_held: list[list] = []
+
+
+def device_table(a: np.ndarray, device, view=None) -> torch.Tensor:
+    """A plan-time host array (dictionary hashes or ranks, a string
+    operation's table, join key remaps) on `device`, uploaded once and
+    reused while the array lives: device functions then read it without a
+    host -> device copy per call, which a CUDA graph cannot hold. `view`
+    reinterprets the array's dtype first (uint64 hashes as int64)."""
+    key = (id(a), str(device), view)
+    t = _tables.get(key)
+    if t is None:
+        host = np.ascontiguousarray(a)
+        if view is not None:
+            host = host.view(view)
+        t = _tensor(host, device)
+        _tables[key] = t
+        weakref.finalize(a, _tables.pop, key, None)
+    for h in _held:
+        h.append(t)
+    return t
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

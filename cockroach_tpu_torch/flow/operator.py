@@ -100,6 +100,25 @@ class Operator:
     def _next(self) -> Batch | None:
         raise NotImplementedError
 
+    def stream_parts(self):
+        """Fused-streaming contract: (source, fn, args) when this
+        operator's output is a pure per-tile device function of a source's
+        tiles, so a consumer composes the whole chain into one function
+        replayed per tile (flow/operators.py). None: a pipeline barrier."""
+        return None
+
+    def stream_tiles(self):
+        """The source side of ``stream_parts``: the raw tiles (or tile
+        tokens) that the composed function takes, from the start."""
+        raise NotImplementedError
+
+    def post_run_update(self) -> bool:
+        """End-of-query hook: adaptive operators read their deferred device
+        counters here (one host sync per query, never per tile) and update
+        sticky choices. True means this run's output was invalid (a
+        speculative capacity overflowed) and the query must re-run."""
+        return False
+
     def close(self) -> None:
         """Closer analog."""
 

@@ -6,17 +6,31 @@ SmallGroupAggregateOp (dense codes), ScalarAggregateOp, SortOp, TopKOp,
 DistinctOp and HashJoinOp (unique-build, existence and duplicate-key
 joins, over exact packed or hashed keys).
 
-Each operator runs its tile function as eager torch ops per tile (the
-reference composes streaming chains into one jitted kernel; the port runs
-the unfused tree). Buffering operators size their spools by LIVE row
-count, one counted host sync per spool, so downstream work runs at the
-smallest canonical capacity that fits the data. Past its budget
-(``sql.distsql.workmem_rows`` or the ``workmem_bytes`` account of
-``flow/memory``) a buffering operator swaps in its external variant
-(``flow/external.py``): SortOp the external sort, HashJoinOp the Grace
-hash join, AggregateOp and DistinctOp the Grace aggregation. Paths the
-port has not brought over (partial-mode aggregation, string_agg) raise
-NotImplementedError naming what waits.
+Two execution paths per operator, as in the reference:
+
+- **Fused streaming segments** (the default): every streaming operator
+  exposes ``stream_parts()``, a pure per-tile device function plus its
+  device arguments. Buffering consumers (aggregation, sort, join build)
+  compose the whole streaming chain beneath them (scan slice -> filter ->
+  project -> probe-aligned join probes -> their own per-tile work) into
+  ONE function through ``flow/dispatch.jit``: on the card, one CUDA graph
+  captured once and replayed per tile. Probe-aligned joins emit at a
+  learned, sticky capacity and duplicate-key joins at a speculative one;
+  both check their true totals once per query (``post_run_update``), and
+  the runtime re-runs the query when a capacity overflowed.
+- **Per-operator functions** (``sql.distsql.fusion.enabled`` off, stats
+  collection, or a barrier below): the classic pull loop, one function per
+  operator per tile.
+
+Buffering operators size their spools by LIVE row count, one counted host
+sync per spool, so downstream work runs at the smallest canonical capacity
+that fits the data. Past its budget (``sql.distsql.workmem_rows`` or the
+``workmem_bytes`` account of ``flow/memory``) a buffering operator swaps
+in its external variant (``flow/external.py``): SortOp the external sort,
+HashJoinOp the Grace hash join, AggregateOp and DistinctOp the Grace
+aggregation; those are barriers. Paths the port has not brought over
+(partial-mode aggregation, string_agg) raise NotImplementedError naming
+what waits.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ from ..ops import expr as ex
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
 from ..utils import settings
+from . import dispatch
 from .external import (ChainOp, ExternalSortOp, GraceAggregateOp,
                        GraceHashJoinOp)
 from .memory import Allocator, batch_bytes, note_spill
@@ -72,6 +87,200 @@ def _source_device(op: Operator) -> torch.device:
     while not isinstance(op, ScanOp):
         op = op.children()[0]
     return op.table.device
+
+
+def _identity_fn(b):
+    return b
+
+
+_slice_parts_fns: dict[int, object] = {}
+
+
+def _slice_parts_for(res_tile: int):
+    """The chain head of a resident scan: one per tile size, shared by
+    every resident scan, so consumer compositions stay cached across runs
+    and queries."""
+    fn = _slice_parts_fns.get(res_tile)
+    if fn is None:
+        def fn(token):
+            b, off = token
+            return _slice_tile(res_tile, b, off)
+
+        fn = _slice_parts_fns.setdefault(res_tile, fn)
+    return fn
+
+
+def _slice_tile(tile: int, b: Batch, off: torch.Tensor) -> Batch:
+    """Rows [off, off + tile) of a resident batch, `off` a device scalar:
+    the slice is a gather inside the composed function, so one graph
+    serves every tile of the table."""
+    if tile == b.capacity:
+        return b
+    idx = off + torch.arange(tile, device=off.device)
+    return Batch(
+        cols=tuple(Column(data=c.data.index_select(0, idx),
+                          valid=c.valid.index_select(0, idx))
+                   for c in b.cols),
+        mask=b.mask.index_select(0, idx))
+
+
+class _FusedPull:
+    """Drives a fused streaming chain: one function over (consumer tile fn
+    o chain fn), pulled from the chain's source. Cached on the consumer so
+    the composition is captured once per operator instance."""
+
+    def __init__(self, parts, tile_fn):
+        src, chain_fn, _ = parts
+        self.src = src
+        self.chain = chain_fn
+        self._fn = dispatch.jit(lambda t, *a: tile_fn(chain_fn(t, *a)))
+
+    def pull(self, parts):
+        _, _, args = parts
+        for t in self.src.stream_tiles():
+            yield self._fn(t, *args)
+
+
+def _fusion_enabled() -> bool:
+    # off degrades EVERY fusion path (the plan-build pass of flow/fuse.py
+    # and these consumer-driven compositions) to per-operator pulls: the
+    # unfused oracle that fused runs are held to
+    return settings.get("sql.distsql.fusion.enabled")
+
+
+def _consume(op: OneInputOperator, tile_fn_name: str, tile_fn,
+             fallback_fn=None):
+    """Iterate tile_fn over the child's tiles, fused into one function
+    with the child's streaming chain when possible; fallback_fn (the
+    per-operator version of tile_fn) serves the classic pull path.
+    tile_fn_name keys the cached composition on the consumer instance.
+
+    Stats collection forces the per-operator path so every operator's
+    batch and row counts stay observable. The tiles yielded are rewritten
+    by the next one's call: a spool keeps copies (``_keep``)."""
+    parts = (None if (op._collect or not _fusion_enabled())
+             else op.child.stream_parts())
+    if parts is None:
+        fn = fallback_fn if fallback_fn is not None else tile_fn
+        while True:
+            b = op.child.next_batch()
+            if b is None:
+                return
+            yield fn(b)
+        return
+    attr = f"_fused_{tile_fn_name}"
+    cached = getattr(op, attr, None)
+    if cached is None or cached.chain is not parts[1]:
+        cached = _FusedPull(parts, tile_fn)
+        setattr(op, attr, cached)
+    yield from cached.pull(parts)
+
+
+def _fold(op: OneInputOperator, tag: str, tile_raw, tile_jit, merge_raw,
+          merge_jit):
+    """Reduce tile_raw over the child's tiles, merging into an accumulator
+    with merge_raw. The fused path composes (merge o tile o chain) into
+    ONE step function carrying the accumulator in place, so folding
+    consumers pay one dispatch per tile. Returns the final accumulator
+    (None on empty input)."""
+    parts = (None if (op._collect or not _fusion_enabled())
+             else op.child.stream_parts())
+    if parts is None:
+        acc = None
+        while True:
+            b = op.child.next_batch()
+            if b is None:
+                return acc
+            st = tile_jit(b)
+            acc = dispatch.own(st) if acc is None else merge_jit(acc, st)
+    src, cfn, args = parts
+    attr = f"_fold_{tag}"
+    cached = getattr(op, attr, None)
+    if cached is None or cached[0] is not cfn:
+        nc = len(args)
+        seed = dispatch.jit(lambda t, *a: tile_raw(cfn(t, *a[:nc])))
+        step = dispatch.jit(
+            lambda acc, t, *a: (merge_raw(acc, tile_raw(cfn(t, *a[:nc]))),
+                                None),
+            carry=True)
+        cached = (cfn, seed, step)
+        setattr(op, attr, cached)
+    _, seed, step = cached
+    acc = None
+    for t in src.stream_tiles():
+        acc = seed(t, *args) if acc is None else step(acc, t, *args)[0]
+    return acc
+
+
+_chain_cache: dict = {}
+
+
+def _compose_parts(op, child, raw_fn, key=None):
+    """Chain raw_fn onto the child's fused streaming function (arguments
+    pass through; the composition is cached per operator instance). When
+    the child's chain and this op both carry structural kernel keys, the
+    composed chain is shared process-wide too, so two queries with
+    identical fused prefixes share one function and its graphs."""
+    parts = child.stream_parts()
+    if parts is None:
+        return None
+    src, cfn, cargs = parts
+    ckey = getattr(child, "_parts_key", None)
+    chain_key = (("chain", ckey, key, len(cargs))
+                 if ckey is not None and key is not None else None)
+    chain = getattr(op, "_chain_fn", None)
+    if chain is None or getattr(op, "_chain_base", None) is not cfn:
+        chain = (dispatch.cache_get(_chain_cache, chain_key)
+                 if chain_key is not None else None)
+        if chain is None:
+            nc = len(cargs)
+
+            def chain(t, *a):
+                return raw_fn(cfn(t, *a[:nc]), *a[nc:])
+
+            if chain_key is not None:
+                try:
+                    chain = _chain_cache.setdefault(chain_key, chain)
+                except (ValueError, TypeError):
+                    pass
+        op._chain_fn = chain
+        op._chain_base = cfn
+    op._parts_key = chain_key
+    return src, op._chain_fn, tuple(cargs)
+
+
+def _keep(op: Operator, k: int, b: Batch) -> Batch:
+    """Spooled tile k of `op`, copied out of the function that made it into
+    buffers that keep their address from run to run (on the card), so the
+    graphs of the spool's own functions read the spool by reference."""
+    slots = op.__dict__.setdefault("_spool_slots", [])
+    while len(slots) <= k:
+        slots.append([])
+    return dispatch.persist(slots[k], b)
+
+
+def _consume_op(op: Operator, tag: str):
+    """Pull every tile from `op`, fused with its streaming chain when
+    possible (build-side spools ride one function, not one per operator).
+    Each tile is rewritten by the next one's call."""
+    parts = (None if (op._collect or not _fusion_enabled())
+             else op.stream_parts())
+    if parts is None:
+        while True:
+            b = op.next_batch()
+            if b is None:
+                return
+            yield b
+        return
+    src, cfn, args = parts
+    attr = f"_fused_src_{tag}"
+    cached = getattr(op, attr, None)
+    if cached is None or cached[0] is not cfn:
+        cached = (cfn, dispatch.jit(cfn))
+        setattr(op, attr, cached)
+    fn = cached[1]
+    for t in src.stream_tiles():
+        yield fn(t, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +337,19 @@ class ScanOp(SourceOperator):
 
     def _init_resident(self):
         self._batch = self.table.device_batch(self.output_schema.names)
+        # the table stays at its address: graphs read it by reference
+        dispatch.mark_static(self._batch)
         cap = self._batch.capacity
         tile = self.tile
         if tile is None or tile <= 0 or cap % tile != 0:
             tile = cap  # small tables: one tile
         self._res_tile = min(tile, cap)
+        dev = self._batch.device
+        if getattr(self, "_offs_for", None) != (cap, self._res_tile, dev):
+            # every tile's offset as a device scalar (the fused slice's
+            # argument), made once
+            self._offs = torch.arange(0, cap, self._res_tile, device=dev)
+            self._offs_for = (cap, self._res_tile, dev)
 
     def _init_streaming(self):
         t = self.table
@@ -165,6 +382,36 @@ class ScanOp(SourceOperator):
         self._offset = nxt
         return st.get(cur)
 
+    def stream_parts(self):
+        if not self._initialized:
+            self.init()
+        if self.streaming:
+            self._parts_key = ("scan_stream",)
+            return self, _identity_fn, ()
+        self._parts_key = ("scan_slice", self._res_tile)
+        return self, _slice_parts_for(self._res_tile), ()
+
+    def stream_tiles(self):
+        """Raw tiles for the fused path, from the start of the table:
+        uploaded batches when streaming, else (resident batch, offset)
+        tokens. The scan position advances as tiles go out, so a consumer
+        that stops part way and falls back to next_batch() (SortOp's spill
+        handoff) resumes after the tiles already delivered."""
+        self._offset = 0
+        if self.streaming:
+            self._prefetched = None
+            while True:
+                t = self._next_streaming()
+                if t is None:
+                    return
+                yield t
+            return
+        cap = self._batch.capacity
+        while self._offset < cap:
+            k = self._offset // self._res_tile
+            self._offset += self._res_tile
+            yield (self._batch, self._offs[k])
+
     def _next(self):
         if self.streaming:
             return self._next_streaming()
@@ -192,14 +439,22 @@ class FilterOp(OneInputOperator):
     def __init__(self, child: Operator, predicate: ex.Expr):
         super().__init__(child)
         self.output_schema = child.output_schema
+        schema = child.output_schema
         self.predicate = predicate
+
+        def raw(b: Batch) -> Batch:
+            return b.with_mask(ex.filter_mask(b, schema, predicate))
+
+        self._key = dispatch.kernel_key("filter", schema, predicate)
+        self._raw = raw
+        self._fn = dispatch.jit(raw, key=self._key)
+
+    def stream_parts(self):
+        return _compose_parts(self, self.child, self._raw, key=self._key)
 
     def _next(self):
         b = self.child.next_batch()
-        if b is None:
-            return None
-        return b.with_mask(
-            ex.filter_mask(b, self.output_schema, self.predicate))
+        return None if b is None else self._fn(b)
 
 
 class ProjectOp(OneInputOperator):
@@ -226,16 +481,23 @@ class ProjectOp(OneInputOperator):
             if b is not None:
                 self.col_stats[i] = b
 
+        def raw(b: Batch) -> Batch:
+            cols = []
+            for e in exprs:
+                d, v = ex.eval_expr(e, b.cols, schema)
+                cols.append(Column(data=d, valid=v))
+            return Batch(cols=tuple(cols), mask=b.mask)
+
+        self._key = dispatch.kernel_key("project", schema, exprs)
+        self._raw = raw
+        self._fn = dispatch.jit(raw, key=self._key)
+
+    def stream_parts(self):
+        return _compose_parts(self, self.child, self._raw, key=self._key)
+
     def _next(self):
         b = self.child.next_batch()
-        if b is None:
-            return None
-        schema = self.child.output_schema
-        cols = []
-        for e in self.exprs:
-            d, v = ex.eval_expr(e, b.cols, schema)
-            cols.append(Column(data=d, valid=v))
-        return Batch(cols=tuple(cols), mask=b.mask)
+        return None if b is None else self._fn(b)
 
 
 class LimitOp(OneInputOperator):
@@ -245,9 +507,17 @@ class LimitOp(OneInputOperator):
         self.limit = limit
         self.offset = offset
 
+        def fn(b: Batch, seen):
+            pos = seen + torch.cumsum(b.mask.to(torch.int64), 0) - 1
+            keep = (b.mask & (pos >= offset) & (pos < offset + limit))
+            return b.with_mask(keep), seen + b.mask.sum(dtype=torch.int64)
+
+        self._fn = dispatch.jit(
+            fn, key=dispatch.kernel_key("limit", offset, limit))
+
     def init(self):
         super().init()
-        self._seen = 0
+        self._seen = None
         self._done = False
 
     def _next(self):
@@ -256,13 +526,12 @@ class LimitOp(OneInputOperator):
         b = self.child.next_batch()
         if b is None:
             return None
-        pos = self._seen + torch.cumsum(b.mask.to(torch.int64), 0) - 1
-        keep = (b.mask & (pos >= self.offset)
-                & (pos < self.offset + self.limit))
-        self._seen += self.sync_int(b.mask.sum())
-        if self._seen >= self.offset + self.limit:
+        if self._seen is None:
+            self._seen = torch.zeros((), dtype=torch.int64, device=b.device)
+        out, self._seen = self._fn(b, self._seen)
+        if self.sync_int(self._seen) >= self.offset + self.limit:
             self._done = True
-        return b.with_mask(keep)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +603,9 @@ class AggregateOp(OneInputOperator):
                 self.in_stats.setdefault(
                     gi, (0, max(0, len(child.dictionaries[gi]) - 1)))
         self._spool_alloc = None
+        self._partial_fn = dispatch.jit(self._partial)
+        self._merge_fn = dispatch.jit(self.merge)
+        self._finalize_fn = dispatch.jit(self.finalize)
 
     def init(self):
         super().init()
@@ -376,7 +648,7 @@ class AggregateOp(OneInputOperator):
     def _merge_down(self, tiles: list[Batch]) -> Batch:
         cap = _spool_cap(self, tiles)
         while True:
-            merged, ng = self.merge(tiles, cap)
+            merged, ng = self._merge_fn(tuple(tiles), cap)
             n = self.sync_int(ng)
             if n <= cap:
                 return merged
@@ -389,16 +661,10 @@ class AggregateOp(OneInputOperator):
         budget = settings.get("sql.distsql.workmem_rows")
         alloc = self._spool_alloc = Allocator("aggregation spool")
 
-        def partials():
-            while True:
-                b = self.child.next_batch()
-                if b is None:
-                    return
-                yield self._partial(b)
-
-        source = partials()
+        source = _consume(self, "partial", self._partial, self._partial_fn)
         spooled = 0
         for part in source:
+            part = _keep(self, len(self._tiles), part)
             self._tiles.append(part)
             spooled += part.capacity
             nb = batch_bytes(part)
@@ -407,7 +673,7 @@ class AggregateOp(OneInputOperator):
             # account it truthfully (forcing past the refusal)
             alloc.reserve(nb, force=over)
             if spooled > budget or over:
-                self._tiles = [self._merge_down(self._tiles)]
+                self._tiles = [dispatch.own(self._merge_down(self._tiles))]
                 spooled = self._tiles[0].capacity
                 alloc.release()
                 mb = batch_bytes(self._tiles[0])
@@ -444,7 +710,7 @@ class AggregateOp(OneInputOperator):
             return None
         acc = tiles[0] if len(tiles) == 1 else self._merge_down(tiles)
         self._close_spool()  # the spool tiles are dead
-        return self.finalize(acc)
+        return self._finalize_fn(acc)
 
     def close(self):
         super().close()
@@ -496,6 +762,9 @@ class SmallGroupAggregateOp(OneInputOperator):
         }
         for pos, (size, lo) in enumerate(zip(self.key_sizes, self.key_lows)):
             self.col_stats.setdefault(pos, (lo, lo + size - 1))
+        self._tile_fn = dispatch.jit(self.tile_states)
+        self._merge_fn = dispatch.jit(self.merge_states)
+        self._finalize_fn = dispatch.jit(self.finalize)
 
     def init(self):
         super().init()
@@ -509,22 +778,22 @@ class SmallGroupAggregateOp(OneInputOperator):
             b, self.base_schema, code, self.G, self.partial_specs)
         return states, rows, (oob & b.mask).sum(dtype=torch.int64)
 
+    def merge_states(self, acc, new):
+        return (agg_ops.merge_dense_states(self.partial_specs, acc[0], new[0]),
+                acc[1] + new[1], acc[2] + new[2])
+
+    def finalize(self, acc) -> Batch:
+        states, rows, _ = acc
+        return agg_ops.dense_finalize(
+            self.base_schema, self.group_cols, self.strides, self.key_sizes,
+            self.G, self.final_map, states, rows, key_lows=self.key_lows)
+
     def _next(self):
         if self._emitted:
             return None
         self._emitted = True
-        acc = None
-        while True:
-            b = self.child.next_batch()
-            if b is None:
-                break
-            st = self.tile_states(b)
-            if acc is None:
-                acc = st
-            else:
-                acc = (agg_ops.merge_dense_states(self.partial_specs,
-                                                  acc[0], st[0]),
-                       acc[1] + st[1], acc[2] + st[2])
+        acc = _fold(self, "dense", self.tile_states, self._tile_fn,
+                    self.merge_states, self._merge_fn)
         if acc is None:
             return None
         if self.sync_int(acc[2]) > 0:
@@ -533,10 +802,7 @@ class SmallGroupAggregateOp(OneInputOperator):
             fb = AggregateOp(self.child, self.group_cols, self.aggs)
             fb.init()
             return fb._next()
-        states, rows, _ = acc
-        return agg_ops.dense_finalize(
-            self.base_schema, self.group_cols, self.strides, self.key_sizes,
-            self.G, self.final_map, states, rows, key_lows=self.key_lows)
+        return self._finalize_fn(acc)
 
 
 class ScalarAggregateOp(OneInputOperator):
@@ -557,6 +823,11 @@ class ScalarAggregateOp(OneInputOperator):
         self.output_schema = Schema(tuple(names), tuple(types))
         self.dictionaries = {}
         self.col_stats = {}
+        self._tile_raw = lambda b: agg_ops.scalar_tile_states(b, aggs, base)
+        self._tile_fn = dispatch.jit(self._tile_raw)
+        self._merge_raw = (
+            lambda acc, new: agg_ops.scalar_merge_states(aggs, acc, new))
+        self._merge_fn = dispatch.jit(self._merge_raw)
 
     def init(self):
         super().init()
@@ -566,14 +837,8 @@ class ScalarAggregateOp(OneInputOperator):
         if self._emitted:
             return None
         self._emitted = True
-        acc = None
-        while True:
-            b = self.child.next_batch()
-            if b is None:
-                break
-            st = agg_ops.scalar_tile_states(b, self.aggs, self.base_schema)
-            acc = st if acc is None else agg_ops.scalar_merge_states(
-                self.aggs, acc, st)
+        acc = _fold(self, "scalar", self._tile_raw, self._tile_fn,
+                    self._merge_raw, self._merge_fn)
         return agg_ops.scalar_result_batch(
             self.aggs, self.base_schema, self.output_schema, acc,
             device=_source_device(self.child))
@@ -598,6 +863,12 @@ class SortOp(OneInputOperator):
             k.col: child.dictionaries[k.col].ranks
             for k in keys if k.col in child.dictionaries
         }
+        self._fn = dispatch.jit(self._sort)
+
+    def _sort(self, tiles, cap: int) -> Batch:
+        big = concat(list(tiles), capacity=cap)
+        return sort_ops.sort_batch(big, self.output_schema, self.keys,
+                                   self.rank_tables, self.child.col_stats)
 
     def init(self):
         super().init()
@@ -613,10 +884,8 @@ class SortOp(OneInputOperator):
         alloc = Allocator("sort spool")
         tiles = []
         total = 0
-        while True:
-            b = self.child.next_batch()
-            if b is None:
-                break
+        for b in _consume(self, "spool", _identity_fn):
+            b = _keep(self, len(tiles), b)
             nb = batch_bytes(b)
             tiles.append(b)
             total += b.capacity
@@ -638,9 +907,7 @@ class SortOp(OneInputOperator):
         alloc.close()  # the one-shot device sort consumes the spool
         if not tiles:
             return None
-        big = concat(tiles, capacity=_spool_cap(self, tiles))
-        return sort_ops.sort_batch(big, self.output_schema, self.keys,
-                                   self.rank_tables, self.child.col_stats)
+        return self._fn(tuple(tiles), _spool_cap(self, tiles))
 
 
 class TopKOp(OneInputOperator):
@@ -663,6 +930,8 @@ class TopKOp(OneInputOperator):
             for key in keys if key.col in child.dictionaries
         }
         self.acc_cap = _canonical_cap(self.k)
+        self._tile_fn = dispatch.jit(self._select)
+        self._merge_fn = dispatch.jit(self._merge)
 
     def init(self):
         super().init()
@@ -673,18 +942,17 @@ class TopKOp(OneInputOperator):
                                    self.acc_cap, self.rank_tables,
                                    self.child.col_stats)
 
+    def _merge(self, acc: Batch, new: Batch) -> Batch:
+        # concat compacts acc's live rows BEFORE new's, so the stable
+        # re-selection keeps earlier tiles' rows first among equal keys
+        return self._select(concat([acc, new], capacity=2 * self.acc_cap))
+
     def _next(self):
         if self._emitted:
             return None
         self._emitted = True
-        acc = None
-        while True:
-            b = self.child.next_batch()
-            if b is None:
-                return acc
-            sel = self._select(b)
-            acc = sel if acc is None else self._select(
-                concat([acc, sel], capacity=2 * self.acc_cap))
+        return _fold(self, "topk", self._select, self._tile_fn, self._merge,
+                     self._merge_fn)
 
 
 class DistinctOp(OneInputOperator):
@@ -739,12 +1007,24 @@ class HashJoinOp(OneInputOperator):
 
     Inner and left joins over duplicate build keys (``general``) index
     the build side sorted and emit every match through
-    ``hash_join_general``, whose output tile is the canonical capacity
-    of the tile's total (which may exceed the probe tile).
+    ``hash_join_general``.
 
-    Each probe-aligned tile's output compacts to the canonical capacity
-    of its live rows (one counted host sync per tile; the reference
-    learns a sticky capacity instead, to stay sync-free under jit)."""
+    Emission, as in the reference (sticky across runs of one tree):
+
+    - ``learn`` (probe-aligned joins, first run): the probe output keeps
+      the probe tile's capacity, and its largest live count is carried on
+      the device, read once at query end (``post_run_update``);
+    - ``compact``: each probe tile's output compacts to the learned
+      capacity; an overflow (rows lost) is caught at query end and the
+      runtime re-runs the query with a corrected capacity;
+    - ``transparent``: the probe composes into the consumer's function;
+    - ``general`` (duplicate-key inner/left): the probe emits at a
+      speculative static capacity and carries the largest true total, so
+      overflow is caught at query end with no host sync per tile.
+
+    Probes over hashed keys (no exact packed key, no analytic build) read
+    their longest run of equal hashes on the host, so they cannot be
+    captured: they run per operator as barriers, counted eagerly."""
 
     def __init__(
         self,
@@ -796,7 +1076,36 @@ class HashJoinOp(OneInputOperator):
         # unique-build and existence probes emit probe-aligned tiles
         self.probe_aligned = (spec.build_unique
                               or spec.join_type in ("semi", "anti"))
+        self._fusable = self.probe_aligned
+        self._gen_fusable = (
+            not self._fusable and spec.join_type in ("inner", "left")
+            and settings.get("sql.distsql.fusion.general_probe"))
+        self._emit_mode = (
+            "learn" if (self._fusable
+                        and settings.get("sql.distsql.join_compact_emit"))
+            else ("general" if self._gen_fusable else "transparent"))
+        self._emit_cap = None
+        self._emit_tilecap = 0
+        self._emit_tiles = 0  # tiles emitted this run
+        self._emit_max = None  # their largest count, on the device
+        self._out_cap = 0  # the per-operator general path's capacity
         self.strategy = None
+        self._grace = None
+        self._probe_raw = None
+
+        pschema, bschema = probe.output_schema, build.output_schema
+
+        def probe_gen_raw(p, build_b, index, out_cap):
+            return join_ops.hash_join_general(
+                p, pschema, probe_keys, build_b, bschema, build_keys, spec,
+                out_cap, self.probe_hash_tables or None,
+                self.build_hash_tables or None,
+                self.build_code_remaps or None, index=index,
+                exact_layout=self.exact_layout, sync=self.sync_int)
+
+        self._probe_gen_raw = probe_gen_raw
+        self._probe_gen_fn = None
+        self._probe_gen_capt = None
 
     def _plan_analytic(self):
         """Dense analytic build detection: the build side is a position-
@@ -845,49 +1154,162 @@ class HashJoinOp(OneInputOperator):
         self._grace = None
         self._close_build()  # a re-run: the prior build is dead
         self._analytic = self._plan_analytic()
+        # every probe kernel is free of host reads unless keys are hashed
+        self._capturable = (self.exact_layout is not None
+                            or self._analytic is not None)
+        if (self._probe_gen_fn is None
+                or self._probe_gen_capt is not self._capturable):
+            self._probe_gen_fn = (
+                dispatch.jit(self._probe_gen_raw) if self._capturable
+                else dispatch.counted(self._probe_gen_raw))
+            self._probe_gen_capt = self._capturable
+        self._emit_tiles = 0
+        self._emit_max = None
 
     def _close_build(self) -> None:
         if getattr(self, "_build_alloc", None) is not None:
             self._build_alloc.close()
         self._build_alloc = None
 
-    def _sorted_index(self, batch: Batch):
-        return join_ops.build_index(
-            batch, self.build.output_schema, self.build_keys,
+    def _set_probe(self, kind: str):
+        """Install the probe function of the build strategy. All share the
+        (probe, build batch, index) calling convention, so fusion and the
+        pull path stay uniform. Cached per kind: a fresh closure per run
+        would invalidate every composition keyed on its identity."""
+        self.strategy = kind
+        if getattr(self, "_probe_kind", None) == kind and (
+                kind != "analytic" or self._probe_analytic == self._analytic):
+            return
+        self._probe_kind = kind
+        self._probe_analytic = self._analytic if kind == "analytic" else None
+        pschema = self.child.output_schema
+        bschema = self.build.output_schema
+        pkeys, bkeys = self.probe_keys, self.build_keys
+        pht = self.probe_hash_tables or None
+        bht = self.build_hash_tables or None
+        remaps = self.build_code_remaps or None
+        layout = self.exact_layout
+        spec = self.spec
+        sync = self.sync_int
+
+        if kind == "analytic":
+            info = self._analytic
+
+            def probe_raw(p, build, index):
+                fi, fo = join_ops.dense_analytic_probe(
+                    p, pkeys, build, bkeys, info, remaps)
+                return join_ops.emit_unique(p, build, spec, fi, fo)
+        elif kind == "lut":
+
+            def probe_raw(p, build, index):
+                fi, fo = join_ops.dense_lut_probe(p, pkeys, layout, index)
+                return join_ops.emit_unique(p, build, spec, fi, fo)
+        elif spec.build_unique:
+
+            def probe_raw(p, build, index):
+                return join_ops.hash_join_unique(
+                    p, pschema, pkeys, build, bschema, bkeys, spec,
+                    pht, bht, remaps, index=index, exact_layout=layout,
+                    sync=sync)
+        else:  # sorted-index existence probe over duplicate build keys
+
+            def probe_raw(p, build, index):
+                out, _ = join_ops.hash_join_general(
+                    p, pschema, pkeys, build, bschema, bkeys, spec,
+                    out_capacity=1, probe_hash_tables=pht,
+                    build_hash_tables=bht, build_code_remaps=remaps,
+                    index=index, exact_layout=layout, sync=sync)
+                return out
+
+        self._probe_raw = probe_raw
+        self._probe_fn = (dispatch.jit(probe_raw) if self._capturable
+                          else dispatch.counted(probe_raw))
+
+    def _plan_analytic(self):
+        """Dense analytic build detection: the build side is a position-
+        preserving chain (Scan + Filter/Project only) over a table whose
+        first build-key column is an affine function of the row index."""
+        if not self.probe_aligned:
+            return None
+        key = self.build_keys[0]
+        op = self.build
+        while not isinstance(op, ScanOp):
+            if isinstance(op, ProjectOp):
+                e = op.exprs[key]
+                if not isinstance(e, ex.ColRef):
+                    return None
+                key = e.idx
+                op = op.child
+            elif isinstance(op, FilterOp):
+                op = op.child
+            else:
+                return None
+        table = op.table
+        name = table.schema.names[op.col_idxs[key]]
+        got = table.dense_key_info().get(name)
+        if got is None:
+            return None
+        lo, fanout = got
+        if (self.spec.build_unique and fanout > 1
+                and len(self.build_keys) < 2):
+            return None  # fanout rows share the first key: not unique by it
+        # the analytic build pins the whole table: honor the byte budget
+        row_bytes = sum(
+            ((t.width or 8) if t.family is Family.BYTES
+             else t.dtype.itemsize) + 1
+            for t in self.build.output_schema.types
+        ) + 1
+        if table.num_rows * row_bytes > settings.get(
+                "sql.distsql.workmem_bytes"):
+            return None
+        return join_ops.DenseAnalytic(
+            key_lo=lo, fanout=fanout, build_rows=table.num_rows)
+
+    def _build_sorted(self, tiles, cap: int):
+        big = concat(list(tiles), capacity=cap)
+        return big, join_ops.build_index(
+            big, self.build.output_schema, self.build_keys,
             self.build_hash_tables or None, exact_layout=self.exact_layout,
             exact_remaps=self.build_code_remaps or None)
+
+    def _build_lut(self, tiles, cap: int):
+        big = concat(list(tiles), capacity=cap)
+        return big, join_ops.build_dense_lut(
+            big, self.build_keys, self.exact_layout,
+            self.build_code_remaps or None)
 
     def _ensure_built(self):
         if self._built:
             return
         self._built = True
+        if not hasattr(self, "_build_fn"):
+            self._build_fn = dispatch.jit(self._build_sorted)
+            self._lut_fn = dispatch.jit(self._build_lut)
+            self._store: list = []
         tiles = []
         if self._analytic is not None:
-            while True:
-                b = self.build.next_batch()
-                if b is None:
-                    break
-                tiles.append(b)
-            # position-preserving concat (NO compaction): row i of the
-            # build batch is row i of the table, so key arithmetic
-            # addresses it; no live-count sync, no workmem spill
-            self.strategy = "analytic"
+            tiles = [_keep(self, k, b) for k, b in
+                     enumerate(_consume_op(self.build, "build_spool"))]
             if tiles:
-                self._build_batch = Batch(
+                # position-preserving concat (NO compaction): row i of the
+                # build batch is row i of the table, so key arithmetic
+                # addresses it; no live-count sync, no workmem spill
+                big = tiles[0] if len(tiles) == 1 else Batch(
                     cols=tuple(
-                        Column(data=torch.cat([t.cols[i].data for t in tiles]),
+                        Column(data=torch.cat([t.cols[i].data
+                                               for t in tiles]),
                                valid=torch.cat([t.cols[i].valid
                                                 for t in tiles]))
                         for i in range(len(tiles[0].cols))),
                     mask=torch.cat([t.mask for t in tiles]))
-                self._index = None
+                self._build_batch = dispatch.persist(self._store, big)
+                self._index = ()
+                self._set_probe("analytic")
                 return
         else:
             alloc = self._build_alloc = Allocator("hash join build")
-            while True:
-                b = self.build.next_batch()
-                if b is None:
-                    break
+            for b in _consume_op(self.build, "build_spool"):
+                b = _keep(self, len(tiles), b)
                 nb = batch_bytes(b)
                 over = alloc.would_exceed(nb)
                 # account the tile even past the budget: it is resident
@@ -909,54 +1331,199 @@ class HashJoinOp(OneInputOperator):
                     return
                 tiles.append(b)
         layout = self.exact_layout
-        sorted_kind = "sorted" if self.probe_aligned else "general"
+        kind = "sorted" if self.probe_aligned else "general"
         if not tiles:
-            self._build_batch = empty_batch(self.build.output_schema, 1024,
-                                            _source_device(self.build))
-            self._index = self._sorted_index(self._build_batch)
-            self.strategy = sorted_kind
-            return
-        big = concat(tiles, capacity=_spool_cap(self, tiles))
-        self._build_batch = big
-        if (self.probe_aligned and layout is not None
-                and layout.total_bits
-                <= settings.get("sql.distsql.dense_lut_bits")):
-            self.strategy = "lut"
-            self._index = join_ops.build_dense_lut(
-                big, self.build_keys, layout, self.build_code_remaps or None)
+            empty = empty_batch(self.build.output_schema, 1024,
+                                _source_device(self.build))
+            self._build_batch, self._index = dispatch.persist(
+                self._store, (empty, self._build_sorted((empty,), 1024)[1]))
         else:
-            self.strategy = sorted_kind
-            self._index = self._sorted_index(big)
-
-    def _probe(self, p: Batch) -> Batch:
-        build = self._build_batch
-        if self.strategy == "analytic":
-            fi, fo = join_ops.dense_analytic_probe(
-                p, self.probe_keys, build, self.build_keys, self._analytic,
-                self.build_code_remaps or None)
-            return join_ops.emit_unique(p, build, self.spec, fi, fo)
-        if self.strategy == "lut":
-            fi, fo = join_ops.dense_lut_probe(
-                p, self.probe_keys, self.exact_layout, self._index)
-            return join_ops.emit_unique(p, build, self.spec, fi, fo)
-        args = (p, self.child.output_schema, self.probe_keys, build,
-                self.build.output_schema, self.build_keys, self.spec)
-        kw = dict(probe_hash_tables=self.probe_hash_tables or None,
-                  build_hash_tables=self.build_hash_tables or None,
-                  build_code_remaps=self.build_code_remaps or None,
-                  index=self._index, exact_layout=self.exact_layout,
-                  sync=self.sync_int)
-        if self.spec.build_unique:
-            return join_ops.hash_join_unique(*args, **kw)
-        # existence probe over duplicate build keys (probe-aligned), or
-        # the general emit, already compacted at the canonical capacity of
-        # its total
-        out, _ = join_ops.hash_join_general(
-            *args, out_capacity=lambda n: _canonical_cap(max(1, n)), **kw)
-        return out
+            if (self.probe_aligned and layout is not None
+                    and layout.total_bits
+                    <= settings.get("sql.distsql.dense_lut_bits")):
+                kind = "lut"
+                built = self._lut_fn(tuple(tiles), _spool_cap(self, tiles))
+            else:
+                built = self._build_fn(tuple(tiles), _spool_cap(self, tiles))
+            # a graph's outputs keep their address across runs: the probe
+            # graphs read the build by reference
+            self._build_batch, self._index = built
+        if self.probe_aligned:
+            self._set_probe(kind)
+        else:
+            self.strategy = kind
 
     def children(self):
         return [self.child, self.build]
+
+    def fused_depth(self) -> int:
+        """Join probes sharing ONE composed function below (and including)
+        this join. The count stops where composition splits: at a fusion
+        pass segment boundary (a barrier source) and at joins that emit as
+        sources (learn/compact/general), which drive their own function."""
+        d = 1
+        op = self.child
+        while op is not None:
+            if getattr(op, "_chain_split", False):
+                break
+            if isinstance(op, HashJoinOp):
+                if op._emit_mode != "transparent":
+                    break
+                d += 1
+            op = getattr(op, "child", None)
+        return d
+
+    def stream_parts(self):
+        if not (self._fusable or self._gen_fusable):
+            return None
+        if self._grace is not None:
+            return None  # spilled: the Grace join drives the probe itself
+        if not self._initialized:
+            self.init()
+        if not self._capturable:
+            return None  # hashed keys read the host per probe: a barrier
+        if self._emit_mode != "transparent":
+            # learn/compact/general: this join is a tile SOURCE. It drives
+            # the child chain through its own (chain o probe [o compact])
+            # function and hands consumers its output tiles
+            return self, _identity_fn, ()
+        if self.fused_depth() > settings.get("sql.distsql.max_fused_joins"):
+            # very deep probe pipelines split at this join, so one fused
+            # function never grows without bound
+            return None
+        parts = self.child.stream_parts()
+        if parts is None:
+            return None
+        self._ensure_built()
+        if self._grace is not None:
+            return None  # the build spilled while spooling
+        src, cfn, cargs = parts
+        chain = getattr(self, "_chain_fn", None)
+        if (chain is None or getattr(self, "_chain_base", None) is not cfn
+                or getattr(self, "_chain_raw", None) is not self._probe_raw):
+            nc = len(cargs)
+            raw = self._probe_raw
+
+            def chain(t, *a):
+                return raw(cfn(t, *a[:nc]), a[nc], a[nc + 1])
+
+            self._chain_fn = chain
+            self._chain_base = cfn
+            self._chain_raw = raw
+        return src, self._chain_fn, cargs + (self._build_batch, self._index)
+
+    def _emit_kernel(self, cfn, nc):
+        """The (chain o probe o count [o compact]) function of source-mode
+        emission, cached on (chain fn, probe fn, emission cap). It carries
+        the largest count seen (the true total for the general emit) as a
+        device scalar, so overflow is found at query end."""
+        cap = self._emit_cap
+        if self._emit_mode == "general":
+            graw = self._probe_gen_raw
+            key = (cfn, graw, cap)
+            if getattr(self, "_emit_kern_key", None) == key:
+                return self._emit_kern
+
+            def kern(mx, t, *a):
+                p = cfn(t, *a[:nc]) if cfn is not None else t
+                out, total = graw(p, a[nc], a[nc + 1], cap)
+                return torch.maximum(mx, total), out
+        else:
+            raw = self._probe_raw
+            key = (cfn, raw, cap)
+            if getattr(self, "_emit_kern_key", None) == key:
+                return self._emit_kern
+
+            def kern(mx, t, *a):
+                out = raw(cfn(t, *a[:nc]) if cfn is not None else t,
+                          a[nc], a[nc + 1])
+                cnt = out.mask.sum(dtype=torch.int64)
+                if cap is not None:
+                    out = compact(out, cap)
+                return torch.maximum(mx, cnt), out
+
+        self._emit_kern = (dispatch.jit(kern, carry=True) if self._capturable
+                           else dispatch.counted(kern))
+        self._emit_kern_key = key
+        return self._emit_kern
+
+    def _emit(self, kern, t, args):
+        """One source-mode tile: run the emit function, carry the max."""
+        mx = self._emit_max
+        if mx is None:
+            mx = torch.zeros((), dtype=torch.int64,
+                             device=self._build_batch.device)
+        self._emit_max, out = kern(mx, t, *args)
+        self._emit_tiles += 1
+        if self._emit_cap is None:
+            self._emit_tilecap = max(self._emit_tilecap, out.capacity)
+        return out
+
+    def stream_tiles(self):
+        """Source-mode drive loop (learn/compact/general emission)."""
+        self._ensure_built()
+        if self._grace is not None:
+            # build spilled mid-spool: serve grace output as plain tiles
+            while True:
+                b = self._grace._next()
+                if b is None:
+                    return
+                yield b
+            return
+        parts = self.child.stream_parts()
+        if parts is not None:
+            src, cfn, cargs = parts
+            args = cargs + (self._build_batch, self._index)
+            if self._emit_mode == "general" and self._emit_cap is None:
+                # initial speculation: fanout <= 1 per probe row at full
+                # scan tiles; post_run_update corrects either way
+                self._emit_cap = max(4096, _canonical_cap(
+                    settings.get("sql.distsql.tile_size")))
+            kern = self._emit_kernel(cfn, len(cargs))
+            for t in src.stream_tiles():
+                yield self._emit(kern, t, args)
+            return
+        kern = None
+        while True:
+            b = self.child.next_batch()
+            if b is None:
+                return
+            if kern is None:
+                if self._emit_mode == "general" and self._emit_cap is None:
+                    self._emit_cap = max(4096, _canonical_cap(b.capacity))
+                kern = self._emit_kernel(None, 0)
+            yield self._emit(kern, b, (self._build_batch, self._index))
+
+    def post_run_update(self) -> bool:
+        if not self._emit_tiles:
+            return False
+        # one host sync per query for the whole run's emission
+        mx = self.sync_int(self._emit_max)
+        self._emit_tiles = 0
+        self._emit_max = None
+        if self._emit_mode == "general":
+            # a total past the emission capacity means that tile's rows
+            # were truncated: grow (with headroom) and re-run the query
+            if mx > self._emit_cap:
+                self._emit_cap = _canonical_cap(2 * mx)
+                return True
+            if mx * 8 <= self._emit_cap and self._emit_cap > 4096:
+                # learned fanout far below speculation: shrink (keeping 2x
+                # headroom) so steady tiles stop carrying dead rows
+                self._emit_cap = max(4096, _canonical_cap(2 * mx))
+            return False
+        overflow = (self._emit_mode == "compact"
+                    and self._emit_cap is not None and mx > self._emit_cap)
+        tile = self._emit_tilecap
+        cap = max(1024, _canonical_cap(2 * mx))
+        if tile and mx * 4 <= tile and cap < tile:
+            # compacting pays only when the learned cap SHRINKS the tile
+            self._emit_cap = cap
+            self._emit_mode = "compact"
+        else:
+            self._emit_mode = "transparent"
+            self._emit_cap = None
+        return overflow
 
     def _next(self):
         self._ensure_built()
@@ -965,13 +1532,22 @@ class HashJoinOp(OneInputOperator):
         p = self.child.next_batch()
         if p is None:
             return None
-        out = self._probe(p)
-        if self.strategy == "general":
-            return out
-        cap = _canonical_cap(max(1, self.sync_int(out.mask.sum())))
-        if cap < out.capacity:
-            out = compact(out, cap)
-        return out
+        if self.probe_aligned:
+            if self._emit_mode != "transparent":
+                return self._emit(self._emit_kernel(None, 0), p,
+                                  (self._build_batch, self._index))
+            return self._probe_fn(p, self._build_batch, self._index)
+        if self._out_cap <= 0:
+            # initial capacity: fanout <= 1 per probe row, grown on
+            # overflow (each growth is a new signature, so it errs large)
+            self._out_cap = max(4096, _canonical_cap(p.capacity))
+        while True:
+            out, total = self._probe_gen_fn(p, self._build_batch, self._index,
+                                            self._out_cap)
+            n = self.sync_int(total)
+            if n <= self._out_cap:
+                return out
+            self._out_cap = _canonical_cap(n)
 
     def close(self):
         super().close()

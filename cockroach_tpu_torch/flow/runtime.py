@@ -3,36 +3,164 @@ of ``cockroach_tpu.flow.runtime``'s ``run_operator`` and ``run_plan``.
 
 ``run_operator`` pulls every tile from the root operator, inside one
 query memory monitor (``flow/memory.query_scope``), and materializes
-live rows to host numpy columns (decoding string dictionaries). It has no
-retry loop (the reference's serves speculative capacities, which the
-port does not use) and no readback overlap.
+live rows to host numpy columns (decoding string dictionaries).
+
+- **Speculative capacities.** Operators run with sticky learned shapes
+  and check their deferred device counters after the pull
+  (``_post_run_updates``: one host sync per operator per query, never per
+  tile). An overflow re-runs the query with corrected capacities, up to
+  four attempts; past that the run raises.
+- **Readback overlap** (``sql.distsql.readback_overlap``): on the card,
+  tile k's device -> host copy goes ``non_blocking`` into pinned buffers
+  with an event recorded behind it, and is materialized while tile k+1 is
+  issued, so the copy overlaps the device work of the next tile.
+- **Readback shrink** (``_ReadbackShrink``): large output tiles compact
+  on the device before they cross to the host, speculatively: the live
+  count is read once at query end, and a tile the compaction truncated is
+  materialized again from its retained original.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..catalog import Catalog
-from ..coldata.batch import to_host
+from ..coldata.batch import Batch, Column, compact, to_host
 from ..plan import builder as plan_builder
 from ..plan.spec import PlanNode
+from ..utils import settings
+from . import dispatch
 from .memory import query_scope
 from .operator import Operator
 
+MAX_ATTEMPTS = 4
+
+
+class _ReadbackShrink:
+    """Device-side output compaction before materialization: a top-10
+    result in a 2^20-row padded tile would otherwise cross to the host
+    whole, so tiles of at least MIN_CAP rows compact to capacity/64.
+
+    The decision is SPECULATIVE (no host sync in the pull loop): each
+    compaction keeps a deferred device live count and retains the original
+    tile; finish() reads all counts in one stacked sync at query end and
+    re-materializes any tile the compaction truncated from its retained
+    original (no recompute, no re-run)."""
+
+    MIN_CAP = 1 << 16
+
+    def __init__(self):
+        self._checks = []  # (output index, original tile, cap, count)
+        self._n = 0
+
+    def shrink(self, b: Batch) -> Batch:
+        i = self._n
+        self._n += 1
+        if b.capacity < self.MIN_CAP:
+            return b
+        cap = max(1024, b.capacity >> 6)
+        b = dispatch.own(b)  # retained past the next tile's call
+        count = b.mask.sum(dtype=torch.int64)  # deferred device scalar
+        out = compact(b, capacity=cap)
+        dispatch.note()
+        self._checks.append((i, b, cap, count))
+        return out
+
+    def finish(self, outs, schema, dictionaries,
+               root: Operator | None = None) -> None:
+        """ONE stacked count read (a host sync, counted on `root`); patch
+        truncated tiles from their retained originals. Call only on the
+        attempt whose output is kept."""
+        if not self._checks:
+            return
+        if root is not None:
+            root.stats.host_syncs += 1
+        counts = torch.stack([c for *_, c in self._checks]).cpu().numpy()
+        for (i, orig, cap, _), n in zip(self._checks, counts):
+            if int(n) > cap:
+                outs[i] = to_host(orig, schema, dictionaries)
+        self._checks = []
+
+
+def _post_run_updates(op: Operator) -> bool:
+    """Every operator's end-of-query adaptive update (the deferred
+    counter reads: the one host sync speculative execution pays per
+    operator and query). True when any operator invalidated this run's
+    output (a speculative capacity overflowed): the query must re-run."""
+    rerun = op.post_run_update()
+    for c in op.children():
+        rerun = _post_run_updates(c) or rerun
+    return rerun
+
+
+class _Readback:
+    """Tile k's device -> host copy, started without waiting: pinned host
+    buffers, ``non_blocking`` copies and an event behind them; ``host``
+    waits for the event and gives the host batch."""
+
+    def __init__(self, b: Batch):
+        def start(t):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            return h
+
+        self.batch = Batch(
+            cols=tuple(Column(data=start(c.data), valid=start(c.valid))
+                       for c in b.cols),
+            mask=start(b.mask))
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def host(self) -> Batch:
+        self.done.synchronize()
+        return self.batch
+
+
+def _pull(root: Operator, shrink: _ReadbackShrink, overlap: bool) -> list:
+    """One attempt's output tiles as host columns; each readback counts
+    one host sync on the root. With overlap on the card, tile k is
+    materialized after tile k+1 has been issued."""
+    outs: list[dict[str, np.ndarray]] = []
+    pending = None
+    while True:
+        b = root.next_batch()
+        started = None
+        if b is not None:
+            b = shrink.shrink(b)
+            if overlap and b.device.type == "cuda":
+                started = _Readback(b)
+            else:
+                root.stats.host_syncs += 1
+                outs.append(to_host(b, root.output_schema,
+                                    root.dictionaries))
+        if pending is not None:
+            root.stats.host_syncs += 1
+            outs.append(to_host(pending.host(), root.output_schema,
+                                root.dictionaries))
+        pending = started
+        if b is None:
+            return outs
+
 
 def run_operator(root: Operator) -> dict[str, np.ndarray]:
-    """Run the operator tree once; {column name: host array}. Each output
-    tile's readback is one host sync, counted on the root."""
-    outs: list[dict[str, np.ndarray]] = []
+    """Run the operator tree (re-running while speculative capacities
+    overflow); {column name: host array}."""
+    overlap = settings.get("sql.distsql.readback_overlap")
     with query_scope():
-        root.init()
         try:
-            while True:
-                b = root.next_batch()
-                if b is None:
+            for _ in range(MAX_ATTEMPTS):
+                root.init()
+                shrink = _ReadbackShrink()
+                outs = _pull(root, shrink, overlap)
+                if not _post_run_updates(root):
+                    shrink.finish(outs, root.output_schema,
+                                  root.dictionaries, root)
                     break
-                root.stats.host_syncs += 1
-                outs.append(to_host(b, root.output_schema, root.dictionaries))
+            else:
+                raise RuntimeError(
+                    "speculative emission capacities failed to converge in "
+                    f"{MAX_ATTEMPTS} attempts")
         finally:
             root.close()
     if not outs:
@@ -69,11 +197,12 @@ def _walk(root: Operator):
 def io_report(root: Operator) -> dict:
     """What the last run moved past the device: the tables that streamed,
     the operators that spilled and what to, the bytes streaming scans
-    uploaded host -> device (with the copies' device seconds and the
-    upload-slot waits), the bytes spills staged on the host, and the host
-    syncs in all. Call after the device has finished the run."""
+    uploaded host -> device (with the copies' device seconds, the
+    upload-slot waits, and the host seconds the scans waited for a tile's
+    fill), the bytes spills staged on the host, and the host syncs in
+    all. Call after the device has finished the run."""
     streamed, spills = [], []
-    h2d_bytes = h2d_s = 0.0
+    h2d_bytes = h2d_s = fill_wait_s = 0.0
     waits = staged = syncs = 0
     for op in _walk(root):
         syncs += op.stats.host_syncs
@@ -84,6 +213,7 @@ def io_report(root: Operator) -> dict:
             h2d_bytes += st.h2d_bytes
             h2d_s += st.copy_seconds()
             waits += st.host_waits
+            fill_wait_s += st.fill_wait_s
         inner = getattr(op, "_inner", None)  # DistinctOp's aggregation
         ext = (getattr(inner or op, "_external", None)
                or getattr(op, "_grace", None))
@@ -91,7 +221,8 @@ def io_report(root: Operator) -> dict:
             spills.append(f"{type(op).__name__}->{type(ext).__name__}")
     return {"streamed": sorted(streamed), "spills": sorted(spills),
             "h2d_bytes": int(h2d_bytes), "h2d_s": h2d_s,
-            "upload_waits": waits, "staged_bytes": staged,
+            "upload_waits": waits, "fill_wait_s": fill_wait_s,
+            "staged_bytes": staged,
             "host_syncs_total": syncs}
 
 

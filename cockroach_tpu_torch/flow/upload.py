@@ -10,12 +10,15 @@ uses the tile, and the tile's tensors are marked used on the consumer's
 stream (``record_stream``) so the caching allocator does not hand their
 memory back to the copy stream early. A slot is refilled only after the
 copy out of it has completed: each time the worker must wait for that,
-it counts one host wait. Copy time is read back from timing events
-after the query. On the CPU the tile is built in place (``from_host``).
+it counts one host wait. The consumer's own waits for a tile whose fill
+has not finished are timed on the host clock (``fill_wait_s``). Copy
+time is read back from timing events after the query. On the CPU the
+tile is built in place (``from_host``).
 """
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -23,6 +26,18 @@ import torch
 
 from ..coldata.batch import Batch, Column, from_host
 from ..coldata.types import Family, Schema
+
+
+_copy_streams: dict = {}
+
+
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """One copy stream per device, shared by every tile stream (a new
+    stream per scan would cycle through torch's stream pool)."""
+    s = _copy_streams.get(device)
+    if s is None:
+        s = _copy_streams[device] = torch.cuda.Stream(device)
+    return s
 
 
 class TileStream:
@@ -40,9 +55,10 @@ class TileStream:
         self.cuda = device.type == "cuda"
         self.h2d_bytes = 0
         self.host_waits = 0
+        self.fill_wait_s = 0.0
         self._timing: list = []
         if self.cuda:
-            self._copy = torch.cuda.Stream(device)
+            self._copy = _copy_stream(device)
             self._worker = ThreadPoolExecutor(1)
             self._slots = [self._pinned_slot() for _ in range(2)]
             self._done = [None, None]  # each slot's last copy-out event
@@ -65,6 +81,7 @@ class TileStream:
         self._timing = []
         self.h2d_bytes = 0
         self.host_waits = 0
+        self.fill_wait_s = 0.0
 
     def upload(self, off: int):
         """Start the upload of the tile at row `off`; returns a handle
@@ -122,7 +139,9 @@ class TileStream:
         """The uploaded tile, usable on the current stream."""
         if not self.cuda:
             return handle
+        t0 = time.perf_counter()
         out, end, n = handle.result()
+        self.fill_wait_s += time.perf_counter() - t0
         cur = torch.cuda.current_stream(self.device)
         cur.wait_event(end)
         mask = (self._full_mask if n == self.tile

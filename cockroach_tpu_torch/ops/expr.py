@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..coldata.batch import device_table
 from ..coldata.types import (BOOL, DATE, FLOAT64, INT64, Family, Schema,
                              SQLType, zeros_like_type)
 
@@ -397,8 +398,7 @@ def eval_expr(e: Expr, cols, schema: Schema):
 
     if isinstance(e, CodeLookup):
         c = cols[e.col]
-        table = torch.from_numpy(np.ascontiguousarray(e.table)).to(
-            c.data.device)
+        table = device_table(e.table, c.data.device)
         codes = torch.clamp(c.data.to(torch.int64), 0, table.shape[0] - 1)
         return table[codes].to(e.out_type.torch_dtype), c.valid
 

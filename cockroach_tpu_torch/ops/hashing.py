@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..coldata.batch import Column
+from ..coldata.batch import Column, device_table
 from ..coldata.types import Family, SQLType
 
 
@@ -68,8 +68,7 @@ def hash_columns(
                    device=dev)
     for i, (c, t) in enumerate(zip(cols, types)):
         if t.family is Family.STRING:
-            table = torch.from_numpy(
-                np.ascontiguousarray(hash_tables[i]).view(np.int64)).to(dev)
+            table = device_table(hash_tables[i], dev, view=np.int64)
             codes = torch.clamp(c.data.to(torch.int64), 0,
                                 table.shape[0] - 1)
             u = table[codes]

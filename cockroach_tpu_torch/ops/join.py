@@ -36,10 +36,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
-from ..coldata.batch import Batch, Column
+from ..coldata.batch import Batch, Column, device_table
 from ..coldata.types import Family, Schema
 from ..storage.keys import flip
 from .hashing import hash_columns
@@ -127,8 +126,7 @@ def exact_keys(
         if kind == "str":
             v = c.data.to(torch.int64)
             if code_remaps is not None and pos in code_remaps:
-                remap = torch.from_numpy(
-                    np.asarray(code_remaps[pos], dtype=np.int64)).to(dev)
+                remap = device_table(code_remaps[pos], dev).to(torch.int64)
                 v = remap[torch.clamp(v, 0, remap.shape[0] - 1)]
             # absent-in-probe-dict (-1) -> the never-matching top code
             v = torch.where(v < 0, (1 << bits) - 1, v)
@@ -167,8 +165,7 @@ def _keys_equal(probe: Batch, pkeys, build: Batch, bkeys, bidx,
             pdata, pvalid = pdata[pidx], pvalid[pidx]
         bdata = bc.data[bidx]
         if pos in build_remaps:
-            remap = torch.from_numpy(np.asarray(build_remaps[pos])).to(
-                probe.device)
+            remap = device_table(build_remaps[pos], probe.device)
             bdata = remap[torch.clamp(bdata.to(torch.int64), 0,
                                       remap.shape[0] - 1)]
         eq = eq & (pdata == bdata) & pvalid & bc.valid[bidx]
@@ -397,8 +394,10 @@ def hash_join_general(
     build position. `out_capacity` is the output tile's capacity, or a
     function of the total that gives it; rows past it are dropped (the
     caller compares total to it). Device scalars become host ints
-    through `sync`: one for the total, and under hashed keys one more
-    for the candidate pairs, which are verified column by column."""
+    through `sync`: the total, when `out_capacity` is a function (with
+    a static capacity the total is returned as a device scalar, and an
+    exact-key join then reads nothing on the host), and under hashed
+    keys the candidate pairs, which are verified column by column."""
     cap = probe.capacity
     bcap = build.capacity
     dev = probe.device
@@ -448,15 +447,28 @@ def hash_join_general(
     out_rows = cnt
     if spec.join_type == "left":
         out_rows = torch.where(probe.mask, torch.clamp(cnt, min=1), cnt)
-    base = torch.cumsum(out_rows, 0) - out_rows
-    total = sync(out_rows.sum())
-    oc = out_capacity(total) if callable(out_capacity) else out_capacity
-    keep = min(total, oc)
-    out_p = torch.zeros(oc, dtype=torch.int64, device=dev)
-    out_p[:keep] = torch.repeat_interleave(rows, out_rows,
-                                           output_size=total)[:keep]
-    slot = torch.arange(oc, device=dev)
-    out_live = slot < keep
+    incl = torch.cumsum(out_rows, 0)
+    base = incl - out_rows
+    if callable(out_capacity):
+        total = sync(out_rows.sum())
+        oc = out_capacity(total)
+        keep = min(total, oc)
+        out_p = torch.zeros(oc, dtype=torch.int64, device=dev)
+        out_p[:keep] = torch.repeat_interleave(rows, out_rows,
+                                               output_size=total)[:keep]
+        slot = torch.arange(oc, device=dev)
+        out_live = slot < keep
+    else:
+        # a static capacity: no host sync. Output slot s belongs to the
+        # probe row whose [base, incl) range holds it (what
+        # repeat_interleave gives), found by binary search; the true
+        # total stays a device scalar, for the caller to check later
+        oc = out_capacity
+        total = out_rows.sum()
+        slot = torch.arange(oc, device=dev)
+        out_p = torch.clamp(torch.searchsorted(incl, slot, right=True),
+                            max=cap - 1)
+        out_live = slot < total
     m = slot - base[out_p]
     out_found = out_live & (m < cnt[out_p])
     out_b = match_b(out_p, m)

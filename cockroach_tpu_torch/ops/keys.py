@@ -29,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..coldata.batch import pack_be_words
+from ..coldata.batch import device_table, pack_be_words
 from ..coldata.types import Family, SQLType
 from ..storage.keys import flip
 
@@ -129,8 +129,7 @@ def key_segments(
             if rank_table is None:
                 raise ValueError(
                     "STRING ORDER BY needs a dictionary rank table")
-            table = torch.from_numpy(
-                np.ascontiguousarray(rank_table)).to(data.device)
+            table = device_table(rank_table, data.device)
             codes = torch.clamp(data.to(torch.int64), 0, table.shape[0] - 1)
             ranked = table[codes].to(torch.int64)
             bits = bits_for_count(int(rank_table.shape[0]) + 1)

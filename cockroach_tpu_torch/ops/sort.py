@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..coldata.batch import Batch, Column, pack_be_words
+from ..coldata.batch import Batch, Column, device_table, pack_be_words
 from ..coldata.types import Family, Schema, SQLType
 from ..storage.keys import flip
 from . import keys as key_ops
@@ -70,8 +70,7 @@ def order_keys(
     if t.family is Family.STRING:
         if rank_table is None:
             raise ValueError("STRING sort needs a dictionary rank table")
-        table = torch.from_numpy(np.ascontiguousarray(rank_table)).to(
-            data.device)
+        table = device_table(rank_table, data.device)
         codes = torch.clamp(data.to(torch.int64), 0, table.shape[0] - 1)
         u = table[codes].to(torch.int32)
         return [null_key, -u if k.desc else u]

@@ -2,8 +2,8 @@
 of ``cockroach_tpu.plan.builder`` for the node kinds the 22 TPC-H queries
 use on one device (TableScan, Filter, Project, Aggregate, ScalarAggregate,
 Sort, TopK, Limit, Distinct, HashJoin, and Exchange as the identity). Any
-other node raises NotImplementedError. The reference then fuses
-stateless per-tile chains (flow/fuse.py); the port runs the tree unfused.
+other node raises NotImplementedError. Then, as in the reference, the
+fusion pass (flow/fuse.py) collapses stateless per-tile chains.
 """
 
 from __future__ import annotations
@@ -92,7 +92,19 @@ def _clustered_input(plan: S.PlanNode, group_cols, catalog: Catalog):
 
 
 def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
-    """Instantiate the operator tree for `plan` over `catalog`'s tables."""
+    """Instantiate the operator tree for `plan` over `catalog`'s tables,
+    then collapse its stateless per-tile chains into FusedPipeline
+    segments (flow/fuse.py) unless ``sql.distsql.fusion.enabled`` is
+    off."""
+    op = _build(plan, catalog)
+    if settings.get("sql.distsql.fusion.enabled"):
+        from ..flow import fuse
+
+        op = fuse.fuse_operators(op)
+    return op
+
+
+def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
     if isinstance(plan, S.TableScan):
         if plan.shard is not None:
             raise NotImplementedError(
@@ -101,12 +113,12 @@ def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
         return ops.ScanOp(catalog.get(plan.table), plan.columns,
                           tile=settings.get("sql.distsql.tile_size"))
     if isinstance(plan, S.Filter):
-        return ops.FilterOp(build(plan.input, catalog), plan.predicate)
+        return ops.FilterOp(_build(plan.input, catalog), plan.predicate)
     if isinstance(plan, S.Project):
-        return ops.ProjectOp(build(plan.input, catalog), plan.exprs,
+        return ops.ProjectOp(_build(plan.input, catalog), plan.exprs,
                              plan.names, plan.dict_overrides)
     if isinstance(plan, S.Aggregate):
-        child = build(plan.input, catalog)
+        child = _build(plan.input, catalog)
         if plan.key_sizes is not None and plan.mode == "complete":
             return ops.SmallGroupAggregateOp(
                 child, plan.group_cols, plan.aggs, plan.key_sizes)
@@ -127,23 +139,23 @@ def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
                 f"{plan.mode}-mode aggregation is a distributed stage, "
                 "which waits for the port's multi-device slice (ROADMAP "
                 "Queue 1)")
-        return ops.ScalarAggregateOp(build(plan.input, catalog), plan.aggs)
+        return ops.ScalarAggregateOp(_build(plan.input, catalog), plan.aggs)
     if isinstance(plan, S.Sort):
-        return ops.SortOp(build(plan.input, catalog), plan.keys)
+        return ops.SortOp(_build(plan.input, catalog), plan.keys)
     if isinstance(plan, S.TopK):
-        return ops.TopKOp(build(plan.input, catalog), plan.keys, plan.k)
+        return ops.TopKOp(_build(plan.input, catalog), plan.keys, plan.k)
     if isinstance(plan, S.Limit):
-        return ops.LimitOp(build(plan.input, catalog), plan.limit,
+        return ops.LimitOp(_build(plan.input, catalog), plan.limit,
                            plan.offset)
     if isinstance(plan, S.Distinct):
-        return ops.DistinctOp(build(plan.input, catalog), plan.cols)
+        return ops.DistinctOp(_build(plan.input, catalog), plan.cols)
     if isinstance(plan, S.HashJoin):
         return ops.HashJoinOp(
-            build(plan.probe, catalog), build(plan.build, catalog),
+            _build(plan.probe, catalog), _build(plan.build, catalog),
             plan.probe_keys, plan.build_keys, plan.spec)
     if isinstance(plan, S.Exchange):
         # single-device build: the shuffle is the identity
-        return build(plan.input, catalog)
+        return _build(plan.input, catalog)
     raise NotImplementedError(
         f"plan node {type(plan).__name__} (Window, MergeJoin, Union, "
         "IndexScan and the distribution nodes) waits for a later SQL slice "

@@ -46,6 +46,20 @@ _DEFAULTS: dict[str, Any] = {
     "sql.distsql.dense_lut_bits": 24,
     # max dense group-code space for the dense aggregation path
     "sql.distsql.dense_agg_states": 1 << 23,
+    # collapse stateless per-tile chains into one replayed function per
+    # tile (flow/fuse.py, the fused pulls of flow/operators.py); off runs
+    # the one-function-per-operator pull path
+    "sql.distsql.fusion.enabled": True,
+    # duplicate-key inner/left probes emit speculatively at a learned
+    # capacity, their totals checked once per query
+    "sql.distsql.fusion.general_probe": True,
+    # join probes composed into one fused segment before it splits
+    "sql.distsql.max_fused_joins": 4,
+    # selective probe-aligned joins compact their output to a learned,
+    # sticky capacity (overflow checked once per query)
+    "sql.distsql.join_compact_emit": True,
+    # the root pull loop reads tile k back while tile k+1 is issued
+    "sql.distsql.readback_overlap": True,
 }
 
 # the reference's bounds, (lo, hi), None = unbounded
@@ -61,6 +75,7 @@ _BOUNDS: dict[str, tuple] = {
     "sql.distsql.grace_skew_frac": (0.0, 1.0),
     "sql.distsql.dense_lut_bits": (0, 30),
     "sql.distsql.dense_agg_states": (64, 1 << 28),
+    "sql.distsql.max_fused_joins": (0, 64),
 }
 
 _values: dict[str, Any] = {}

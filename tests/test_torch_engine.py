@@ -194,6 +194,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "cockroach_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"cockroach_tpu_torch/flow/dispatch.py",
+            "cockroach_tpu_torch/flow/fuse.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "cockroach_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"

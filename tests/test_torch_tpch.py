@@ -1,7 +1,8 @@
 """TPC-H q1 and q3 through the port against the JAX reference on the CPU
 (sf=0.005, seed 7): plans equal field by field, operator trees equal node
-for node (the reference's fusion nodes aside) with the same join
-strategies, results equal to the reference's run_operator (exactly, the
+for node (fusion nodes, their positions and members included) with the
+same join strategies and, after one run, the same learned join emission,
+results equal to the reference's run_operator (exactly, the
 FLOAT64 averages within rtol=1e-12), the numpy oracle equal to both; the
 duplicate-key join, TopK, ScalarAggregate and Distinct nodes equal the
 reference's, and the plans still outside the port raise
@@ -31,8 +32,6 @@ from cockroach_tpu_torch.utils import settings
 
 SF, SEED = 0.005, 7
 QUERIES = ("q1", "q3")
-# the reference's fusion pass inserts these; the port runs unfused
-FUSION_NODES = ("_BarrierSource", "FusedPipeline")
 
 
 @pytest.fixture(scope="module")
@@ -61,15 +60,27 @@ def test_plan_matches_reference(cats, q):
 
 
 def _tree(op):
-    """Pre-order (class name, operator) pairs without fusion nodes."""
+    """Pre-order (class name, operator) pairs, fusion nodes included."""
     out = []
     stack = [op]
     while stack:
         o = stack.pop()
-        if type(o).__name__ not in FUSION_NODES:
-            out.append((type(o).__name__, o))
+        out.append((type(o).__name__, o))
         stack.extend(reversed(o.children()))
     return out
+
+
+def fusion_matches(name, j, t) -> None:
+    """A fusion node, or a join's learned emission (after a run), equal to
+    the reference's."""
+    if name == "FusedPipeline":
+        assert [type(m).__name__ for m in t.members] == [
+            type(m).__name__ for m in j.members]
+    if name == "_BarrierSource":
+        assert type(t.inner).__name__ == type(j.inner).__name__
+    if name == "HashJoinOp":
+        assert (t._fusable, t._gen_fusable) == (j._fusable, j._gen_fusable)
+        assert (t._emit_mode, t._emit_cap) == (j._emit_mode, j._emit_cap)
 
 
 @pytest.mark.parametrize("q", QUERIES)
@@ -83,6 +94,7 @@ def test_operator_tree_matches_reference(runs, q):
             assert (t.key_sizes, t.G) == (j.key_sizes, j.G)
         if name == "AggregateOp":
             assert (t.ordered, t.prefix_live) == (j.ordered, j.prefix_live)
+        fusion_matches(name, j, t)
 
 
 def test_q3_join_strategies_match_reference(runs):
@@ -267,5 +279,7 @@ def test_streaming_scan_raises(cats):
         got = trun(root)
     finally:
         settings.reset("sql.distsql.scan_stream_rows")
-    assert root.child.streaming
+    # the fusion pass wraps the filter chain in a FusedPipeline
+    assert type(root).__name__ == "FusedPipeline"
+    assert root.top.child.streaming
     np.testing.assert_array_equal(got["l_quantity"], want["l_quantity"])

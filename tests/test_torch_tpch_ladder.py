@@ -22,7 +22,7 @@ from cockroach_tpu_torch.bench import tpch_oracle
 from cockroach_tpu_torch.flow.runtime import host_syncs
 from cockroach_tpu_torch.flow.runtime import run_operator as trun
 from cockroach_tpu_torch.plan import builder as tbuilder
-from test_torch_tpch import _tree
+from test_torch_tpch import _tree, fusion_matches
 
 SF, SEED = 0.005, 7
 # case -> (query, keyword arguments)
@@ -57,8 +57,9 @@ def plan_repr(plan) -> str:
 
 
 def tree_matches(jroot, troot) -> None:
-    """Operator trees equal node for node (the reference's fusion nodes
-    aside), with the same aggregation layouts and join strategies."""
+    """Operator trees equal node for node (fusion nodes, their positions
+    and members included), with the same aggregation layouts, join
+    strategies and, after a run, learned join emission."""
     jt, tt = _tree(jroot), _tree(troot)
     assert [n for n, _ in tt] == [n for n, _ in jt]
     for (name, j), (_, t) in zip(jt, tt):
@@ -80,6 +81,7 @@ def tree_matches(jroot, troot) -> None:
             else:
                 assert (t.exact_layout.segs, t.exact_layout.total_bits) == (
                     j.exact_layout.segs, j.exact_layout.total_bits)
+        fusion_matches(name, j, t)
 
 
 def join_kind(j) -> str:
@@ -178,9 +180,10 @@ def test_row_counts(runs):
 
 
 def test_host_syncs_counted(runs):
-    """q9: one compaction per probe tile in each of its five joins, the
-    dense aggregation's overflow check, the sort spool and the readback;
-    q18's TopK adds none."""
+    """q9: one read of the deferred emission count in each of its five
+    joins (once per query, whatever the probe tiles), the dense
+    aggregation's overflow check, the sort spool and the readback; q18's
+    TopK adds none."""
     q9 = host_syncs(runs["q9"][2])
     assert sum(v for k, v in q9.items() if "HashJoinOp" in k) == 5
     q18 = host_syncs(runs["q18_150"][2])

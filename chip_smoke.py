@@ -36,7 +36,22 @@ and under the SF10 scaling fused equal to unfused bit for bit, CUDA
 graphs captured in the first fused run and none in a repeat run; at SF1
 and SF10, q3, q9 and q18 fused and unfused in turn (medians, idle share,
 host syncs, dispatches and host launch calls per tile, captures, peak
-memory) on the ``{"fusion": ...}`` line, after the SF10 phase. Result
+memory) on the ``{"fusion": ...}`` line, after the SF10 phase.
+
+TPC-DS (``bench/tpcds.py``, BASELINE config #4's workload) after it:
+the nine queries at sf=0.01 on the card equal the CPU and the unfused
+card (exactly, FLOAT averages within rtol=1e-12), at the default tile
+and with 1024-row tiles, as do
+window queries of every function family and frame kind (ROWS, RANGE,
+GROUPS, EXCLUDE, a STRING partition, DESC order, NULL keys) and the
+merge join, right, full and cross joins, UNION ALL and string_agg
+(windows row for row, joins as multisets of rows); the host's RAM (``/proc/meminfo``) and
+peak RSS printed; SF10 generated (seed 19980401); the nine and
+``tpcds.sales_window`` (a window over all 28.8 M store_sales rows)
+timed by ``bench/tpcds_run.run_tpcds``, every run equal to the numpy
+oracle, and profiled once; the ``{"tpcds": ...}`` line, which also
+carries the SF1 phase's lineitem x orders merge join against the hash
+join (equal results, both timed). Result
 lines are compact JSON with floats to 4 significant digits, and the
 script prints its byte count before the kernel table: all of it has to
 fit in 24 KB, the output a remote run returns.
@@ -958,6 +973,7 @@ def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0) -> dict:
                      **tpch22}, "card": card})
     fusion[f"sf{sf:g}"] = fusion_compare(cat)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
+    out["merge_join"] = merge_vs_hash(cat)
     return out
 
 
@@ -1111,6 +1127,315 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
     emit({"tpch_sf10": out})
     fusion[f"sf{sf:g}"] = fusion_compare(cat)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TPC-DS: window functions, merge join, set operations, and SF10
+
+
+TPCDS_SEED = 19980401  # the reduced generator's default seed
+
+
+def merge_vs_hash(cat, runs: int = 3) -> dict:
+    """lineitem joined to orders on the order key, as a merge join and as
+    the hash join the planner picks: equal results (as sorted rows), the
+    cold run and the median of `runs` more of each."""
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.sql.rel import Rel
+
+    li = Rel.scan(cat, "lineitem",
+                  ("l_orderkey", "l_quantity", "l_extendedprice"))
+    od = Rel.scan(cat, "orders", ("o_orderkey", "o_totalprice",
+                                  "o_orderdate"))
+    rels = {"merge": li.merge_join(od, ("l_orderkey", "o_orderkey")),
+            "hash": li.join(od, on=[("l_orderkey", "o_orderkey")])}
+    out, res = {}, {}
+    for name, rel in rels.items():
+        root = builder.build(rel.optimized_plan(), cat)
+        times = []
+        for _ in range(runs + 1):
+            t0 = time.perf_counter()
+            res[name] = run_operator(root)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"cold_s": times[0],
+                     "median_s": statistics.median(times[1:]),
+                     "operator": type(root).__name__}
+    if sorted_rows(res["merge"]) != sorted_rows(res["hash"]):
+        raise AssertionError("merge join != hash join on lineitem x orders")
+    out["rows"] = len(res["merge"]["l_orderkey"])
+    log(f"merge join == hash join on lineitem x orders ({out['rows']} rows)")
+    return out
+
+
+def sorted_rows(res: dict) -> list:
+    """A result as a sorted multiset of rows (NULL first in each column)."""
+    cols = [np.asarray(v, dtype=object) for v in res.values()]
+    key = lambda r: tuple((x is not None, x) for x in r)  # noqa: E731
+    return sorted(zip(*cols), key=key)
+
+
+def tpcds_cases(cat) -> dict:
+    """{name: (Rel, ordered)} over a TPC-DS catalog: one window query per
+    function family and frame kind (ROWS, RANGE over a DECIMAL key in
+    DESC order, GROUPS, EXCLUDE, a STRING partition, NULL keys from a
+    left join), then the merge join, right, full and cross joins, UNION
+    ALL and string_agg. `ordered`: the output order is defined (a window
+    sorts its input), else rows compare as a multiset."""
+    from cockroach_tpu_torch.ops import expr as ex
+    from cockroach_tpu_torch.sql.rel import Rel
+
+    ss = Rel.scan(cat, "store_sales", (
+        "ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_promo_sk",
+        "ss_quantity", "ss_list_price", "ss_ext_sales_price"))
+    it = Rel.scan(cat, "item", ("i_item_sk", "i_brand", "i_category"))
+    pr = Rel.scan(cat, "promotion")
+
+    def cmp(rel, op, col, v):
+        return rel.filter(ex.Cmp(op, rel.c(col), ex.lit(v)))
+
+    late = cmp(pr, "ge", "p_promo_sk", 2)
+    sit = ss.join(it, on=[("ss_item_sk", "i_item_sk")])
+    spr = ss.join(late, on=[("ss_promo_sk", "p_promo_sk")], how="left")
+
+    def aggs(col):
+        return [(f"{f}_{col}", f, col) for f in (
+            "sum", "count", "avg", "min", "max", "first_value",
+            "last_value")]
+
+    by_store = ["ss_store_sk"]
+    big = cmp(ss, "gt", "ss_quantity", 95)
+    return {
+        "w_ranks": (ss.window(
+            by_store, [("ss_sold_date_sk", True), ("ss_item_sk", False)],
+            [("rn", "row_number", None), ("rk", "rank", None),
+             ("drk", "dense_rank", None), ("pr", "percent_rank", None),
+             ("cd", "cume_dist", None), ("nt", "ntile", None, 5),
+             ("lag", "lag", "ss_quantity"),
+             ("lead", "lead", "ss_quantity", 2)]), True),
+        "w_whole": (ss.window(by_store, [("ss_item_sk", False)],
+                              aggs("ss_ext_sales_price")), True),
+        "w_running": (ss.window(by_store, [("ss_sold_date_sk", False)],
+                                aggs("ss_quantity"), running=True), True),
+        "w_rows_string_partition": (sit.window(
+            ["i_category"], [("ss_sold_date_sk", False),
+                             ("ss_item_sk", False)],
+            aggs("ss_ext_sales_price") + [("mn", "min", "i_brand")],
+            frame=(3, 1)), True),
+        "w_range_desc": (ss.window(by_store, [("ss_list_price", True)],
+                                   aggs("ss_quantity"), frame=(1.5, 2.0),
+                                   frame_kind="range"), True),
+        "w_groups": (ss.window(by_store, [("ss_quantity", False)],
+                               aggs("ss_ext_sales_price"), frame=(1, 1),
+                               frame_kind="groups"), True),
+        "w_exclude_group": (ss.window(
+            by_store, [("ss_quantity", False)], aggs("ss_list_price"),
+            frame=(2, 2), exclude="group"), True),
+        "w_exclude_ties": (ss.window(
+            by_store, [("ss_quantity", False)],
+            [("s", "sum", "ss_ext_sales_price"),
+             ("mx", "max", "ss_ext_sales_price"),
+             ("c", "count", "ss_ext_sales_price")],
+            frame=(2, 2), exclude="ties"), True),
+        "w_null_keys": (spr.window(
+            ["p_channel_email"], [("p_promo_sk", False),
+                                  ("ss_item_sk", False)],
+            [("rk", "rank", None), ("s", "sum", "ss_quantity"),
+             ("mn", "min", "p_channel_event")], running=True), True),
+        "merge_inner": (ss.merge_join(it, ("ss_item_sk", "i_item_sk")),
+                        False),
+        "merge_semi": (it.merge_join(ss, ("i_item_sk", "ss_item_sk"),
+                                     how="semi"), False),
+        "merge_left": (pr.merge_join(big, ("p_promo_sk", "ss_promo_sk"),
+                                     how="left"), False),
+        "right": (big.join(pr, on=[("ss_promo_sk", "p_promo_sk")],
+                           how="right"), False),
+        "full": (cmp(big, "le", "ss_promo_sk", 1).join(
+            late, on=[("ss_promo_sk", "p_promo_sk")], how="full"), False),
+        "cross": (Rel.scan(cat, "store").cross_join(late), False),
+        "union_all": (big.select("ss_item_sk", "ss_quantity").union_all(
+            cmp(ss, "lt", "ss_quantity", 3).select("ss_item_sk",
+                                                   "ss_quantity")), False),
+        "string_agg": (it.groupby(["i_brand"], [
+            ("cats", "string_agg", "i_category", ","),
+            ("n", "count_rows", None)]), False),
+    }
+
+
+def first_difference(a: dict, b: dict, rtol: float = 0.0) -> str | None:
+    """Where two results first differ (column, row, values), or None:
+    floats within `rtol` (NaN equal to NaN), everything else exactly."""
+    if list(a) != list(b):
+        return f"columns {list(a)} != {list(b)}"
+    for k in a:
+        x, y = np.asarray(a[k], dtype=object), np.asarray(b[k], dtype=object)
+        if x.shape != y.shape:
+            return f"{k}: {x.shape[0]} rows != {y.shape[0]}"
+        diff = [i for i, (u, v) in enumerate(zip(x, y))
+                if not (u == v or (u != u and v != v) or (
+                    isinstance(u, float) and isinstance(v, float)
+                    and abs(u - v) <= rtol * abs(v)))]
+        if diff:
+            i = diff[0]
+            return f"{k} row {i} of {len(diff)}: {x[i]!r} != {y[i]!r}"
+    return None
+
+
+def _same(a: dict, b: dict, ordered: bool) -> bool:
+    """Windows row for row, FLOAT columns within 1e-12 (a DECIMAL
+    average divides by 10^scale, which the card does as a multiply by
+    the reciprocal, one ULP off IEEE division at times); joins as
+    multisets of rows."""
+    if ordered:
+        return first_difference(a, b, rtol=1e-12) is None
+    return list(a) == list(b) and sorted_rows(a) == sorted_rows(b)
+
+
+def check_tpcds_parity(dev, sf: float = 0.01) -> dict:
+    """TPC-DS at `sf` on the card against the CPU, and fused against
+    unfused on the card: the nine queries at the default tile and with
+    1024-row tiles, exactly but for the FLOAT averages of q7, q53_lite
+    and q65_lite (within tpcds_oracle.FLOAT_RTOL: a DECIMAL average sums
+    scaled floats, in the order of the card's atomic adds), and every
+    case of tpcds_cases (windows row for row, FLOAT within 1e-12; joins
+    as multisets). Returns the result rows per case."""
+    from cockroach_tpu_torch.bench import tpcds, tpcds_oracle
+    from cockroach_tpu_torch.utils import settings
+
+    cats = {d: tpcds.gen_tpcds(sf=sf, seed=TPCDS_SEED, device=d)
+            for d in (dev, "cpu")}
+    rows = {}
+    for tile in (None, 1024):
+        if tile is not None:
+            settings.set("sql.distsql.tile_size", tile)
+        try:
+            for q in tpcds.QUERIES:
+                res = {}
+                for d, cat in cats.items():
+                    res[d] = tpcds.QUERIES[q](cat).run()
+                _fusion(False)
+                try:
+                    res["unfused"] = tpcds.QUERIES[q](cats[dev]).run()
+                finally:
+                    settings.reset("sql.distsql.fusion.enabled")
+                for other in ("cpu", "unfused"):
+                    bad = tpcds_oracle.mismatch(q, res[dev], res[other])
+                    if bad is not None:
+                        raise AssertionError(
+                            f"TPC-DS (tile {tile}) card != {other}: {bad}")
+                rows[q] = len(next(iter(res["cpu"].values())))
+        finally:
+            settings.reset("sql.distsql.tile_size")
+    cases = {d: tpcds_cases(cat) for d, cat in cats.items()}
+    for name, (rel, ordered) in cases[dev].items():
+        got = rel.run()
+        want = cases["cpu"][name][0].run()
+        _fusion(False)
+        try:
+            unfused = rel.run()
+        finally:
+            settings.reset("sql.distsql.fusion.enabled")
+        for other, res in (("cpu", want), ("unfused", unfused)):
+            if not _same(got, res, ordered):
+                raise AssertionError(f"TPC-DS case {name}: card != {other}: "
+                                     f"{first_difference(got, res, 1e-12)}")
+        n = len(next(iter(want.values())))
+        if n == 0:
+            raise AssertionError(f"TPC-DS case {name} returned no rows")
+        rows[name] = n
+    log(f"TPC-DS sf={sf}: 9 queries (default and 1024-row tiles) and "
+        f"{len(cases['cpu'])} window/join cases equal on card, CPU and "
+        "unfused")
+    return rows
+
+
+def host_ram() -> dict:
+    """The host's MemTotal and MemAvailable (/proc/meminfo) and this
+    process's peak RSS so far, in bytes."""
+    from cockroach_tpu_torch.bench.tpch_run import peak_rss_bytes
+
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                out[k] = int(v.split()[0]) * 1024
+    out["peak_rss"] = peak_rss_bytes()
+    return out
+
+
+TPCDS_COLUMNS = ["cold_s", "warm_s", "median_s", "rows_per_sec", "rows",
+                 "host_syncs", "idle_share", "h2d_gb", "h2d_s", "fill_wait_s",
+                 "streamed", "staged_gb", "peak_device_gb", "spills"]
+
+
+def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
+                    dev="cuda") -> dict:
+    """TPC-DS (BASELINE config #4's workload at SF10): the sf=0.01 card,
+    CPU and unfused checks; the TPC-H catalogs freed and the host's RAM
+    printed; SF10 generated (seed 19980401); the nine queries and the
+    full-size sales_window timed through run_tpcds (cold, warm, median
+    of 5, every run equal to the numpy oracle) and profiled once; the
+    {"tpcds": ...} line, with `merge_join` (the SF1 merge join against
+    the hash join)."""
+    import gc
+
+    from cockroach_tpu_torch.bench import tpcds
+    from cockroach_tpu_torch.bench.tpcds_run import run_tpcds
+    from cockroach_tpu_torch.bench.tpch_run import peak_rss_bytes
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    t_phase = time.perf_counter()
+    parity = check_tpcds_parity(torch.device(dev))
+    # the TPC-H catalogs die with their phases; their operators' cached
+    # functions and graphs go here
+    dispatch.clear_kernel_cache()
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    ram = host_ram()
+    log(f"host RAM: total {ram['MemTotal'] / 2**30:.1f} GiB, available "
+        f"{ram['MemAvailable'] / 2**30:.1f} GiB, peak RSS so far "
+        f"{ram['peak_rss'] / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    cat = tpcds.gen_tpcds(sf=sf, seed=TPCDS_SEED, device=dev)
+    gen_s = time.perf_counter() - t0
+    gen_rss = peak_rss_bytes()
+    log(f"TPC-DS SF{sf:g} generated in {gen_s:.1f}s")
+    res = run_tpcds("all", sf=sf, runs=5, device=dev, catalog=cat,
+                    window=True)
+    table = {}
+    for q in tuple(tpcds.QUERIES) + ("sales_window",):
+        r = res[q]
+        rel = (tpcds.sales_window(cat) if q == "sales_window"
+               else tpcds.QUERIES[q](cat))
+        root = builder.build(rel.optimized_plan(), cat)
+        prof = device_profile(lambda root=root: run_operator(root))
+        table[q] = [r["cold_s"], r["warm_s"], r["median_s"],
+                    r["rows_per_sec"], r["rows"],
+                    sum(r["host_syncs"].values()), prof["idle_share"], r["h2d_bytes"] / 1e9, r["h2d_s"],
+                    r["fill_wait_s"], len(r["streamed"]),
+                    r["staged_bytes"] / 1e9,
+                    (r["peak_device_bytes"] or 0) / 1e9, r["spills"]]
+        del root
+    if not any("GraceAggregateOp" in s for s in res["q65_lite"]["spills"]):
+        raise AssertionError("q65_lite at SF10 did not spill its GROUP BY: "
+                             f"{res['q65_lite']['spills']}")
+    out = {"sf": sf, "store_sales_rows": res["store_sales_rows"],
+           "gen_s": gen_s, "gen_peak_rss": gen_rss, "host_ram": ram,
+           "sf0.01_card_cpu_unfused": {
+               "equal": True, "queries": 9, "tiles": ["default", 1024],
+               "cases": len(parity) - 9, "rows": sum(parity.values())},
+           "columns": TPCDS_COLUMNS, **table,
+           "merge_join_sf1": merge_join,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"TPC-DS SF{sf:g}: 9 queries and sales_window equal to the oracle "
+        f"in every run, {out['phase_s']:.0f}s")
+    emit({"tpcds": out})
     return out
 
 
@@ -1351,6 +1676,11 @@ def main() -> int:
     emit({"fusion": fusion, "card": card})
     sf10_launches = {"scan_filter": cuda_scan.scan_filter.launches,
                      "merge_path": cuda_merge.merge_perm.launches}
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    run_tpcds_phase(card, tpch["merge_join"])
+    tpcds_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                      "merge_path": cuda_merge.merge_perm.launches}
     launches = run_ycsb(card)
     profile_ycsb()
     check_parity()
@@ -1358,7 +1688,9 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         k["tpch_launches"] = tpch["storage_kernel_launches"][k["name"]]
         k["sf10_launches"] = sf10_launches[k["name"]]
+        k["tpcds_launches"] = tpcds_launches[k["name"]]
         k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
+        k["on_tpcds_path"] = k["tpcds_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     write_line(card)

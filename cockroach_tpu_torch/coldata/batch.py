@@ -94,6 +94,13 @@ class Dictionary:
     def __len__(self) -> int:
         return len(self.values)
 
+    def reset(self, values: np.ndarray) -> None:
+        """Rebuild this dictionary IN PLACE. Operators whose string output
+        values exist only at runtime (string_agg) create an empty
+        Dictionary at plan-build time, so parent operators hold the
+        reference, and fill it here when the values materialize."""
+        self.__init__(values)
+
     def code_of(self, value: str) -> int:
         """Code for a literal value, or -1 if absent (predicate is then false)."""
         hits = np.nonzero(self.values.astype(str) == value)[0]
@@ -230,9 +237,12 @@ def to_host(
             out[name] = vals
         elif t.family is Family.DECIMAL:
             res = data.astype(np.float64) / (10.0**t.scale)
-            obj = res.astype(object)
-            obj[~valid] = None
-            out[name] = obj if not valid.all() else res
+            if valid.all():
+                out[name] = res
+            else:  # boxing every value costs a second per 10^7 rows
+                obj = res.astype(object)
+                obj[~valid] = None
+                out[name] = obj
         elif valid.all():
             out[name] = data
         else:

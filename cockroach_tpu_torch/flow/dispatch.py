@@ -340,12 +340,28 @@ _check_capture = False
 
 _pools: dict = {}
 _side: dict = {}
+_anchors: list = []
 
 
 def _pool(dev: torch.device):
+    """The device's one graph memory pool. torch's pinned-host allocator
+    counts the live graphs of each pool and asserts when a capture
+    reuses a pool whose count fell to 0 (every graph gone, as after
+    ``clear_kernel_cache``), so the pool's first capture is a one-op
+    anchor graph kept for the process's life."""
     p = _pools.get(dev)
     if p is None:
         p = _pools[dev] = torch.cuda.graph_pool_handle()
+        x = torch.zeros(1, device=dev)
+        g = torch.cuda.CUDAGraph()
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=p, capture_error_mode="thread_local")
+            x.add_(1)
+            g.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _anchors.append((g, x))
     return p
 
 
@@ -379,6 +395,7 @@ class _Graph:
             self.static_in.append(x)
         dev = next(x for x in leaves if isinstance(x, torch.Tensor)).device
         args = _unflatten(spec, self.static_in)
+        pool = _pool(dev)
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
@@ -405,7 +422,7 @@ class _Graph:
                     else w for w in warm_leaves]
             del warm, warm_leaves
             with torch.cuda.stream(side):
-                self.graph.capture_begin(pool=_pool(dev),
+                self.graph.capture_begin(pool=pool,
                                          capture_error_mode="thread_local")
                 try:
                     res = fn(*args)

@@ -20,9 +20,10 @@ time (plan/builder.py, behind ``sql.distsql.fusion.enabled``):
 ``children()`` keeps every member reachable, so the runtime's
 ``_post_run_updates`` still reaches each member's deferred counters, and
 stats collection falls back to per-operator pulls as ``_consume`` does.
-The reference's HashBucketOp, WindowOp, MergeJoinOp, UnionOp and stream
-synchronizers are not in the port yet; their branches wait with them
-(ROADMAP Queue 1).
+``plan_fusion_groups`` mirrors the pass over the PLAN tree for EXPLAIN.
+The reference's HashBucketOp and stream synchronizers belong to its
+multi-device path, which the port has not brought over (ROADMAP Queue 1);
+their branches wait with them.
 """
 
 from __future__ import annotations
@@ -35,12 +36,15 @@ from .operators import (
     FilterOp,
     HashJoinOp,
     LimitOp,
+    MergeJoinOp,
     ProjectOp,
     ScalarAggregateOp,
     ScanOp,
     SmallGroupAggregateOp,
     SortOp,
     TopKOp,
+    UnionOp,
+    WindowOp,
     _identity_fn,
 )
 
@@ -48,7 +52,7 @@ from .operators import (
 _CHAIN = (FilterOp, ProjectOp)
 # buffering consumers that fuse their own spool chain (_consume); their
 # children are never wrapped: the consumer drives the composition
-_CONSUMERS = (AggregateOp, ScalarAggregateOp, SortOp, TopKOp,
+_CONSUMERS = (AggregateOp, ScalarAggregateOp, SortOp, TopKOp, WindowOp,
               SmallGroupAggregateOp)
 
 
@@ -222,6 +226,10 @@ def _rewrite(op: Operator, parent_fuses: bool, jrun: int = 0) -> Operator:
         op.build = _rewrite(op.build, parent_fuses=True)
         fusy = op._fusable or op._gen_fusable
         return op if (not fusy or parent_fuses) else _wrap(op)
+    if isinstance(op, MergeJoinOp):
+        op.child = _rewrite(op.child, parent_fuses=False)
+        op.build = _rewrite(op.build, parent_fuses=True)
+        return op
     if isinstance(op, DistinctOp):
         # DistinctOp and its inner AggregateOp share ONE child object;
         # rewire both to the same rewritten instance
@@ -237,6 +245,10 @@ def _rewrite(op: Operator, parent_fuses: bool, jrun: int = 0) -> Operator:
     if isinstance(op, LimitOp):
         op.child = _rewrite(op.child, parent_fuses=False)
         return op
+    if isinstance(op, UnionOp):
+        op._children = [_rewrite(c, parent_fuses=False)
+                        for c in op._children]
+        return op
     # sources and external operators: nothing below to fuse here
     return op
 
@@ -246,6 +258,92 @@ def fuse_operators(root: Operator) -> Operator:
     (possibly wrapped) root. Mutates child links in place: run it before
     init()."""
     return _rewrite(root, parent_fuses=False)
+
+
+# ---------------------------------------------------------------------------
+# EXPLAIN support: the grouping mirrored over the PLAN tree
+
+
+def plan_fusion_groups(plan) -> dict[int, int]:
+    """id(plan node) -> pipeline group number, mirroring the pass (and the
+    consumers' spool fusion) over the plan tree, so EXPLAIN can show which
+    operators collapse into one function. Advisory: runtime fallbacks
+    (Grace spills, the max_fused_joins valve, stats collection) are not
+    modelled. Groups of one are omitted."""
+    from ..plan import spec as S
+    from ..utils import settings
+
+    links = (S.Filter, S.Project, S.HashBucket)
+    heads = (S.Aggregate, S.ScalarAggregate, S.Sort, S.TopK, S.Window,
+             S.Distinct)
+    groups: dict[int, int] = {}
+    next_group = [1]
+
+    def fusable_join(n) -> bool:
+        if not isinstance(n, S.HashJoin):
+            return False
+        if n.spec.build_unique or n.spec.join_type in ("semi", "anti"):
+            return True
+        return (n.spec.join_type in ("inner", "left")
+                and settings.get("sql.distsql.fusion.general_probe"))
+
+    def assign(members) -> None:
+        if len(members) < 2:
+            return
+        g = next_group[0]
+        next_group[0] += 1
+        for m in members:
+            groups[id(m)] = g
+
+    def descend(n):
+        """The chain below a group head -> (members, the barrier node
+        still to walk, None when the chain ends at a table scan)."""
+        members = []
+        while True:
+            if isinstance(n, S.Exchange):
+                n = n.input  # single-device builds elide the exchange
+            elif isinstance(n, links):
+                members.append(n)
+                n = n.input
+            elif fusable_join(n):
+                members.append(n)
+                walk(n.build)  # the build spool fuses its own chain
+                n = n.probe
+            elif isinstance(n, S.TableScan):
+                members.append(n)
+                return members, None
+            else:
+                return members, n
+
+    def walk(n) -> None:
+        if isinstance(n, S.Exchange):
+            walk(n.input)
+            return
+        if isinstance(n, heads):
+            members, barrier = descend(n.input)
+            assign([n] + members)
+            if barrier is not None:
+                walk(barrier)
+            return
+        if isinstance(n, links) or fusable_join(n):
+            members, barrier = descend(n)
+            assign(members)
+            if barrier is not None:
+                walk(barrier)
+            return
+        if isinstance(n, (S.HashJoin, S.MergeJoin)):
+            walk(n.probe)
+            walk(n.build)
+            return
+        if isinstance(n, (S.Union, S.StreamUnion)):
+            for c in n.inputs:
+                walk(c)
+            return
+        if hasattr(n, "input"):
+            walk(n.input)
+
+    walk(plan)
+    return groups
 
 
 def unwrap(op):

@@ -265,12 +265,15 @@ class Allocator:
     ``sql.distsql.workmem_bytes``. The owner closes it when its buffered
     state dies."""
 
-    def __init__(self, op: str):
+    def __init__(self, op: str, stats=None):
         from ..utils import settings
 
         self._mon = BytesMonitor(
             f"operator/{op}", parent=_CURRENT_QUERY.get() or ROOT,
             budget=int(settings.get("sql.distsql.workmem_bytes")))
+        # the owner's ComponentStats: its max_mem_bytes follows the
+        # account's high water (EXPLAIN ANALYZE's "max mem")
+        self._stats = stats
 
     @property
     def used(self) -> int:
@@ -281,6 +284,9 @@ class Allocator:
 
     def reserve(self, nbytes: int, force: bool = False) -> None:
         self._mon.reserve(nbytes, force=force)
+        if self._stats is not None:
+            self._stats.max_mem_bytes = max(self._stats.max_mem_bytes,
+                                            self._mon.high_water)
 
     def release(self, nbytes: int | None = None) -> None:
         self._mon.release(nbytes)

@@ -29,16 +29,24 @@ def _wait_device() -> None:
 class ComponentStats:
     """Per-operator execution stats (execinfrapb.ComponentStats analog)."""
 
-    __slots__ = ("batches", "rows", "time_s", "host_syncs", "spilled",
-                 "staged_bytes")
+    __slots__ = ("batches", "rows", "time_s", "bytes", "host_syncs",
+                 "spilled", "staged_bytes", "max_mem_bytes",
+                 "kernel_dispatches", "kernel_compiles")
 
     def __init__(self):
         self.batches = 0
         self.rows = 0
         self.time_s = 0.0  # inclusive wall time in next_batch (incl. children)
+        self.bytes = 0  # logical device bytes emitted (stats collection)
         self.host_syncs = 0  # device -> host waits this run
         self.spilled = False  # swapped in its external variant
         self.staged_bytes = 0  # bytes staged on the host by a spill
+        # peak reserved bytes across this operator's memory accounts
+        self.max_mem_bytes = 0
+        # dispatches and new signatures of the whole query, on the root
+        # (flow/runtime.run_plan_with_stats; dispatches are process-wide)
+        self.kernel_dispatches = 0
+        self.kernel_compiles = 0
 
     def exclusive(self, children: list["Operator"]) -> float:
         return self.time_s - sum(c.stats.time_s for c in children)
@@ -83,8 +91,11 @@ class Operator:
         t0 = time.perf_counter()
         b = self._next()
         if b is not None:
+            from .memory import batch_bytes
+
             self.stats.rows += int(b.mask.sum())
             self.stats.batches += 1
+            self.stats.bytes += batch_bytes(b)
         _wait_device()
         self.stats.time_s += time.perf_counter() - t0
         return b

@@ -1,10 +1,10 @@
 """Flow operators — the colexec operator set over the Operator contract;
-the port of the operators of ``cockroach_tpu.flow.operators`` that the
-22 TPC-H queries run on one device: ScanOp (resident and streaming),
-FilterOp, ProjectOp, LimitOp, AggregateOp (sort-groupby),
-SmallGroupAggregateOp (dense codes), ScalarAggregateOp, SortOp, TopKOp,
-DistinctOp and HashJoinOp (unique-build, existence and duplicate-key
-joins, over exact packed or hashed keys).
+the port of the one-device operators of ``cockroach_tpu.flow.operators``:
+ScanOp (resident and streaming), FilterOp, ProjectOp, LimitOp,
+AggregateOp (sort-groupby, string_agg on the host), SmallGroupAggregateOp
+(dense codes), ScalarAggregateOp, SortOp, TopKOp, DistinctOp, HashJoinOp
+(unique-build, existence and duplicate-key joins, over exact packed or
+hashed keys), WindowOp, UnionOp and MergeJoinOp.
 
 Two execution paths per operator, as in the reference:
 
@@ -28,9 +28,10 @@ that fits the data. Past its budget (``sql.distsql.workmem_rows`` or the
 ``workmem_bytes`` account of ``flow/memory``) a buffering operator swaps
 in its external variant (``flow/external.py``): SortOp the external sort,
 HashJoinOp the Grace hash join, AggregateOp and DistinctOp the Grace
-aggregation; those are barriers. Paths the port has not brought over
-(partial-mode aggregation, string_agg) raise NotImplementedError naming
-what waits.
+aggregation; those are barriers. WindowOp and MergeJoinOp's build have
+no external variant, as in the reference. Partial-mode aggregation, a
+distributed stage, raises NotImplementedError until the multi-device
+slice.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 
 from ..catalog import SHAPE_BUCKETS, Table
-from ..coldata.batch import Batch, Column, compact, concat, empty_batch
+from ..coldata.batch import (Batch, Column, Dictionary, compact, concat,
+                             empty_batch)
 from ..coldata.types import FLOAT64, Family, Schema
 from ..device import resolve_device
 from ..ops import aggregation as agg_ops
@@ -53,8 +55,6 @@ from .external import (ChainOp, ExternalSortOp, GraceAggregateOp,
 from .memory import Allocator, batch_bytes, note_spill
 from .operator import OneInputOperator, Operator, SourceOperator
 from .upload import TileStream
-
-NOT_PORTED = join_ops.NOT_PORTED
 
 
 def _next_pow2(n: int) -> int:
@@ -91,6 +91,20 @@ def _source_device(op: Operator) -> torch.device:
 
 def _identity_fn(b):
     return b
+
+
+def _runtime_dict(d) -> bool:
+    """A string_agg output's dictionary, which fills only at runtime."""
+    return getattr(d, "_runtime", False)
+
+
+def _refuse_runtime_keys(child: Operator, cols, what: str) -> None:
+    """Consumers whose plan reads a key's dictionary (ranks, sizes)
+    refuse a string_agg output: at plan time its dictionary is empty."""
+    for c in cols:
+        if _runtime_dict(child.dictionaries.get(c)):
+            raise ValueError(f"{what} a string_agg result is not supported "
+                             "(its dictionary fills at runtime)")
 
 
 _slice_parts_fns: dict[int, object] = {}
@@ -565,10 +579,18 @@ class AggregateOp(OneInputOperator):
             raise NotImplementedError(
                 f"{mode}-mode aggregation is a distributed stage, which "
                 "waits for the port's multi-device slice (ROADMAP Queue 1)")
-        if any(s.func == "string_agg" for s in aggs):
-            raise NotImplementedError("string_agg " + NOT_PORTED)
         self.group_cols = group_cols
         self.aggs = aggs
+        # string_agg runs OUTSIDE the device state pipeline, as in the
+        # reference: per-row (group key, string) pairs are collected on
+        # the host during the spool and joined at finalize (a variable-
+        # width concatenation has no fixed-tile device form). The device
+        # pipeline runs a count in its slot; _attach_saggs overwrites it.
+        self._sagg = [(j, a) for j, a in enumerate(aggs)
+                      if a.func == "string_agg"]
+        if self._sagg:
+            aggs = tuple(agg_ops.AggSpec("count", a.col, a.name)
+                         if a.func == "string_agg" else a for a in aggs)
         # ordered: equal group keys arrive adjacent (clustered scan); the
         # per-tile grouping skips its key sort. prefix_live: tiles are
         # live-prefix too, dropping the dead-row compaction sort.
@@ -581,11 +603,13 @@ class AggregateOp(OneInputOperator):
         k = len(group_cols)
         self.num_keys = k
         self.merge_specs = agg_ops.merge_specs_for(self.partial_specs, k)
-        self.output_schema = agg_ops.agg_output_schema(base, group_cols, aggs)
+        self.output_schema = agg_ops.agg_output_schema(base, group_cols,
+                                                       self.aggs)
         self.dictionaries = {
             group_cols.index(gi): d
             for gi, d in child.dictionaries.items() if gi in group_cols
         }
+        _refuse_runtime_keys(child, group_cols, "grouping by")
         self.key_stats = {
             group_cols.index(gi): s
             for gi, s in child.col_stats.items() if gi in group_cols
@@ -595,6 +619,12 @@ class AggregateOp(OneInputOperator):
         for pos, d in self.dictionaries.items():
             self.key_stats.setdefault(pos, (0, max(0, len(d) - 1)))
         self.col_stats = dict(self.key_stats)
+        # string_agg outputs get an empty Dictionary now (parents copy the
+        # reference at construction) that fills in place at finalize
+        for j, _ in self._sagg:
+            d = Dictionary(np.array([], dtype=object))
+            d._runtime = True
+            self.dictionaries[k + j] = d
         self.in_stats = {
             gi: s for gi, s in child.col_stats.items() if gi in group_cols
         }
@@ -616,6 +646,7 @@ class AggregateOp(OneInputOperator):
         self._tiles: list[Batch] = []
         self._external = None
         self._close_spool()  # a re-run: the prior account is dead
+        self._sagg_rows = {j: {} for j, _ in self._sagg}
 
     def _close_spool(self) -> None:
         if self._spool_alloc is not None:
@@ -659,9 +690,15 @@ class AggregateOp(OneInputOperator):
         exceeds workmem (rows, or the byte account); spill to the Grace
         aggregation when a merge-down stays over."""
         budget = settings.get("sql.distsql.workmem_rows")
-        alloc = self._spool_alloc = Allocator("aggregation spool")
+        alloc = self._spool_alloc = Allocator("aggregation spool", self.stats)
 
-        source = _consume(self, "partial", self._partial, self._partial_fn)
+        if self._sagg:
+            # a plain pull: every input tile hands its (group key,
+            # string) pairs to the host before its device partial
+            source = self._sagg_source()
+        else:
+            source = _consume(self, "partial", self._partial,
+                              self._partial_fn)
         spooled = 0
         for part in source:
             part = _keep(self, len(self._tiles), part)
@@ -679,10 +716,11 @@ class AggregateOp(OneInputOperator):
                 mb = batch_bytes(self._tiles[0])
                 over = alloc.would_exceed(mb)
                 alloc.reserve(mb, force=over)
-                if spooled > budget or over:
+                if (spooled > budget or over) and not self._sagg:
                     # the group count itself exceeds memory: hand the
                     # spooled states and the rest of the partial stream
-                    # to the Grace aggregation
+                    # to the Grace aggregation (string_agg's host state
+                    # cannot spill: it stays over budget, accounted)
                     note_spill("agg")
                     self.stats.spilled = True
                     self._close_spool()
@@ -710,7 +748,77 @@ class AggregateOp(OneInputOperator):
             return None
         acc = tiles[0] if len(tiles) == 1 else self._merge_down(tiles)
         self._close_spool()  # the spool tiles are dead
-        return self._finalize_fn(acc)
+        out = self._finalize_fn(acc)
+        if self._sagg:
+            out = self._attach_saggs(out)
+        return out
+
+    # -- string_agg host path ------------------------------------------------
+
+    def _sagg_source(self):
+        while True:
+            b = self.child.next_batch()
+            if b is None:
+                return
+            self._collect_sagg(b)
+            yield self._partial_fn(b)
+
+    def _host_rows(self, b: Batch, cols) -> tuple[np.ndarray, list]:
+        """(live row indices, hashable per-row keys over `cols`, None for
+        a NULL): one counted host read of the tile."""
+        self.stats.host_syncs += 1
+        idx = np.flatnonzero(b.mask.cpu().numpy())
+        parts = []
+        for c in cols:
+            data = b.cols[c].data.cpu().numpy()[idx]
+            valid = b.cols[c].valid.cpu().numpy()[idx]
+            parts.append([None if not ok else data[i].item()
+                          for i, ok in enumerate(valid)])
+        keys = list(zip(*parts)) if parts else [()] * len(idx)
+        return idx, keys
+
+    def _collect_sagg(self, b: Batch) -> None:
+        """Append each live row's string to its group's list, in row
+        order."""
+        idx, keys = self._host_rows(b, self.group_cols)
+        if not len(idx):
+            return
+        for j, spec in self._sagg:
+            col = b.cols[spec.col]
+            data = col.data.cpu().numpy()[idx]
+            valid = col.valid.cpu().numpy()[idx]
+            d = self.child.dictionaries.get(spec.col)
+            store = self._sagg_rows[j]
+            for key, code, ok in zip(keys, data, valid):
+                if ok:
+                    v = str(d.values[int(code)]) if d is not None \
+                        else str(code)
+                    store.setdefault(key, []).append(v)
+
+    def _attach_saggs(self, final: Batch) -> Batch:
+        """Overwrite each string_agg placeholder column with codes into
+        its runtime Dictionary of per-group concatenations."""
+        k = self.num_keys
+        idx, keys = self._host_rows(final, range(k))
+        cols = list(final.cols)
+        for j, spec in self._sagg:
+            store = self._sagg_rows[j]
+            joined = [spec.sep.join(store[key]) if store.get(key) else None
+                      for key in keys]
+            uniq = sorted({v for v in joined if v is not None})
+            self.dictionaries[k + j].reset(np.array(uniq, dtype=object))
+            code_of = {v: c for c, v in enumerate(uniq)}
+            codes = np.zeros(final.capacity, np.int32)
+            valid = np.zeros(final.capacity, bool)
+            for row, v in zip(idx, joined):
+                if v is not None:
+                    codes[row] = code_of[v]
+                    valid[row] = True
+            dev = final.device
+            cols[k + j] = Column(
+                data=torch.from_numpy(codes).to(dev),
+                valid=torch.from_numpy(valid).to(dev) & final.mask)
+        return Batch(cols=tuple(cols), mask=final.mask)
 
     def close(self):
         super().close()
@@ -859,6 +967,7 @@ class SortOp(OneInputOperator):
         super().__init__(child)
         self.output_schema = child.output_schema
         self.keys = keys
+        _refuse_runtime_keys(child, [k.col for k in keys], "ORDER BY")
         self.rank_tables = {
             k.col: child.dictionaries[k.col].ranks
             for k in keys if k.col in child.dictionaries
@@ -881,7 +990,7 @@ class SortOp(OneInputOperator):
         if self._emitted:
             return None
         budget = settings.get("sql.distsql.workmem_rows")
-        alloc = Allocator("sort spool")
+        alloc = Allocator("sort spool", self.stats)
         tiles = []
         total = 0
         for b in _consume(self, "spool", _identity_fn):
@@ -925,6 +1034,7 @@ class TopKOp(OneInputOperator):
         self.output_schema = child.output_schema
         self.keys = keys
         self.k = int(k)
+        _refuse_runtime_keys(child, [key.col for key in keys], "ORDER BY")
         self.rank_tables = {
             key.col: child.dictionaries[key.col].ranks
             for key in keys if key.col in child.dictionaries
@@ -1060,6 +1170,12 @@ class HashJoinOp(OneInputOperator):
             if probe.output_schema.types[pk].family is Family.STRING:
                 pd = probe.dictionaries[pk]
                 bd = build.dictionaries[bk]
+                if _runtime_dict(pd) or _runtime_dict(bd):
+                    # its hashes fill at the child's finalize: captured
+                    # here they are empty and every probe misses
+                    raise ValueError(
+                        "joining on a string_agg result is not supported "
+                        "(its dictionary fills at runtime)")
                 self.probe_hash_tables[pos] = pd.hashes
                 self.build_hash_tables[pos] = bd.hashes
                 self.build_code_remaps[pos] = np.array(
@@ -1307,7 +1423,7 @@ class HashJoinOp(OneInputOperator):
                 self._set_probe("analytic")
                 return
         else:
-            alloc = self._build_alloc = Allocator("hash join build")
+            alloc = self._build_alloc = Allocator("hash join build", self.stats)
             for b in _consume_op(self.build, "build_spool"):
                 b = _keep(self, len(tiles), b)
                 nb = batch_bytes(b)
@@ -1555,3 +1671,198 @@ class HashJoinOp(OneInputOperator):
         self._close_build()
         if self._grace is not None:
             self._grace.close()
+
+
+# ---------------------------------------------------------------------------
+# Window, UNION ALL, merge join
+
+
+class WindowOp(OneInputOperator):
+    """Buffering window-function operator (colexecwindow analog): spool
+    every tile, then ONE function (one CUDA graph on the card) concats
+    the spool at its canonical capacity and appends the window columns
+    (ops/window.compute_windows). Like the reference's, it has no
+    external variant: the spool and the sorted tile live on the device
+    whole."""
+
+    def __init__(self, child: Operator, partition_cols: tuple[int, ...],
+                 order_keys, specs):
+        from ..ops import window as win_ops
+
+        super().__init__(child)
+        self.partition_cols = tuple(partition_cols)
+        self.order_keys = tuple(order_keys)
+        self.specs = tuple(specs)
+        self.output_schema = win_ops.window_output_schema(
+            child.output_schema, self.specs)
+        # string-valued outputs (lag/lead/min/max/first/last over a STRING
+        # column) carry the source column's dictionary
+        base_len = len(child.output_schema)
+        for i, sp in enumerate(self.specs):
+            if (sp.col is not None and sp.col in child.dictionaries
+                    and sp.func in ("lag", "lead", "min", "max",
+                                    "first_value", "last_value")):
+                self.dictionaries[base_len + i] = child.dictionaries[sp.col]
+        # rank tables for every STRING column the function sorts or
+        # reduces: order keys, partition keys and min/max inputs
+        need = {k.col for k in self.order_keys} | set(self.partition_cols)
+        need.update(sp.col for sp in self.specs
+                    if sp.col is not None and sp.func in ("min", "max"))
+        _refuse_runtime_keys(child, sorted(need), "a window over")
+        self.rank_tables = {c: child.dictionaries[c].ranks
+                            for c in need if c in child.dictionaries}
+        self._fn = dispatch.jit(self._windows)
+
+    def _windows(self, tiles, cap: int) -> Batch:
+        from ..ops import window as win_ops
+
+        big = concat(list(tiles), capacity=cap)
+        return win_ops.compute_windows(
+            big, self.child.output_schema, self.partition_cols,
+            self.order_keys, self.specs, self.rank_tables)
+
+    def init(self):
+        super().init()
+        self._emitted = False
+
+    def _next(self):
+        if self._emitted:
+            return None
+        self._emitted = True
+        tiles = [_keep(self, k, b) for k, b in
+                 enumerate(_consume(self, "spool", _identity_fn))]
+        if not tiles:
+            return None
+        return self._fn(tuple(tiles), _spool_cap(self, tiles))
+
+
+class UnionOp(Operator):
+    """UNION ALL: pull each input to exhaustion in order (the plan-level
+    unordered fan-in; the inputs share one output schema)."""
+
+    def __init__(self, children_ops: tuple[Operator, ...]):
+        super().__init__()
+        if not children_ops:
+            raise ValueError("UNION ALL needs at least one input")
+        self._children = list(children_ops)
+        self.output_schema = children_ops[0].output_schema
+        for c in children_ops[1:]:
+            if len(c.output_schema) != len(self.output_schema):
+                raise ValueError("UNION ALL inputs must have equal arity")
+        self.dictionaries = dict(children_ops[0].dictionaries)
+        self._cur = 0
+
+    def children(self):
+        return list(self._children)
+
+    def init(self):
+        for c in self._children:
+            c.init()
+        super().init()
+        self._cur = 0
+
+    def _next(self):
+        while self._cur < len(self._children):
+            b = self._children[self._cur].next_batch()
+            if b is not None:
+                return b
+            self._cur += 1
+        return None
+
+    def close(self):
+        for c in self._children:
+            c.close()
+
+
+class MergeJoinOp(OneInputOperator):
+    """Merge join (mergejoiner.go analog): spool and sort the build side
+    by its exact (possibly composite) key once, then stream probe tiles
+    through a vectorised lexicographic binary search (ops/merge_join.py;
+    no hash, no collision loop). Each probe is one function at a sticky
+    output capacity; a probe whose total passes it runs again at the
+    canonical capacity of the total (one counted host sync per tile)."""
+
+    def __init__(self, probe: Operator, build: Operator, probe_key,
+                 build_key, spec: join_ops.JoinSpec):
+        from ..ops import merge_join as mj_ops
+
+        super().__init__(probe)
+        self.build = build
+        self.probe_key = mj_ops._norm_keys(probe_key)
+        self.build_key = mj_ops._norm_keys(build_key)
+        self.spec = spec
+        self.output_schema = join_ops.join_output_schema(
+            probe.output_schema, build.output_schema, spec)
+        if spec.join_type not in ("semi", "anti"):
+            off = len(probe.output_schema)
+            for i, d in build.dictionaries.items():
+                self.dictionaries[off + i] = d
+            for i, s in build.col_stats.items():
+                self.col_stats[off + i] = s
+        # STRING keys share one rank space per key position: build codes
+        # remap into the probe dictionary's ranks
+        self.probe_rank, self.build_rank = mj_ops.rank_tables_for(
+            probe.output_schema, self.probe_key, probe.dictionaries,
+            self.build_key, build.dictionaries)
+        self._out_cap = 4096
+        self._build_fn = dispatch.jit(self._build_index)
+        self._probe_fn = dispatch.jit(self._probe)
+        self._store: list = []
+
+    def _build_index(self, tiles, cap: int):
+        from ..ops import merge_join as mj_ops
+
+        big = concat(list(tiles), capacity=cap)
+        return big, mj_ops.build_merge_index(
+            big, self.build.output_schema, self.build_key, self.build_rank)
+
+    def _probe(self, p: Batch, build: Batch, index, out_cap: int):
+        from ..ops import merge_join as mj_ops
+
+        return mj_ops.merge_join(
+            p, self.child.output_schema, self.probe_key, build,
+            self.build.output_schema, self.build_key, self.spec, out_cap,
+            self.probe_rank, self.build_rank, build_index=index, sync=None)
+
+    def children(self):
+        return [self.child, self.build]
+
+    def init(self):
+        self.build.init()
+        super().init()
+        self._built = False
+
+    def _ensure_built(self):
+        if self._built:
+            return
+        self._built = True
+        tiles = [_keep(self, k, b) for k, b in
+                 enumerate(_consume_op(self.build, "build_spool"))]
+        if not tiles:
+            empty = empty_batch(self.build.output_schema, 1024,
+                                _source_device(self.build))
+            self._build_batch, self._index = dispatch.persist(
+                self._store, self._build_index((empty,), 1024))
+        else:
+            self._build_batch, self._index = self._build_fn(
+                tuple(tiles), _spool_cap(self, tiles))
+
+    def _next(self):
+        self._ensure_built()
+        p = self.child.next_batch()
+        if p is None:
+            return None
+        if self.spec.join_type in ("semi", "anti"):
+            # probe-aligned: the output is the probe tile, re-masked
+            return self._probe_fn(p, self._build_batch, self._index, 0)[0]
+        while True:
+            out, total = self._probe_fn(p, self._build_batch, self._index,
+                                        self._out_cap)
+            n = self.sync_int(total)
+            if n <= self._out_cap:
+                return out
+            self._out_cap = _canonical_cap(n)
+
+    def close(self):
+        super().close()
+        self.build.close()

@@ -18,6 +18,11 @@ live rows to host numpy columns (decoding string dictionaries).
   on the device before they cross to the host, speculatively: the live
   count is read once at query end, and a tile the compaction truncated is
   materialized again from its retained original.
+
+``run_plan_with_stats`` runs with ComponentStats collection inside a
+traced ``query`` span, folds the operator tree's stats into child spans
+and leaves the query's dispatches, new signatures and peak memory on the
+root operator: EXPLAIN ANALYZE (plan/explain.py) renders all of it.
 """
 
 from __future__ import annotations
@@ -145,9 +150,11 @@ def _pull(root: Operator, shrink: _ReadbackShrink, overlap: bool) -> list:
 
 def run_operator(root: Operator) -> dict[str, np.ndarray]:
     """Run the operator tree (re-running while speculative capacities
-    overflow); {column name: host array}."""
+    overflow); {column name: host array}. The query's dispatches, new
+    signatures and memory peak land on the root (EXPLAIN ANALYZE)."""
     overlap = settings.get("sql.distsql.readback_overlap")
-    with query_scope():
+    d0, c0 = dispatch.total(), dispatch.compiles()
+    with query_scope() as qmon:
         try:
             for _ in range(MAX_ATTEMPTS):
                 root.init()
@@ -162,7 +169,10 @@ def run_operator(root: Operator) -> dict[str, np.ndarray]:
                     "speculative emission capacities failed to converge in "
                     f"{MAX_ATTEMPTS} attempts")
         finally:
+            root.stats.kernel_dispatches += dispatch.total() - d0
+            root.stats.kernel_compiles += dispatch.compiles() - c0
             root.close()
+            root._query_mem_peak = qmon.high_water
     if not outs:
         return {n: np.array([]) for n in root.output_schema.names}
     return {
@@ -224,6 +234,35 @@ def io_report(root: Operator) -> dict:
             "upload_waits": waits, "fill_wait_s": fill_wait_s,
             "staged_bytes": staged,
             "host_syncs_total": syncs}
+
+
+def _fold_operator_spans(parent, op: Operator) -> None:
+    """Fold the operator tree's ComponentStats into synthetic child spans
+    (the execstats fold): inclusive wall time per operator, nesting as in
+    the operator tree."""
+    from ..utils import tracing
+
+    st = op.stats
+    child = tracing.synthetic_span(parent, f"operator/{type(op).__name__}",
+                                   float(st.time_s), rows=int(st.rows),
+                                   batches=int(st.batches))
+    for c in op.children():
+        _fold_operator_spans(child, c)
+
+
+def run_plan_with_stats(plan: PlanNode, catalog: Catalog):
+    """Run with ComponentStats collection -> (results, root operator);
+    the stats fold into the ``query`` span left on the root."""
+    from ..utils import tracing
+
+    root = plan_builder.build(plan, catalog)
+    root.collect_stats(True)
+    with tracing.span("query") as sp:
+        res = run_operator(root)
+        sp.record(root.stats)
+        _fold_operator_spans(sp, root)
+    root._trace_span = sp  # EXPLAIN ANALYZE renders the tree from here
+    return res, root
 
 
 def run_plan(plan: PlanNode, catalog: Catalog) -> dict[str, np.ndarray]:

@@ -46,8 +46,6 @@ from .keys import bits_for_count
 
 _SENTINEL = -1  # the uint64 all-ones word as an int64 bit pattern
 
-NOT_PORTED = "waits for a later SQL slice of the port (ROADMAP Queue 1)"
-
 
 @dataclass(frozen=True)
 class JoinSpec:

@@ -8,8 +8,11 @@ that find their match run ``[lo, hi)`` by a lexicographic binary search
 Key lanes follow the port's uint64 convention (int64 bit patterns,
 unsigned order after flipping bit 63): each key column maps to an
 order-preserving 64-bit word, NULL and dead rows to the all-ones
-sentinel, and a composite key compares lane by lane. The ``MergeJoinOp``
-operator waits for a later SQL slice.
+sentinel, and a composite key compares lane by lane. ``MergeJoinOp``
+(flow/operators.py) runs ``merge_join`` with ``sync=None``: the output
+capacity is fixed and the total stays on the device, so a probe is
+captured as one CUDA graph and the operator re-runs a probe whose total
+passed the capacity.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..coldata.batch import Batch, Column
+from ..coldata.batch import Batch, Column, device_table
 from ..coldata.types import Family, Schema
 from ..storage.keys import flip
 from .join import JoinSpec
@@ -35,8 +38,7 @@ def _u64_key(batch: Batch, key: int, schema: Schema, rank_table=None):
     if t.family is Family.STRING:
         if rank_table is None:
             raise ValueError("STRING merge join needs a rank table")
-        table = torch.from_numpy(np.ascontiguousarray(rank_table)).to(
-            c.data.device)
+        table = device_table(rank_table, c.data.device)
         codes = torch.clamp(c.data.to(torch.int64), 0, table.shape[0] - 1)
         payload = table[codes].to(torch.int64) ^ _TOP
     elif t.family is Family.FLOAT:
@@ -175,7 +177,9 @@ def merge_join(
     unmatched live row one null-extended row at its base slot): output
     ordered by probe row, then sorted build position. `out_capacity` is
     the output tile's capacity, or a function of the total giving it;
-    rows past it are dropped. The total becomes a host int via `sync`."""
+    rows past it are dropped. The total becomes a host int via `sync`;
+    with sync=None (an int `out_capacity`) it stays a device scalar and
+    nothing reads the device on the host."""
     pkeys = _norm_keys(probe_key)
     bkeys = _norm_keys(build_key)
     cap = probe.capacity
@@ -201,16 +205,27 @@ def merge_join(
     out_rows = cnt
     if spec.join_type == "left":
         out_rows = torch.where(probe.mask, torch.clamp(cnt, min=1), cnt)
-    base = torch.cumsum(out_rows, 0) - out_rows
-    total = sync(out_rows.sum())
-    oc = out_capacity(total) if callable(out_capacity) else out_capacity
-    keep = min(total, oc)
-    rows = torch.arange(cap, device=dev)
-    out_p = torch.zeros(oc, dtype=torch.int64, device=dev)
-    out_p[:keep] = torch.repeat_interleave(rows, out_rows,
-                                           output_size=total)[:keep]
-    slot = torch.arange(oc, device=dev)
-    out_live = slot < keep
+    ends = torch.cumsum(out_rows, 0)
+    base = ends - out_rows
+    if sync is None:
+        # the probe row of output slot s: the first row whose run ends
+        # past s (repeat_interleave without its host-side total)
+        total = ends[-1]
+        oc = out_capacity
+        slot = torch.arange(oc, device=dev)
+        out_p = torch.clamp(torch.searchsorted(ends, slot, right=True),
+                            max=cap - 1)
+        out_live = slot < total
+    else:
+        total = sync(out_rows.sum())
+        oc = out_capacity(total) if callable(out_capacity) else out_capacity
+        keep = min(total, oc)
+        rows = torch.arange(cap, device=dev)
+        out_p = torch.zeros(oc, dtype=torch.int64, device=dev)
+        out_p[:keep] = torch.repeat_interleave(rows, out_rows,
+                                               output_size=total)[:keep]
+        slot = torch.arange(oc, device=dev)
+        out_live = slot < keep
     k = slot - base[out_p]
     out_found = out_live & (k < cnt[out_p])
     out_b = order[torch.clamp(lo[out_p] + k, 0, bcap - 1)]

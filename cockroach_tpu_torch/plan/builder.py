@@ -1,9 +1,10 @@
 """Plan -> operator tree — the colbuilder.NewColOperator analog; the port
-of ``cockroach_tpu.plan.builder`` for the node kinds the 22 TPC-H queries
-use on one device (TableScan, Filter, Project, Aggregate, ScalarAggregate,
-Sort, TopK, Limit, Distinct, HashJoin, and Exchange as the identity). Any
-other node raises NotImplementedError. Then, as in the reference, the
-fusion pass (flow/fuse.py) collapses stateless per-tile chains.
+of ``cockroach_tpu.plan.builder`` for one device: TableScan, Filter,
+Project, Aggregate, ScalarAggregate, Sort, TopK, Limit, Distinct,
+Window, HashJoin, MergeJoin, Union, and Exchange as the identity. The
+index scan and the multi-device nodes raise NotImplementedError. Then,
+as in the reference, the fusion pass (flow/fuse.py) collapses stateless
+per-tile chains.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ def _plan_dense_agg(child: Operator, group_cols, aggs):
     for gi in group_cols:
         t = child.output_schema.types[gi]
         if t.family is Family.STRING and gi in child.dictionaries:
+            if getattr(child.dictionaries[gi], "_runtime", False):
+                return None  # fills at runtime: size unknown at plan time
             size, lo = len(child.dictionaries[gi]), 0
         elif t.family in (Family.FLOAT, Family.BYTES, Family.JSON,
                           Family.STRING):
@@ -149,14 +152,23 @@ def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
                            plan.offset)
     if isinstance(plan, S.Distinct):
         return ops.DistinctOp(_build(plan.input, catalog), plan.cols)
+    if isinstance(plan, S.Window):
+        return ops.WindowOp(_build(plan.input, catalog), plan.partition_cols,
+                            plan.order_keys, plan.specs)
+    if isinstance(plan, S.MergeJoin):
+        return ops.MergeJoinOp(
+            _build(plan.probe, catalog), _build(plan.build, catalog),
+            plan.probe_key, plan.build_key, plan.spec)
     if isinstance(plan, S.HashJoin):
         return ops.HashJoinOp(
             _build(plan.probe, catalog), _build(plan.build, catalog),
             plan.probe_keys, plan.build_keys, plan.spec)
+    if isinstance(plan, S.Union):
+        return ops.UnionOp(tuple(_build(p, catalog) for p in plan.inputs))
     if isinstance(plan, S.Exchange):
         # single-device build: the shuffle is the identity
         return _build(plan.input, catalog)
     raise NotImplementedError(
-        f"plan node {type(plan).__name__} (Window, MergeJoin, Union, "
-        "IndexScan and the distribution nodes) waits for a later SQL slice "
-        "of the port (ROADMAP Queue 1)")
+        f"plan node {type(plan).__name__} (IndexScan and the distribution "
+        "nodes) waits for the port's KV and multi-device slices (ROADMAP "
+        "Queue 1)")

@@ -1,7 +1,9 @@
 """Relational plan builder — the optbuilder analog; the port of the
-plan-building subset of ``cockroach_tpu.sql.rel`` that the 22 TPC-H
-queries use (scan, filter, project, select, groupby, scalar_agg, sort,
-limit, distinct, join, and the string predicates and transforms).
+one-device surface of ``cockroach_tpu.sql.rel``: scan, filter, project,
+select, groupby (string_agg included), scalar_agg, sort, limit,
+distinct, window, join (inner, left, right, full, semi, anti),
+merge_join, union_all, cross_join, the string predicates and transforms,
+and explain / explain_analyze.
 
 ``Rel`` is a fluent builder over the plan IR that tracks output schema and
 string dictionaries as the plan grows, so string literals resolve to
@@ -22,7 +24,7 @@ import numpy as np
 
 from ..catalog import Catalog
 from ..coldata.batch import Dictionary
-from ..coldata.types import FLOAT64, INT32, STRING, Schema, SQLType
+from ..coldata.types import FLOAT64, INT32, STRING, Family, Schema, SQLType
 from ..flow.runtime import run_plan
 from ..ops import aggregation as agg_ops
 from ..ops import expr as ex
@@ -227,32 +229,146 @@ class Rel:
         }
         return Rel(self.catalog, S.Distinct(self.plan, idxs), schema, dicts)
 
+    def window(self, partition_by: list[str],
+               order_by: list[tuple[str, bool]], funcs: list[tuple],
+               running: bool = False, frame: tuple | None = None,
+               frame_kind: str = "rows",
+               exclude: str = "no_others") -> "Rel":
+        """funcs: (output name, window func, input col name or None[,
+        offset]). running=True selects the cumulative frame for
+        aggregates; `frame` is the BETWEEN spec as (preceding, following)
+        with None meaning UNBOUNDED, read as rows, ORDER-BY-value offsets
+        (frame_kind='range') or peer groups (frame_kind='groups');
+        `exclude` is the EXCLUDE clause."""
+        from ..ops import window as win_ops
+
+        pcols = tuple(self.idx(n) for n in partition_by)
+        okeys = tuple(sort_ops.SortKey(self.idx(n), desc=d)
+                      for n, d in order_by)
+        specs = tuple(
+            win_ops.WindowSpec(
+                a[1], None if a[2] is None else self.idx(a[2]), a[0],
+                running=running, frame=frame, frame_kind=frame_kind,
+                exclude=exclude,
+                **({"offset": a[3]} if len(a) > 3 else {}))
+            for a in funcs)
+        node = S.Window(self.plan, pcols, okeys, specs)
+        schema = win_ops.window_output_schema(self.schema, specs)
+        dicts = dict(self.dicts)
+        base = len(self.schema)
+        for i, sp in enumerate(specs):  # string-valued window outputs
+            if (sp.col is not None and sp.col in self.dicts
+                    and sp.func in ("lag", "lead", "min", "max",
+                                    "first_value", "last_value")):
+                dicts[base + i] = self.dicts[sp.col]
+        return Rel(self.catalog, node, schema, dicts)
+
+    def _joined(self, build: "Rel", node, how: str) -> "Rel":
+        if how in ("semi", "anti"):
+            return Rel(self.catalog, node, self.schema, dict(self.dicts))
+        dicts = dict(self.dicts)
+        off = len(self.schema)
+        for i, d in build.dicts.items():
+            dicts[off + i] = d
+        return Rel(self.catalog, node, self.schema.concat(build.schema),
+                   dicts)
+
+    def merge_join(self, build: "Rel", on, how: str = "inner") -> "Rel":
+        """Merge join (sorted-key binary search, no hashing). `on` is one
+        (probe_col, build_col) pair or a list of pairs (a composite key,
+        compared lexicographically)."""
+        pairs = [on] if isinstance(on[0], str) else list(on)
+        pk = tuple(self.idx(p) for p, _ in pairs)
+        bk = tuple(build.idx(b) for _, b in pairs)
+        if len(pairs) == 1:
+            pk, bk = pk[0], bk[0]
+        spec = join_ops.JoinSpec(how, build_unique=False)
+        return self._joined(build, S.MergeJoin(self.plan, build.plan, pk, bk,
+                                               spec), how)
+
     def join(self, build: "Rel", on: list[tuple[str | int, str | int]],
              how: str = "inner", build_unique: bool = True) -> "Rel":
-        """inner | left | semi | anti. `on` pairs accept column names or
-        POSITIONS (positions are the only sound reference once self-joins
-        duplicate names). Right and full outer joins compose UNION ALL over
-        an anti join in the reference; both wait for a later SQL slice."""
+        """inner | left | right | full | semi | anti. `on` pairs accept
+        column names or POSITIONS (positions are the only sound reference
+        once self-joins duplicate names). Right and full outer joins
+        compose as the hash joiner emits unmatched build rows after the
+        probe stream: the matched part (inner for right, left outer for
+        full) UNION ALL the build side's anti join against the probe,
+        null-extended over the probe columns."""
         def _pk(r: "Rel", c) -> int:
             return c if isinstance(c, int) else r.idx(c)
 
         if how in ("right", "full"):
-            raise NotImplementedError(
-                f"{how} outer joins wait for a later SQL slice of the port "
-                "(ROADMAP Queue 1)")
+            matched = self.join(build, on,
+                                how="inner" if how == "right" else "left",
+                                build_unique=build_unique)
+            rev = [(b, p) for (p, b) in on]
+            unmatched = build.join(self, on=rev, how="anti",
+                                   build_unique=False)
+            exprs = tuple(ex.Const(None, t) for t in self.schema.types)
+            exprs = exprs + tuple(ex.ColRef(i)
+                                  for i in range(len(build.schema)))
+            names = self.schema.names + build.schema.names
+            off = len(self.schema)
+            overrides = tuple((off + i, d) for i, d in build.dicts.items())
+            node = S.Project(unmatched.plan, exprs, names, overrides)
+            ne = Rel(self.catalog, node, matched.schema,
+                     {off + i: d for i, d in build.dicts.items()})
+            return matched.union_all(ne)
         pkeys = tuple(_pk(self, l) for l, _ in on)
         bkeys = tuple(_pk(build, r) for _, r in on)
         spec = join_ops.JoinSpec(how, build_unique)
-        node = S.HashJoin(self.plan, build.plan, pkeys, bkeys, spec)
-        if how in ("semi", "anti"):
-            schema, dicts = self.schema, dict(self.dicts)
-        else:
-            schema = self.schema.concat(build.schema)
-            dicts = dict(self.dicts)
-            off = len(self.schema)
-            for i, d in build.dicts.items():
-                dicts[off + i] = d
-        return Rel(self.catalog, node, schema, dicts)
+        return self._joined(build, S.HashJoin(self.plan, build.plan, pkeys,
+                                              bkeys, spec), how)
+
+    def union_all(self, other: "Rel") -> "Rel":
+        """UNION ALL (bag semantics, over same-schema inputs)."""
+        if len(self.schema) != len(other.schema):
+            raise ValueError("UNION ALL inputs must have equal arity")
+        for i, (lt, rt) in enumerate(zip(self.schema.types,
+                                         other.schema.types)):
+            if lt.family is not rt.family:
+                raise ValueError(
+                    f"UNION ALL column {i}: {lt} vs {rt} (type families "
+                    "must match)")
+        for i in set(self.dicts) & set(other.dicts):
+            if self.dicts.get(i) is not other.dicts.get(i):
+                raise ValueError(
+                    "UNION ALL over STRING columns requires a shared "
+                    "dictionary (codes are dictionary-relative)")
+
+        # a dictionary on only ONE side is allowed solely for a provably
+        # all-NULL arm (an outer join's null-extended side): non-NULL
+        # codes from the other side would decode through the wrong one
+        def _all_null_col(rel: "Rel", i: int) -> bool:
+            p = rel.plan
+            return (isinstance(p, S.Project)
+                    and isinstance(p.exprs[i], ex.Const)
+                    and p.exprs[i].value is None)
+
+        for i in set(self.dicts) ^ set(other.dicts):
+            dictless = other if i in self.dicts else self
+            if (self.schema.types[i].family is Family.STRING
+                    and not _all_null_col(dictless, i)):
+                raise ValueError(
+                    f"UNION ALL column {i}: one arm is dictionary-coded and "
+                    "the other is not provably all-NULL; codes would decode "
+                    "through the wrong dictionary")
+        node = S.Union((self.plan, other.plan))
+        return Rel(self.catalog, node, self.schema, dict(self.dicts))
+
+    def cross_join(self, build: "Rel") -> "Rel":
+        """Cross join through a constant join key: every probe row matches
+        every build row, and the duplicate-key join emits the product."""
+        lk = self.project(
+            [(n, self.c(n)) for n in self.schema.names] + [("__k", ex.lit(1))])
+        rk = build.project(
+            [(n, build.c(n)) for n in build.schema.names]
+            + [("__k", ex.lit(1))])
+        j = lk.join(rk, on=[("__k", "__k")], how="inner", build_unique=False)
+        np_, nb = len(self.schema), len(build.schema)
+        keep = list(range(np_)) + list(range(np_ + 1, np_ + 1 + nb))
+        return j.project([(j.schema.names[i], ex.ColRef(i)) for i in keep])
 
     # -- execution ----------------------------------------------------------
 
@@ -280,3 +396,19 @@ class Rel:
 
     def run(self) -> dict[str, np.ndarray]:
         return run_plan(self.optimized_plan(), self.catalog)
+
+    def explain(self) -> str:
+        """EXPLAIN: the optimized plan tree with its fusion groups."""
+        from ..plan.explain import explain_plan
+
+        return explain_plan(self.optimized_plan())
+
+    def explain_analyze(self) -> tuple[str, dict[str, np.ndarray]]:
+        """Run with ComponentStats collection -> (rendered tree, results):
+        the EXPLAIN ANALYZE surface."""
+        from ..flow.runtime import run_plan_with_stats
+        from ..plan.explain import explain_analyze
+
+        plan = self.optimized_plan()
+        res, root = run_plan_with_stats(plan, self.catalog)
+        return explain_analyze(plan, root), res

@@ -4,9 +4,9 @@ for node (fusion nodes, their positions and members included) with the
 same join strategies and, after one run, the same learned join emission,
 results equal to the reference's run_operator (exactly, the
 FLOAT64 averages within rtol=1e-12), the numpy oracle equal to both; the
-duplicate-key join, TopK, ScalarAggregate and Distinct nodes equal the
-reference's, and the plans still outside the port raise
-NotImplementedError."""
+duplicate-key join, right outer join, TopK, ScalarAggregate, Distinct
+and Union nodes equal the reference's, and the plans still outside the
+port (partial-mode aggregation) raise NotImplementedError."""
 
 import numpy as np
 import pytest
@@ -187,14 +187,14 @@ def test_reference_operator_names_exist():
 
 
 def test_duplicate_key_join_raises(cats):
-    """Joins over duplicate build keys run and equal the reference's (as
-    multisets: the reference's build sort is not stable inside a run of
-    equal keys); right outer joins still raise."""
+    """Joins over duplicate build keys, and the right outer join, run and
+    equal the reference's (as multisets: the reference's build sort is
+    not stable inside a run of equal keys)."""
     from cockroach_tpu.sql.rel import Rel as JRel
     from test_torch_joins import _rows
 
     jcat, tcat = cats
-    for how in ("inner", "semi"):
+    for how in ("inner", "semi", "right"):
         out = []
         for R, cat, run, bld in ((JRel, jcat, jrun, jbuilder),
                                  (Rel, tcat, trun, tbuilder)):
@@ -205,15 +205,11 @@ def test_duplicate_key_join_raises(cats):
             out.append(run(bld.build(rel.plan, cat)))
         assert len(out[1]["l_orderkey"]) > 0
         assert _rows(out[1]) == _rows(out[0])
-    li = Rel.scan(tcat, "lineitem", ("l_orderkey", "l_partkey"))
-    ps = Rel.scan(tcat, "partsupp", ("ps_partkey", "ps_suppkey"))
-    with pytest.raises(NotImplementedError):
-        li.join(ps, on=[("l_partkey", "ps_partkey")], how="right")
 
 
 def test_topk_and_other_nodes_raise(cats):
-    """TopK, ScalarAggregate and Distinct nodes build and equal the
-    reference's; Union and partial-mode aggregation still raise."""
+    """TopK, ScalarAggregate, Distinct and Union nodes build and equal the
+    reference's; partial-mode aggregation still raises."""
     from cockroach_tpu.ops import aggregation as jagg
     from cockroach_tpu.ops import sort as jsort
     from cockroach_tpu.plan import spec as JS
@@ -232,6 +228,7 @@ def test_topk_and_other_nodes_raise(cats):
          S.ScalarAggregate(tbase, (tagg.AggSpec("sum", 1, "s"),
                                    tagg.AggSpec("count_rows", None, "n")))),
         (JS.Distinct(jbase, (2,)), S.Distinct(tbase, (2,))),
+        (JS.Union((jbase, jbase)), S.Union((tbase, tbase))),
     ]
     for jnode, tnode in nodes:
         assert repr(tnode) == repr(jnode)
@@ -241,8 +238,6 @@ def test_topk_and_other_nodes_raise(cats):
         for name in want:
             np.testing.assert_array_equal(np.asarray(got[name]),
                                           np.asarray(want[name]))
-    with pytest.raises(NotImplementedError, match="later SQL slice"):
-        tbuilder.build(S.Union((tbase, tbase)), tcat)
     with pytest.raises(NotImplementedError, match="distributed stage"):
         tbuilder.build(S.Aggregate(tbase, (0,), (), mode="partial"), tcat)
     with pytest.raises(NotImplementedError, match="distributed stage"):

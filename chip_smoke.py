@@ -31,6 +31,19 @@ to its default run; the ``{"tpch_sf10": ...}`` line. Neither storage
 kernel runs on those paths (``tpch_launches`` and ``sf10_launches`` in
 the kernel table count their launches).
 
+SQL over the MVCC store (``kv/``, ``storage/rowcodec.py``), right after
+the SF1 phase: all 22 queries over KV tables at sf=0.01 on the card equal
+the CPU and the host tables on the card; the SF1 catalog bulk-loaded into
+one ``key_width=16`` engine on the card (``bench/tpch_kv.py``), bench.py's
+ladder over KV held to the oracle in every run and profiled once, RF1 and
+RF2 in transactions, the ladder again held to the oracle of the refreshed
+data (fused, with CUDA graphs), then orders in a second engine with an
+index on o_custkey: 100 lookups through ``IndexScanOp``, each equal to the
+full scan, and a checkpoint plus WAL reopened on the card with the same
+live rows; the ``{"tpch_kv": ...}`` line (``kv_launches`` in the kernel
+table counts the storage kernels' launches in the load, the ladders and
+the refresh functions).
+
 Fusion (``flow/fuse.py``, ``flow/dispatch.py``): all 22 queries at SF0.05
 and under the SF10 scaling fused equal to unfused bit for bit, CUDA
 graphs captured in the first fused run and none in a repeat run; at SF1
@@ -66,6 +79,7 @@ from __future__ import annotations
 
 import bisect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -347,6 +361,9 @@ def check_merge(dev) -> int:
     pair_case("2x2^20 (several waves)",
               sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev),
               sorted_run(rng, 1 << 20, 1 << 20, 1 << 19, dev))
+    pair_case("2x2^23 (the TPC-H SF1 KV load's largest merge)",
+              sorted_run(rng, 1 << 23, 1 << 23, 1 << 22, dev),
+              sorted_run(rng, 1 << 23, 1 << 23, 1 << 22, dev))
 
     check_tournament(tuple(
         sorted_run(rng, int(rng.integers(500, 2048)), 2048, 300, dev)
@@ -915,12 +932,13 @@ def check_fusion22(dev, sf: float, tile: int | None = None,
     return {"equal": True, "captures": caps, "replays": replays}
 
 
-def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0) -> dict:
+def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0):
     """The SQL main path on the card: the SF0.01 and SF0.05 parity checks
     (and at SF0.05 fused against unfused), then at SF1 bench.py's ladder
     through run_tpch (every run held to the numpy oracle), one profiled
     run of each ladder query, the other 18 queries cold and warm, and q3,
-    q9 and q18 fused against unfused (into `fusion`)."""
+    q9 and q18 fused against unfused (into `fusion`). Returns the figures
+    (the ladder's run_tpch output under "ladder") and the SF1 catalog."""
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
     from cockroach_tpu_torch.bench.tpch_run import LADDER, run_tpch
@@ -974,7 +992,296 @@ def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0) -> dict:
     fusion[f"sf{sf:g}"] = fusion_compare(cat)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     out["merge_join"] = merge_vs_hash(cat)
+    out["ladder"] = res
+    return out, cat
+
+
+# ---------------------------------------------------------------------------
+# SQL over the MVCC store (kv/table.py, kv/txn.py, kv/index.py)
+
+KV_DIR = ".kvstore"  # checkpoint and WAL of the index engine, removed after
+
+
+def kv_scan_ops(root) -> list:
+    """The scans of KV tables in a tree."""
+    from cockroach_tpu_torch.flow.operators import ScanOp
+    from cockroach_tpu_torch.kv.table import KVTable
+
+    out, stack = [], [root]
+    while stack:
+        op = stack.pop()
+        stack.extend(op.children())
+        if isinstance(op, ScanOp) and isinstance(op.table, KVTable):
+            out.append(op)
     return out
+
+
+def kv_table_syncs(cat) -> int:
+    """Device -> host reads the catalog's KV tables have made so far."""
+    return sum(getattr(t, "host_syncs", 0) for t in cat.tables.values())
+
+
+class K2Witness:
+    """While open, every pair of runs the engine merges through K2
+    (cuda_merge.merge_pair, which merge_runs calls) is merged again by
+    merge_perm_plain on the same blocks on the card: the permutations
+    and every field of the merged rows must be equal. The plain merges
+    are no launches; their seconds (`seconds`) are part of the caller's
+    timings."""
+
+    def __init__(self):
+        self.pairs = self.max_rows = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.merge_pair = cuda_merge.merge_pair
+
+        def checked(a, b):
+            got = cuda_merge.merge_perm(a, b)
+            if a.key.device.type != "cuda":
+                return cuda_merge.gather_merged(a, b, got)  # no kernel
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_merge.merge_perm_plain(a, b)
+            where = f"{a.capacity}+{b.capacity}-row merge {self.pairs}"
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 permutation != plain on the KV "
+                                     f"path ({where})")
+            ig, iw = got.clamp(min=0).long(), want.clamp(min=0).long()
+            for f in mvcc.FIELDS:
+                both = torch.cat([getattr(a, f), getattr(b, f)])
+                if not torch.equal(both[ig], both[iw]):
+                    raise AssertionError(f"K2 merged {f} != plain on the KV "
+                                         f"path ({where})")
+            self.pairs += 1
+            self.max_rows = max(self.max_rows, a.capacity + b.capacity)
+            self.seconds += time.perf_counter() - t0
+            return cuda_merge.gather_merged(a, b, got)
+
+        cuda_merge.merge_pair = checked
+        return self
+
+    def __exit__(self, *exc):
+        cuda_merge.merge_pair = self.merge_pair
+
+
+def check_kv_parity(dev, sf: float = 0.01) -> dict:
+    """All 22 queries over KV tables on the card equal the same on the CPU
+    and the host-table run on the card (FLOAT columns within 1e-9: the
+    KV plans sum in another order)."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_kv
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    cats = {}
+    for d in (dev, torch.device("cpu")):
+        host = gen_tpch(sf=sf, seed=TPCH_SEED, device=d)
+        cats[d.type] = (host, tpch_kv.load_tpch_kv(host, device=d)[0])
+    rows = {}
+    for q in Q.QUERIES:
+        res = {k: run_operator(builder.build(
+            Q.QUERIES[q](c).optimized_plan(), c))
+            for k, c in (("kv", cats[dev.type][1]), ("cpu", cats["cpu"][1]),
+                         ("host", cats[dev.type][0]))}
+        for other in ("cpu", "host"):
+            bad = first_difference(res["kv"], res[other], rtol=1e-9)
+            if bad is not None:
+                raise AssertionError(
+                    f"{q} over KV on the card != {other}: {bad}")
+        rows[q] = len(next(iter(res["kv"].values())))
+    return {"sf": sf, "queries": len(rows),
+            "rows": sum(rows.values()), "equal": True}
+
+
+def kv_ladder(cat, oracle_cat, dev, runs: int,
+              ops_ms: dict | None = None) -> dict:
+    """bench.py's ladder over KV: run_tpch_kv's figures (every run held to
+    the oracle) plus, for each query, one profiled run of a tree that has
+    run once, with its syncs (the operators' counted syncs, a KV scan
+    counting its table's intent check, and any other read a KV table
+    made during the run, all measured), the KV tables' reads while
+    planning, and the memory still allocated after it; with `ops_ms`,
+    each query's three costliest operators (exclusive ms) go there."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch_kv import run_tpch_kv
+    from cockroach_tpu_torch.bench.tpch_run import LADDER
+    from cockroach_tpu_torch.flow.runtime import host_syncs, run_operator
+    from cockroach_tpu_torch.plan import builder
+
+    res = run_tpch_kv(cat, oracle_cat, LADDER, runs=runs, device=dev)
+    out = {}
+    for q in LADDER:
+        r = res[q]
+        s0 = kv_table_syncs(cat)
+        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
+        plan_syncs = kv_table_syncs(cat) - s0
+        run_operator(root)  # the tree's first run learns its capacities
+        s0 = kv_table_syncs(cat)
+        prof = device_profile(lambda root=root: run_operator(root))
+        scans = kv_scan_ops(root)
+        # table reads outside the scans' decodes (none expected)
+        other = (kv_table_syncs(cat) - s0
+                 - sum(op.stats.host_syncs for op in scans))
+        syncs = sum(host_syncs(root).values()) + other
+        resident = torch.cuda.memory_allocated()
+        if ops_ms is not None:
+            ops_ms[q] = top_ms(operator_breakdown(root), 3)
+        out[q] = [r["median_s"], r["cold_s"], r["decode_s"],
+                  prof["idle_share"], syncs, plan_syncs, len(scans),
+                  r["peak_device_bytes"], resident]
+    return out
+
+
+def kv_index_phase(host, dev) -> dict:
+    """orders in an indexed engine (with a WAL): 100 lookups on o_custkey
+    through IndexScanOp, each equal to the full scan and to the host
+    rows; then a checkpoint, writes after it (WAL only), and the
+    checkpoint plus WAL reopened on the card with the same live rows."""
+    import shutil
+
+    from cockroach_tpu_torch.bench import tpch_kv
+    from cockroach_tpu_torch.catalog import Catalog
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.kv import DB, Clock
+    from cockroach_tpu_torch.kv.table import load_catalog_from_engine
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.storage.lsm import Engine
+    from cockroach_tpu_torch.utils import settings
+
+    shutil.rmtree(KV_DIR, ignore_errors=True)
+    os.makedirs(KV_DIR)
+    wal = os.path.join(KV_DIR, "orders.wal")
+    try:
+        cat, db, load = tpch_kv.index_engine(host, device=dev, wal_path=wal)
+        orders = host.get("orders")
+        okey = np.asarray(orders.columns["o_orderkey"])
+        ocust = np.asarray(orders.columns["o_custkey"])
+        picks = np.random.default_rng(5).choice(ocust, 100, replace=False)
+
+        def lookup(ck, index: bool):
+            settings.set("sql.opt.index_scan.enabled", index)
+            try:
+                plan = tpch_kv.custkey_lookup(cat, ck).optimized_plan()
+            finally:
+                settings.reset("sql.opt.index_scan.enabled")
+            assert ("IndexScan" in repr(plan)) == index
+            root = builder.build(plan, cat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_operator(root)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        lookup(int(picks[0]), True)
+        ms, full_ms, rows = [], [], 0
+        for ck in picks:
+            got, secs = lookup(int(ck), True)
+            full, fsecs = lookup(int(ck), False)
+            want = sorted(okey[ocust == ck].tolist())
+            if (sorted(got["o_orderkey"].tolist()) != want
+                    or tpch_kv.sorted_rows(got)
+                    != tpch_kv.sorted_rows(full)):
+                raise AssertionError(f"o_custkey={ck}: index lookup != "
+                                     "full scan")
+            ms.append(secs * 1e3)
+            full_ms.append(fsecs * 1e3)
+            rows += len(want)
+        ck_path = os.path.join(KV_DIR, "ck")
+        eng = db.engine
+        t0 = time.perf_counter()
+        eng.checkpoint(ck_path)
+        write_s = time.perf_counter() - t0
+        rf = tpch_kv.gen_refresh(host, 0.01, seed=2)
+        db.txn(lambda t: cat.get("orders").insert_rows(t, rf["rf1_orders"]))
+        live = eng.compute_stats().live_count
+        nrows = cat.get("orders").snapshot_live_rows()
+        eng.close()
+        t0 = time.perf_counter()
+        eng2 = Engine.open_checkpoint(ck_path, wal_path=wal, device=dev)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        cat2 = Catalog(dev)
+        load_catalog_from_engine(cat2, DB(eng2, Clock()))
+        t2 = cat2.get("orders")
+        if (eng2.compute_stats().live_count != live
+                or t2.snapshot_live_rows() != nrows
+                or [i.name for i in t2.indexes] != ["o_custkey_idx"]):
+            raise AssertionError("reopened checkpoint + WAL differs")
+        eng2.close()
+        return {"rows": load["rows"], "load_s": load["load_s"],
+                "lookups": len(ms), "matched_rows": rows,
+                "median_ms": statistics.median(ms), "max_ms": max(ms),
+                "full_scan_median_ms": statistics.median(full_ms),
+                "ckpt": {"write_s": write_s, "open_s": open_s,
+                         "live_versions": live, "rows": nrows,
+                         "wal_rows": len(rf["rf1_orders"]["o_orderkey"])}}
+    finally:
+        shutil.rmtree(KV_DIR, ignore_errors=True)
+
+
+def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
+                 runs: int = 5, dev="cuda") -> tuple[dict, dict]:
+    """SQL over the MVCC store on the card: the sf=0.01 parity run, then
+    `host` (TPC-H at `sf`) bulk-loaded into one engine, bench.py's ladder over
+    KV, RF1 and RF2 in transactions, the ladder again (held to the oracle
+    of the refreshed data), the index lookups and the checkpoint. Prints
+    the ``{"tpch_kv": ...}`` line; returns it and the storage kernels'
+    launches on the main path (load, ladders, refresh functions)."""
+    import gc
+
+    from cockroach_tpu_torch.bench import tpch_kv
+    from cockroach_tpu_torch.flow import dispatch
+
+    dev = torch.device(dev)
+    parity = check_kv_parity(dev)
+    log("TPC-H sf0.01 over KV: 22 queries card == CPU == host tables")
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with K2Witness() as k2:
+        cat, db, load = tpch_kv.load_tpch_kv(host, device=dev)
+        load["k2_check_s"] = k2.seconds
+        load["view_slots"] = db.engine._merged_view().capacity
+        ops_ms: dict = {}
+        before = kv_ladder(cat, host, dev, runs, ops_ms)
+        rf = tpch_kv.gen_refresh(host, sf)
+        c0 = k2.seconds
+        rf1 = tpch_kv.apply_rf1(cat, db, rf)
+        rf2 = tpch_kv.apply_rf2(cat, db, rf)
+        rf2["k2_check_s"] = k2.seconds - c0  # both refresh functions
+        load["view_slots_after_rf"] = db.engine._merged_view().capacity
+        after = kv_ladder(cat, tpch_kv.refreshed_catalog(host, rf), dev,
+                          runs)
+    launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                "merge_path": cuda_merge.merge_perm.launches}
+    if k2.pairs != launches["merge_path"]:
+        raise AssertionError(f"K2 checked {k2.pairs} merges of "
+                             f"{launches['merge_path']} launches")
+    log(f"K2 == plain on all {k2.pairs} KV-path merges (largest "
+        f"{k2.max_rows} rows)")
+    load["engine_bytes_after_rf"] = tpch_kv.engine_bytes(db.engine)
+    index = kv_index_phase(host, dev)
+    # the cached graphs hold the KV decodes they read by reference
+    del cat, db
+    dispatch.clear_kernel_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"parity": parity, "load": load,
+           "columns": ["median_s", "cold_s", "decode_s", "idle_share",
+                       "syncs", "plan_syncs", "kv_scans", "peak_bytes",
+                       "resident_bytes"],
+           "k2_checked": [k2.pairs, k2.max_rows],
+           "host_median_s": {q: host_ladder[q]["median_s"]
+                             for q in before},
+           "before": before, "ops_ms": ops_ms, "rf1": rf1, "rf2": rf2,
+           "after": after,
+           "index": index, "launches": launches, "card": card}
+    log("TPC-H SF1 over KV: ladder == oracle before and after RF1/RF2; "
+        "index lookups == full scan; checkpoint + WAL reopened")
+    emit({"tpch_kv": out})
+    return out, launches
 
 
 # the SF10 scaling of the sf=0.01 parity run: every size threshold over
@@ -1669,7 +1976,9 @@ def main() -> int:
     # after the long profiled run records no device events on the card
     kernels = time_kernels(dev, errs)
     fusion: dict = {}
-    tpch = run_tpch_phase(card, fusion)
+    tpch, sf1 = run_tpch_phase(card, fusion)
+    _, kv_launches = run_kv_phase(card, sf1, tpch.pop("ladder"))
+    del sf1
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
     run_sf10_phase(card, fusion)
@@ -1689,8 +1998,10 @@ def main() -> int:
         k["tpch_launches"] = tpch["storage_kernel_launches"][k["name"]]
         k["sf10_launches"] = sf10_launches[k["name"]]
         k["tpcds_launches"] = tpcds_launches[k["name"]]
+        k["kv_launches"] = kv_launches[k["name"]]
         k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
         k["on_tpcds_path"] = k["tpcds_launches"] > 0
+        k["on_kv_path"] = k["kv_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     write_line(card)

@@ -54,11 +54,13 @@ def peak_rss_bytes() -> int:
 
 
 def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
-             runs: int = 5, device="cuda", catalog=None) -> dict:
+             runs: int = 5, device="cuda", catalog=None,
+             oracle_catalog=None) -> dict:
     """Time `queries` (names, or "all") on `device` over a TPC-H catalog
     at scale `sf` (or the given `catalog`, on the same device); every
-    result is checked against the numpy oracle, or without one against
-    the cold run. With runs=0 only the cold and warm runs are made."""
+    result is checked against the numpy oracle of `oracle_catalog`'s host
+    columns (default: the catalog itself), or without one against the
+    cold run. With runs=0 only the cold and warm runs are made."""
     if queries == "all":
         queries = tuple(Q.QUERIES)
     dev = resolve_device(device)
@@ -71,7 +73,8 @@ def run_tpch(queries=LADDER, sf: float = 1.0, seed: int = 19920101,
     for q in queries:
         root = plan_builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
         oracle = tpch_oracle.ORACLES.get(q)
-        want = oracle(cat) if oracle is not None else None
+        want = (oracle(oracle_catalog or cat) if oracle is not None
+                else None)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         times = []

@@ -84,7 +84,7 @@ def _spool_cap(op: Operator, tiles: list[Batch]) -> int:
 
 def _source_device(op: Operator) -> torch.device:
     """The device of the table under an operator chain."""
-    while not isinstance(op, ScanOp):
+    while not isinstance(op, SourceOperator):
         op = op.children()[0]
     return op.table.device
 
@@ -301,38 +301,48 @@ def _consume_op(op: Operator, tag: str):
 # Scan
 
 
+def _wire_source_metadata(op, table, names: tuple[str, ...]) -> None:
+    """The plan-static metadata every table source carries (ScanOp and
+    IndexScanOp): column indexes, output schema, per-column dictionaries
+    and (lo, hi) column stats."""
+    idxs = tuple(table.schema.index(n) for n in names)
+    op.col_idxs = idxs
+    op.output_schema = table.schema.select(idxs)
+    full_dicts = table.dict_by_index()
+    op.dictionaries = {
+        i: full_dicts[ci] for i, ci in enumerate(idxs) if ci in full_dicts
+    }
+    by_name = table.col_stats()
+    op.col_stats = {i: by_name[n] for i, n in enumerate(op.output_schema.names)
+                    if n in by_name}
+
+
 class ScanOp(SourceOperator):
     """Tile-granular scan (cFetcher analog), in one of two modes:
 
-    - resident: the table materializes once on the device
-      (catalog.Table.device_batch, padded to a multiple of the tile) and
-      bounded tiles slice from it as views;
+    - resident: the table materializes on the device
+      (``device_batch``, padded to a multiple of the tile) and bounded
+      tiles slice from it as views. A host table materializes once; a KV
+      table (kv/table.KVTable) decodes its merged view anew at every
+      scan, straight into buffers the table keeps at one address per
+      column (``device_batch(persistent=True)``), so the graphs that read
+      the table by reference stay valid across scans and writes; the
+      table's host reads (its intent check) count as this scan's syncs;
     - streaming: a table over ``sql.distsql.scan_stream_rows`` never
       occupies the device whole. Its tiles upload host -> device double
       buffered (``flow/upload.TileStream``): the next tile's upload is
       started before the current one is handed on, so the copy overlaps
       the downstream work. The stream tile is the reference's:
       ``_next_pow2(max(4096, min(2^20, rows // 64)))``, or the
-      operator's tile if larger.
+      operator's tile if larger. Only tables with host columns stream:
+      a KV table decodes whole.
     """
 
     def __init__(self, table: Table, columns: tuple[str, ...] | None = None,
                  tile: int | None = None):
         super().__init__()
         self.table = table
-        names = columns or table.schema.names
-        idxs = tuple(table.schema.index(n) for n in names)
-        self.col_idxs = idxs
-        self.output_schema = table.schema.select(idxs)
-        full_dicts = table.dict_by_index()
-        self.dictionaries = {
-            i: full_dicts[ci] for i, ci in enumerate(idxs) if ci in full_dicts
-        }
-        by_name = table.col_stats()
-        self.col_stats = {
-            i: by_name[n] for i, n in enumerate(self.output_schema.names)
-            if n in by_name
-        }
+        _wire_source_metadata(self, table, columns or table.schema.names)
         self.tile = tile
         self._batch = None
         self._offset = 0
@@ -340,19 +350,29 @@ class ScanOp(SourceOperator):
         self._stream = None
 
     def init(self):
-        self.streaming = (self.table.num_rows
-                          > settings.get("sql.distsql.scan_stream_rows"))
+        self.streaming = (
+            hasattr(self.table, "columns")  # KV-backed tables decode whole
+            and self.table.num_rows
+            > settings.get("sql.distsql.scan_stream_rows"))
+        table_syncs = getattr(self.table, "host_syncs", 0)
         if self.streaming:
             self._init_streaming()
         else:
             self._init_resident()
         self._offset = 0
         super().init()
+        self.stats.host_syncs += (getattr(self.table, "host_syncs", 0)
+                                  - table_syncs)
 
     def _init_resident(self):
-        self._batch = self.table.device_batch(self.output_schema.names)
-        # the table stays at its address: graphs read it by reference
-        dispatch.mark_static(self._batch)
+        names = self.output_schema.names
+        if hasattr(self.table, "columns"):
+            b = self.table.device_batch(names)
+        else:
+            b = self.table.device_batch(names, persistent=True)
+        # the batch stays at its address: graphs read it by reference
+        dispatch.mark_static(b)
+        self._batch = b
         cap = self._batch.capacity
         tile = self.tile
         if tile is None or tile <= 0 or cap % tile != 0:
@@ -441,6 +461,34 @@ class ScanOp(SourceOperator):
             cols=tuple(Column(data=c.data[off:end], valid=c.valid[off:end])
                        for c in b.cols),
             mask=b.mask[off:end])
+
+
+class IndexScanOp(SourceOperator):
+    """Index-backed read (plan/spec.IndexScan): resolve the matching
+    primary keys from the secondary-index keyspace, then fetch the rows in
+    one Streamer pass (joinreader + kvstreamer roles). The batch's
+    capacity is sized by the match count, not the table."""
+
+    def __init__(self, table, index_name: str, lo: int | None,
+                 hi: int | None, columns: tuple[str, ...] | None = None):
+        super().__init__()
+        self.table = table
+        self.ix = next(i for i in table.indexes if i.name == index_name)
+        self.lo, self.hi = lo, hi
+        self.names = tuple(columns or table.schema.names)
+        _wire_source_metadata(self, table, self.names)
+        self._batch = None
+
+    def init(self):
+        from ..kv import index as ixm
+
+        pks = ixm.scan_pks(self.table, self.ix, self.lo, self.hi)
+        self._batch = ixm.Streamer(self.table).fetch(pks, self.names)
+        super().init()
+
+    def _next(self):
+        b, self._batch = self._batch, None
+        return b
 
 
 # ---------------------------------------------------------------------------
@@ -1243,8 +1291,10 @@ class HashJoinOp(OneInputOperator):
             else:
                 return None
         table = op.table
-        name = table.schema.names[op.col_idxs[key]]
-        got = table.dense_key_info().get(name)
+        dense_fn = getattr(table, "dense_key_info", None)
+        if not callable(dense_fn):
+            return None  # a KV table: rows sit at merged-view positions
+        got = dense_fn().get(table.schema.names[op.col_idxs[key]])
         if got is None:
             return None
         lo, fanout = got
@@ -1361,8 +1411,10 @@ class HashJoinOp(OneInputOperator):
             else:
                 return None
         table = op.table
-        name = table.schema.names[op.col_idxs[key]]
-        got = table.dense_key_info().get(name)
+        dense_fn = getattr(table, "dense_key_info", None)
+        if not callable(dense_fn):
+            return None  # a KV table: rows sit at merged-view positions
+        got = dense_fn().get(table.schema.names[op.col_idxs[key]])
         if got is None:
             return None
         lo, fanout = got

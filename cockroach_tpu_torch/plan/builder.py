@@ -1,8 +1,8 @@
 """Plan -> operator tree — the colbuilder.NewColOperator analog; the port
-of ``cockroach_tpu.plan.builder`` for one device: TableScan, Filter,
-Project, Aggregate, ScalarAggregate, Sort, TopK, Limit, Distinct,
-Window, HashJoin, MergeJoin, Union, and Exchange as the identity. The
-index scan and the multi-device nodes raise NotImplementedError. Then,
+of ``cockroach_tpu.plan.builder`` for one device: TableScan, IndexScan,
+Filter, Project, Aggregate, ScalarAggregate, Sort, TopK, Limit,
+Distinct, Window, HashJoin, MergeJoin, Union, and Exchange as the
+identity. The multi-device nodes raise NotImplementedError. Then,
 as in the reference, the fusion pass (flow/fuse.py) collapses stateless
 per-tile chains.
 """
@@ -79,7 +79,7 @@ def _clustered_input(plan: S.PlanNode, group_cols, catalog: Catalog):
             node = node.input
         elif isinstance(node, S.TableScan):
             table = catalog.get(node.table)
-            ordering = tuple(table.ordering or ())
+            ordering = tuple(getattr(table, "ordering", ()) or ())
             if not ordering or len(cols) > len(ordering):
                 return False, False
             names = tuple(node.columns or table.schema.names)
@@ -115,6 +115,9 @@ def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
                 "(ROADMAP Queue 1)")
         return ops.ScanOp(catalog.get(plan.table), plan.columns,
                           tile=settings.get("sql.distsql.tile_size"))
+    if isinstance(plan, S.IndexScan):
+        return ops.IndexScanOp(catalog.get(plan.table), plan.index, plan.lo,
+                               plan.hi, plan.columns)
     if isinstance(plan, S.Filter):
         return ops.FilterOp(_build(plan.input, catalog), plan.predicate)
     if isinstance(plan, S.Project):
@@ -169,6 +172,5 @@ def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
         # single-device build: the shuffle is the identity
         return _build(plan.input, catalog)
     raise NotImplementedError(
-        f"plan node {type(plan).__name__} (IndexScan and the distribution "
-        "nodes) waits for the port's KV and multi-device slices (ROADMAP "
-        "Queue 1)")
+        f"plan node {type(plan).__name__} (the distribution nodes) waits "
+        "for the port's multi-device slice (ROADMAP Queue 1)")

@@ -8,10 +8,9 @@ and explain / explain_analyze.
 ``Rel`` is a fluent builder over the plan IR that tracks output schema and
 string dictionaries as the plan grows, so string literals resolve to
 dictionary codes and string predicates become host-prepared CodeLookup
-tables at plan time. ``Rel.run`` executes ``optimized_plan()``: top-k
-pushdown over the plan, as the reference's does (its index selection
-only rewrites scans of indexed KV tables, which the port has not
-brought over).
+tables at plan time. ``Rel.run`` executes ``optimized_plan()``: index
+selection (plan/indexopt.py), then top-k pushdown, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from ..ops import expr as ex
 from ..ops import join as join_ops
 from ..ops import sort as sort_ops
 from ..plan import spec as S
+from ..plan.indexopt import use_indexes
 from ..plan.topkopt import push_topk
 
 
@@ -373,26 +373,9 @@ class Rel:
     # -- execution ----------------------------------------------------------
 
     def optimized_plan(self) -> S.PlanNode:
-        """The plan after the local optimization passes: top-k pushdown
-        (plan/topkopt.py). The reference's index selection rewrites only
-        scans of KV tables with secondary indexes; the port raises for
-        those until its KV slice brings ``kv/table.py`` over."""
-        stack = [self.plan]
-        while stack:
-            node = stack.pop()
-            if isinstance(node, S.TableScan) and getattr(
-                    self.catalog.get(node.table), "indexes", None):
-                raise NotImplementedError(
-                    f"table {node.table} has secondary indexes: index "
-                    "selection waits for the port's KV slice (ROADMAP "
-                    "Queue 1, kv/table.py)")
-            for f in node.__dataclass_fields__:
-                v = getattr(node, f)
-                if isinstance(v, S.PlanNode):
-                    stack.append(v)
-                elif isinstance(v, tuple):
-                    stack.extend(x for x in v if isinstance(x, S.PlanNode))
-        return push_topk(self.plan)
+        """The plan after the local optimization passes: index selection
+        (plan/indexopt.py), then top-k pushdown (plan/topkopt.py)."""
+        return push_topk(use_indexes(self.plan, self.catalog))
 
     def run(self) -> dict[str, np.ndarray]:
         return run_plan(self.optimized_plan(), self.catalog)

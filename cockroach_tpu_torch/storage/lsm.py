@@ -13,17 +13,22 @@ the engine's device.
   locally and run the scan-filter kernel over them.
 
 The WAL format is the reference's, byte for byte (``_WAL_MAGIC``,
-``_WAL_REC``, the ``.ingest*.npz`` side files), so either package replays
-the other's log. Record kinds this slice does not port (import, clear,
-RPC batch) make replay raise.
+``_WAL_REC``, every record kind, the ``.ingest*.npz`` and ``.import*.npz``
+side files), and so is the checkpoint directory (``run%04d.npz``,
+``blob.bin``, ``replay_cache.json``, ``MANIFEST``): either package opens
+the other's store.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import functools
+import glob
+import json
 import os
 import struct
+import time
 import zipfile
 from dataclasses import dataclass, field
 
@@ -47,9 +52,18 @@ _REC_RESOLVE = 1
 # ingest records name the side file of a durably written run in the key
 # field (AddSSTable's link-don't-copy durability)
 _REC_INGEST = 2
-# written by the reference's range relocation and RPC batch paths, which
-# this slice does not port: replay refuses them rather than skip them
-_UNPORTED_RECORDS = {3: "import", 4: "clear", 5: "rpc batch"}
+# import records name a side file of full per-row MVCC fields (the
+# snapshot-apply half of a range relocation); clear records carry the
+# cleared span's [start, end) in key/value (flag False: open-ended end)
+_REC_IMPORT = 3
+_REC_CLEAR = 4
+# batch records carry a whole stamped RPC mutation batch (ops, the
+# (client id, sequence) dedup token and the wire response) in one record,
+# so a crash keeps both the ops and the replay-cache entry or neither
+_REC_BATCH = 5
+
+_SIDE_ERRORS = (FileNotFoundError, ValueError, OSError, KeyError, EOFError,
+                zipfile.BadZipFile)
 
 
 def _words_to_bytes(words) -> bytes:
@@ -269,10 +283,15 @@ class Engine:
         # here; the slot holds an 8-byte offset and vlen > val_width marks
         # the pointer
         self._blob = bytearray()
+        # RPC replay cache (exactly-once writes): client id -> (last seq,
+        # wire response), one entry per client, oldest client evicted
+        self._replay_cache: dict[str, tuple[int, object]] = {}
         self.wal_path = wal_path
         self.wal_fsync = wal_fsync
         self._wal = None
         self._replaying = False
+        # optional storage/disk.DiskMonitor fed by every WAL append
+        self.disk_monitor = None
         if wal_path is not None:
             self._arm_wal(wal_path)
 
@@ -295,11 +314,14 @@ class Engine:
             self._wal.flush()
 
     def _wal_record(self, kind: int, key: bytes, value: bytes, ts: int,
-                    seq: int, txn: int, flag: bool) -> None:
+                    seq: int, txn: int, flag: bool,
+                    sync: bool = True) -> None:
         from ..utils import faults, tracing
 
         rec = _WAL_REC.pack(kind, ts, seq, txn, 1 if flag else 0,
                             len(key), len(value))
+        mon = self.disk_monitor
+        t0 = time.time() if mon is not None else 0.0
         payload = rec + key + value
         # chaos sites: `delay` a stalling disk, `error` EIO before any byte
         # lands, `partial` a torn append; replay's torn-tail truncation
@@ -313,15 +335,18 @@ class Engine:
                 raise faults.InjectedFault("storage.wal.append", "partial")
             self._wal.write(payload)
             self._wal.flush()
-            if self.wal_fsync:
+            # sync=False defers the fsync to an explicit wal_sync()
+            if self.wal_fsync and sync:
                 with tracing.leaf_span("storage/wal.fsync"):
                     faults.fire("storage.wal.fsync")
                     os.fsync(self._wal.fileno())
+        if mon is not None:
+            mon.observe(time.time() - t0)
 
     def _replay_wal(self, path: str) -> int:
         """Re-apply writes above the sequence high-water mark and all
-        intent resolutions, in log order. Returns the offset just past the
-        last complete record."""
+        intent resolutions and span clears, in log order. Returns the
+        offset just past the last complete record."""
         with open(path, "rb") as f:
             data = f.read()
         if len(data) < len(_WAL_MAGIC):
@@ -342,16 +367,18 @@ class Engine:
                 value = data[off + klen: off + klen + vlen]
                 off += klen + vlen
                 valid_off = off
-                if kind in _UNPORTED_RECORDS:
-                    raise NotImplementedError(
-                        f"WAL {path!r} holds a {_UNPORTED_RECORDS[kind]} "
-                        f"record (kind {kind}), which this engine does not "
-                        f"replay yet")
                 if kind == _REC_RESOLVE:
                     self.resolve_intents(txn, ts, commit=bool(flag))
                 elif kind == _REC_INGEST:
                     if seq > self._seq:
                         self._replay_ingest(path, key.decode(), ts, seq)
+                elif kind == _REC_IMPORT:
+                    if seq > self._seq:
+                        self._replay_import(path, key.decode(), seq)
+                elif kind == _REC_CLEAR:
+                    self.clear_span(key or None, value if flag else None)
+                elif kind == _REC_BATCH:
+                    self._replay_batch_record(seq, value)
                 elif kind == _REC_WRITE:
                     if seq > self._seq:
                         self._raw_append(key, value, ts, seq, txn,
@@ -371,8 +398,7 @@ class Engine:
             z = np.load(side)
             n = int(z["n"])
             kb, vb, vl = z["key"][:n], z["value"][:n], z["vlen"][:n]
-        except (FileNotFoundError, ValueError, OSError, KeyError, EOFError,
-                zipfile.BadZipFile) as e:
+        except _SIDE_ERRORS as e:
             # missing or torn side file: reachable only after a machine
             # crash with wal_fsync=False; keep the store openable
             from ..utils import log
@@ -383,6 +409,38 @@ class Engine:
             return
         # _replaying suppresses the re-log, so the run lands exactly once
         self.ingest(kb, vb, ts, seq=seq, vlens=vl)
+
+    def _replay_import(self, wal_path: str, name: str, seq: int) -> None:
+        side = os.path.join(os.path.dirname(wal_path) or ".", name)
+        try:
+            z = np.load(side)
+            rows = {f: z[f] for f in ("key", "ts", "seq", "txn", "tomb",
+                                      "value", "vlen")}
+            if "blob" in z.files:
+                rows["blob"] = z["blob"]
+        except _SIDE_ERRORS as e:
+            from ..utils import log
+
+            log.warning(log.STORAGE,
+                        "import side file missing/torn on replay; run "
+                        "dropped", file=side, error=str(e))
+            return
+        self.import_rows(rows)
+        # restore the marker allocated at emit time (the imported rows'
+        # own max seq may be lower)
+        self._seq = max(self._seq, seq)
+
+    def _truncate_wal(self) -> None:
+        if self._wal is None:
+            return
+        self._wal.close()
+        self._wal = open(self.wal_path, "wb")
+        self._wal.write(_WAL_MAGIC)
+        self._wal.flush()
+        if self.wal_fsync:
+            os.fsync(self._wal.fileno())
+        self._wal.close()
+        self._wal = open(self.wal_path, "ab")
 
     def close(self) -> None:
         if self._wal is not None:
@@ -402,16 +460,7 @@ class Engine:
     def _append(self, key, value, ts: int, txn: int, tomb: bool):
         b = key.encode() if isinstance(key, str) else bytes(key)
         v = value.encode() if isinstance(value, str) else bytes(value)
-        if b"\x00" in b:
-            # zero padding makes b"a" and b"a\x00" indistinguishable
-            raise ValueError(f"key must not contain 0x00 bytes: {b!r}")
-        if len(b) > self.key_width:
-            raise ValueError(f"key too long ({len(b)} > {self.key_width})")
-        if len(v) > self.val_width and self.val_width < 8:
-            raise ValueError(
-                f"value of {len(v)} bytes needs the overflow heap, which "
-                f"requires val_width >= 8 (have {self.val_width})"
-            )
+        self._check_write(b, v)
         from ..utils import metric
 
         metric.ENGINE_WRITES.inc()
@@ -444,6 +493,94 @@ class Engine:
         self.mem.tomb.append(tomb)
         self.mem.value.append(v)
         self.mem.vlen.append(n)
+
+    # -- exactly-once RPC batches -------------------------------------------
+
+    _REPLAY_CACHE_MAX_CLIENTS = 1024
+
+    def _check_write(self, b: bytes, v: bytes) -> None:
+        if b"\x00" in b:
+            # zero padding makes b"a" and b"a\x00" indistinguishable
+            raise ValueError(f"key must not contain 0x00 bytes: {b!r}")
+        if len(b) > self.key_width:
+            raise ValueError(f"key too long ({len(b)} > {self.key_width})")
+        if len(v) > self.val_width and self.val_width < 8:
+            raise ValueError(
+                f"value of {len(v)} bytes needs the overflow heap, which "
+                f"requires val_width >= 8 (have {self.val_width})"
+            )
+
+    @_locked
+    def replay_cache_get(self, cid: str, seq: int):
+        """The cached wire response if (cid, seq) already applied, else
+        None."""
+        ent = self._replay_cache.get(cid)
+        if ent is not None and ent[0] == seq:
+            return ent[1]
+        return None
+
+    def _set_replay_entry(self, cid: str, seq: int, resp) -> None:
+        self._replay_cache.pop(cid, None)  # reinsert = refresh LRU order
+        while len(self._replay_cache) >= self._REPLAY_CACHE_MAX_CLIENTS:
+            self._replay_cache.pop(next(iter(self._replay_cache)))
+        self._replay_cache[cid] = (int(seq), resp)
+
+    def wal_sync(self) -> None:
+        """fsync the WAL, covering every record appended with
+        ``sync=False`` (group commit: append under the mutex, sync
+        outside it)."""
+        from ..utils import faults, tracing
+
+        w = self._wal
+        if w is None or not self.wal_fsync:
+            return
+        with tracing.leaf_span("storage/wal.fsync"):
+            faults.fire("storage.wal.fsync")
+            os.fsync(w.fileno())
+
+    @_locked
+    def apply_rpc_batch(self, cid: str, seq: int, muts, resp,
+                        sync: bool = True) -> None:
+        """Apply a stamped mutation batch exactly once. muts: [(key, value,
+        ts, txn, tomb), ...]; resp: the JSON-serializable response a dedup
+        hit replays. One _REC_BATCH record covers ops, dedup entry and
+        response."""
+        from ..utils import metric
+
+        for k, v, _ts, _txn, _tomb in muts:
+            self._check_write(k, v)
+        self.governor.pace_write()
+        base = self._seq + 1
+        if self._wal is not None:
+            payload = json.dumps({
+                "cid": cid, "seq": int(seq),
+                "muts": [[base64.b64encode(k).decode(),
+                          base64.b64encode(v).decode(),
+                          int(ts), int(txn), bool(tomb)]
+                         for k, v, ts, txn, tomb in muts],
+                "resp": resp,
+            }).encode()
+            # vlen is a uint16: a payload past 64 KiB fails in pack,
+            # before any WAL or memtable state changes
+            self._wal_record(_REC_BATCH, b"", payload, 0, base, 0, False,
+                             sync=sync)
+        for i, (k, v, ts, txn, tomb) in enumerate(muts):
+            metric.ENGINE_WRITES.inc()
+            self._raw_append(k, v, int(ts), base + i, int(txn), bool(tomb))
+        self._set_replay_entry(cid, seq, resp)
+        if len(self.mem) >= self.memtable_size:
+            self.flush()
+
+    def _replay_batch_record(self, seq: int, value: bytes) -> None:
+        """Replay half of apply_rpc_batch: re-apply ops above the seq
+        high-water mark, and always restore the dedup entry."""
+        ent = json.loads(value.decode())
+        if seq > self._seq:
+            for i, (k64, v64, ts, txn, tomb) in enumerate(ent["muts"]):
+                self._raw_append(
+                    base64.b64decode(k64), base64.b64decode(v64),
+                    int(ts), seq + i, int(txn), bool(tomb))
+        self._set_replay_entry(ent["cid"], int(ent["seq"]), ent["resp"])
 
     def _resolve_value(self, row: np.ndarray, n: int) -> bytes:
         """Inline slot bytes + logical length -> the stored value."""
@@ -1013,3 +1150,315 @@ class Engine:
             self._drop_run_meta(r)
         self._gen += 1
         self._maybe_compact()
+
+    @_locked
+    def has_committed_writes_in(
+        self, start: bytes | None, end: bytes | None, ts_lo: int, ts_hi: int,
+        point: bool = False,
+    ) -> bool:
+        """Any committed version in (ts_lo, ts_hi] within [start, end)?
+        The read-refresh check. ``point=True`` checks exactly `start`."""
+        sw = K.encode_bound(start, self.key_width)
+        ew = K.bound_next(sw) if point else K.encode_bound(end,
+                                                            self.key_width)
+        view = self._view_for(sw, ew)
+        if view is None:
+            return False
+        m, _ = _range_mask(view, K.words_tensor(sw, self.device),
+                           K.words_tensor(ew, self.device))
+        hit = m & (view.txn == 0) & (view.ts > ts_lo) & (view.ts <= ts_hi)
+        return bool(hit.any())
+
+    @_locked
+    def other_intent(self, key: bytes, txn: int) -> int | None:
+        """Txn id of another transaction's intent on `key`, if any (a host
+        lock-table lookup)."""
+        b = key.encode() if isinstance(key, str) else bytes(key)
+        holder = self._locks.get(b)
+        return holder if holder is not None and holder != txn else None
+
+    @_locked
+    def newest_committed_ts(self, key: bytes) -> int:
+        """Timestamp of the newest committed version of `key` (0 if none),
+        from the host tscache: the WriteTooOld check."""
+        b = key.encode() if isinstance(key, str) else bytes(key)
+        return self._newest_committed.get(b, 0)
+
+    @_locked
+    def intent_keys(self, txn: int) -> list[bytes]:
+        return sorted(k for k, t in self._locks.items() if t == txn)
+
+    # -- range relocation (snapshot-rebalance primitives) -------------------
+
+    def _span_rows(self, start, end):
+        """(merged view, indices of its rows in [start, end)) on the host."""
+        view = self._merged_view()
+        if view is None:
+            return None, None
+        sw = K.encode_bound(start, self.key_width)
+        ew = K.encode_bound(end, self.key_width)
+        m, _ = _range_mask(view, K.words_tensor(sw, self.device),
+                           K.words_tensor(ew, self.device))
+        return view, torch.nonzero(m).squeeze(1)
+
+    @_locked
+    def span_stats(self, start: bytes | None, end: bytes | None) -> dict:
+        """Size accounting for [start, end): every version's key width plus
+        its stored value length."""
+        view, idx = self._span_rows(start, end)
+        if view is None:
+            return {"versions": 0, "logical_bytes": 0}
+        n = int(idx.shape[0])
+        vbytes = int(view.vlen[idx].to(torch.int64).sum()) if n else 0
+        return {"versions": n, "logical_bytes": n * self.key_width + vbytes}
+
+    @_locked
+    def export_span(self, start: bytes | None, end: bytes | None) -> dict:
+        """Every version in [start, end) (history, tombstones and intents)
+        as host arrays: the raft-snapshot payload. Overflow payloads
+        materialize into ``blob`` in row order."""
+        view, idx = self._span_rows(start, end)
+        if view is None or not len(idx):
+            return {
+                "key": np.zeros((0, self.key_width), np.uint8),
+                "ts": np.zeros((0,), np.int64),
+                "seq": np.zeros((0,), np.int64),
+                "txn": np.zeros((0,), np.int64),
+                "tomb": np.zeros((0,), np.bool_),
+                "value": np.zeros((0, self.val_width), np.uint8),
+                "vlen": np.zeros((0,), np.int32),
+                "blob": np.zeros((0,), np.uint8),
+            }
+        out = {f: getattr(view, f)[idx].cpu().numpy()
+               for f in ("key", "ts", "seq", "txn", "tomb", "value", "vlen")}
+        vals, vlen = out["value"], out["vlen"]
+        out["blob"] = np.frombuffer(b"".join(
+            self._resolve_value(vals[i], int(vlen[i]))
+            for i in np.nonzero(vlen > self.val_width)[0]
+        ), dtype=np.uint8)
+        from ..flow import memory as flowmem
+
+        # the payload lives until the transport drops it
+        flowmem.charge_object(
+            "storage/export-staging", out["key"],
+            int(sum(a.nbytes for a in out.values())))
+        return out
+
+    @_locked
+    def import_rows(self, rows: dict) -> None:
+        """Land exported versions as one sorted run, keeping their ts, seq
+        and txn; raise the sequence high-water mark past them, refresh the
+        tscache from committed rows and the lock table from intents.
+        WAL-logged through a side file, as ingest is."""
+        n = len(rows["ts"])
+        if n == 0:
+            return
+        if rows["key"].shape[1] != self.key_width:
+            raise ValueError("imported keys do not match engine key width")
+        src_w = rows["value"].shape[1]
+        if src_w > self.val_width:
+            raise ValueError("imported values wider than engine val width")
+        cap = _pad(n)
+        vb = np.zeros((cap, self.val_width), np.uint8)
+        vb[:n, :src_w] = rows["value"]
+        # re-home overflow payloads: inline where they fit this engine's
+        # slot, else into this engine's heap
+        vlen_in = np.asarray(rows["vlen"], np.int64)
+        if (vlen_in > src_w).any():
+            blob_b = bytes(np.asarray(rows["blob"], np.uint8).tobytes())
+            off = 0
+            for i in np.nonzero(vlen_in > src_w)[0]:
+                ln = int(vlen_in[i])
+                payload = blob_b[off:off + ln]
+                off += ln
+                vb[i] = 0
+                if ln <= self.val_width:
+                    vb[i, :ln] = np.frombuffer(payload, np.uint8)
+                else:
+                    ptr = len(self._blob)
+                    self._blob += payload
+                    vb[i, :8] = np.frombuffer(ptr.to_bytes(8, "little"),
+                                              np.uint8)
+        seq = rows["seq"].astype(np.int64)
+        self._seq = max(self._seq, int(seq.max()))
+        if self._wal is not None and not self._replaying:
+            # side file first, then the record naming it; the marker seq
+            # sits above the high-water mark so replay's gate passes
+            marker = self._seq + 1
+            self._seq = marker
+            side = f"{self.wal_path}.import{int(marker):012d}.npz"
+            with open(side, "wb") as f:
+                np.savez(f, key=rows["key"], ts=rows["ts"], seq=seq,
+                         txn=rows["txn"], tomb=rows["tomb"],
+                         value=rows["value"], vlen=rows["vlen"],
+                         blob=np.asarray(rows.get(
+                             "blob", np.zeros(0, np.uint8)), np.uint8))
+                f.flush()
+                if self.wal_fsync:
+                    os.fsync(f.fileno())
+            if self.wal_fsync:
+                dfd = os.open(os.path.dirname(side) or ".", os.O_RDONLY)
+                try:
+                    os.fsync(dfd)
+                finally:
+                    os.close(dfd)
+            self._wal_record(_REC_IMPORT, os.path.basename(side).encode(),
+                             b"", 0, int(marker), 0, False)
+        blk = mvcc.block_from_host(
+            rows["key"], rows["ts"], rows["txn"], rows["tomb"], vb[:n],
+            rows["vlen"], cap=cap, seq=seq, device=self.device)
+        run = mvcc.sort_block(blk)
+        _charge_run(run)
+        self.runs.insert(0, run)
+        self._gen += 1
+        self.stats.runs = len(self.runs)
+        self._register_run(run)
+        committed = rows["txn"] == 0
+        if committed.any():
+            self._newest_committed.bulk(rows["key"][committed],
+                                        rows["ts"][committed])
+        for i in np.nonzero(~committed)[0]:
+            k = bytes(rows["key"][i]).rstrip(b"\x00")
+            self._locks[k] = int(rows["txn"][i])
+        self._maybe_compact()
+
+    @_locked
+    def clear_span(self, start: bytes | None, end: bytes | None) -> None:
+        """Physically drop every version in [start, end) (replica removal,
+        not an MVCC delete). WAL-logged; replays in log order."""
+        if self._wal is not None and not self._replaying:
+            self._wal_record(_REC_CLEAR, start or b"", end or b"", 0, 0, 0,
+                             end is not None)
+        sw = K.words_tensor(K.encode_bound(start, self.key_width),
+                            self.device)
+        ew = K.words_tensor(K.encode_bound(end, self.key_width), self.device)
+        self.flush_mem_only()
+        new_runs = []
+        for r in self.runs:
+            m, cnt = _range_mask(r, sw, ew)
+            if cnt == 0:
+                new_runs.append(r)
+                continue
+            # rewritten or dropped: retire its read metadata
+            self._drop_run_meta(r)
+            keep = r.mask & ~m
+            if not bool(keep.any()):
+                continue
+            new_runs.append(_shrink(mvcc.sort_block(
+                dataclasses.replace(r, mask=keep))))
+        self.runs = new_runs
+
+        def _in(k: bytes) -> bool:
+            if start is not None and k < start:
+                return False
+            return end is None or k < end
+
+        self._locks = {k: t for k, t in self._locks.items() if not _in(k)}
+        self._gen += 1
+        self.stats.runs = len(self.runs)
+
+    # -- stats / checkpoint -------------------------------------------------
+
+    @_locked
+    def compute_stats(self) -> MVCCStats:
+        view = self._merged_view()
+        s = self.stats
+        if view is None:
+            s.live_count = s.key_count = s.val_count = s.intent_count = 0
+            return s
+        mask = view.mask
+        s.val_count = int(mask.sum())
+        s.intent_count = int((mask & (view.txn != 0)).sum())
+        # the view is sorted with dead rows last: distinct keys are the
+        # key-run boundaries among live rows
+        s.key_count = int((mvcc._key_boundaries(view) & mask).sum())
+        sel, _ = mvcc.mvcc_scan_filter(view, np.iinfo(np.int64).max, 0)
+        s.live_count = int(sel.sum())
+        return s
+
+    @_locked
+    def checkpoint(self, path: str):
+        """Persist the engine (CreateCheckpoint analog) in the reference's
+        layout; the WAL truncates afterwards."""
+        self.flush_mem_only()
+        os.makedirs(path, exist_ok=True)
+        for i, r in enumerate(self.runs):
+            with open(os.path.join(path, f"run{i:04d}.npz"), "wb") as f:
+                np.savez(f, **{fld: getattr(r, fld).cpu().numpy()
+                               for fld in mvcc.FIELDS})
+                f.flush()
+                os.fsync(f.fileno())
+        if self._blob:
+            # runs reference the overflow heap by offset
+            with open(os.path.join(path, "blob.bin"), "wb") as f:
+                f.write(bytes(self._blob))
+                f.flush()
+                os.fsync(f.fileno())
+        if self._replay_cache:
+            # the truncated WAL held the only durable copy of the dedup
+            # entries
+            with open(os.path.join(path, "replay_cache.json"), "w") as f:
+                json.dump({cid: [s, r] for cid, (s, r)
+                           in self._replay_cache.items()}, f)
+                f.flush()
+                os.fsync(f.fileno())
+        with open(os.path.join(path, "MANIFEST"), "w") as f:
+            f.write(f"{len(self.runs)} {self.key_width} {self.val_width}\n")
+            f.flush()
+            os.fsync(f.fileno())
+        # durable before the WAL truncates
+        dfd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+        self._truncate_wal()
+        if self.wal_path is not None:
+            # side files were reachable only through the truncated WAL
+            for pat in ("ingest", "import"):
+                for side in glob.glob(f"{self.wal_path}.{pat}*.npz"):
+                    try:
+                        os.unlink(side)
+                    except OSError:  # pragma: no cover - best-effort
+                        pass
+
+    @classmethod
+    def open_checkpoint(cls, path: str, **kwargs) -> "Engine":
+        """Open a checkpoint (either package's) on ``device`` (a keyword,
+        default ``"cuda"``); with ``wal_path``, replay the records that
+        postdate it."""
+        with open(os.path.join(path, "MANIFEST")) as f:
+            nruns, kw, vw = (int(x) for x in f.read().split())
+        wal_path = kwargs.pop("wal_path", None)
+        eng = cls(key_width=kw, val_width=vw, **kwargs)
+        blob_path = os.path.join(path, "blob.bin")
+        if os.path.exists(blob_path):
+            with open(blob_path, "rb") as f:
+                eng._blob = bytearray(f.read())
+        rc_path = os.path.join(path, "replay_cache.json")
+        if os.path.exists(rc_path):
+            with open(rc_path) as f:
+                eng._replay_cache = {
+                    cid: (int(s), r) for cid, (s, r) in json.load(f).items()}
+        for i in range(nruns):
+            z = np.load(os.path.join(path, f"run{i:04d}.npz"))
+            run = mvcc.kvblock_from_numpy({f: z[f] for f in mvcc.FIELDS},
+                                          eng.device)
+            eng.runs.append(run)
+            # the sequence high-water mark, the per-key newest-committed
+            # index and the lock table come back from the runs
+            m = z["mask"]
+            if m.any():
+                eng._seq = max(eng._seq, int(z["seq"][m].max()))
+                cm = m & (z["txn"] == 0)
+                if cm.any():
+                    eng._newest_committed.bulk(z["key"][cm], z["ts"][cm])
+            im = m & (z["txn"] != 0)
+            if im.any():
+                for kk, tt in zip(K.decode_keys(z["key"][im]), z["txn"][im]):
+                    eng._locks[kk] = int(tt)
+        eng.stats.runs = len(eng.runs)
+        eng._gen += 1
+        if wal_path is not None:
+            eng._arm_wal(wal_path)
+        return eng

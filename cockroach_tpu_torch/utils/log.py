@@ -9,6 +9,7 @@ import time
 
 STORAGE = "STORAGE"
 SQL_EXEC = "SQL_EXEC"
+OPS = "OPS"
 
 _SEVERITIES = ("DEBUG", "INFO", "WARNING", "ERROR")
 min_severity = "WARNING"
@@ -31,3 +32,7 @@ def info(channel: str, msg: str, **kw) -> None:
 
 def warning(channel: str, msg: str, **kw) -> None:
     _log("WARNING", channel, msg, kw)
+
+
+def error(channel: str, msg: str, **kw) -> None:
+    _log("ERROR", channel, msg, kw)

@@ -93,3 +93,10 @@ GRACE_JOIN_SPILLS = Counter("sql_grace_join_spills")
 GRACE_JOIN_MERGE_PARTS = Counter("sql_grace_join_merge_parts")
 # probe rows routed through the resident heavy-hitter build table
 GRACE_JOIN_SKEW_ROUTED = Counter("sql_grace_join_skew_rows")
+# KV transactions, the contention registry and the disk monitor
+TXN_COMMITS = Counter("txn_commits")
+TXN_RETRIES = Counter("txn_retries")
+CONTENTION_RECORD_ERRORS = Counter("contention_record_errors")
+DISK_WRITE_P99 = Gauge("storage_disk_write_p99_ms")
+DISK_SLOW = Gauge("storage_disk_slow")
+DISK_PROBES = Counter("storage_disk_probes")

@@ -27,6 +27,13 @@ _DEFAULTS: dict[str, Any] = {
     "storage.compaction.pacing.max_debt_runs": 8,
     # write pacing proportional to L0 overload
     "admission.io_pacing.enabled": True,
+    # rolling p99 WAL/probe write latency above this flags the disk slow
+    "storage.disk.slow_threshold_ms": 100.0,
+    # plan index-backed reads for selective filters on indexed columns,
+    # and the estimated selected fraction above which a filtered full
+    # scan beats an index scan + fetch (plan/indexopt.py)
+    "sql.opt.index_scan.enabled": True,
+    "sql.opt.index_scan.max_frac": 0.25,
     # static scan tile capacity; resident tables pad to a tile multiple
     "sql.distsql.tile_size": 1 << 20,
     # tables larger than this stream host->device tile by tile, double
@@ -65,6 +72,8 @@ _DEFAULTS: dict[str, Any] = {
 # the reference's bounds, (lo, hi), None = unbounded
 _BOUNDS: dict[str, tuple] = {
     "storage.l0_compaction_threshold": (1, 64),
+    "storage.disk.slow_threshold_ms": (1.0, 60_000.0),
+    "sql.opt.index_scan.max_frac": (0.0, 1.0),
     "storage.compaction.pacing.min_interval_ms": (0, 60_000),
     "storage.compaction.pacing.max_debt_runs": (1, 256),
     "sql.distsql.tile_size": (128, 1 << 24),

@@ -122,6 +122,9 @@ def test_wal_cross_replay(tmp_path, writer):
 
 @pytest.mark.parametrize("record", ["clear", "batch"])
 def test_wal_unported_record_raises(tmp_path, record):
+    """The record kinds slice 1 left unported (a span clear, an RPC batch)
+    now replay: the port reopens the reference's WAL to its reads, and
+    with the batch's replay-cache entry."""
     wal = str(tmp_path / "store.wal")
     eng = JaxEngine(key_width=16, val_width=16, wal_path=wal)
     eng.put(b"a", b"1", ts=1)
@@ -130,9 +133,15 @@ def test_wal_unported_record_raises(tmp_path, record):
     else:
         eng.apply_rpc_batch("client", 1, [(b"b", b"2", 2, 0, False)],
                             resp={"ok": True})
+    want = eng.scan(None, None, ts=10)
     eng.close()
-    with pytest.raises(NotImplementedError):
-        _torch_engine(key_width=16, val_width=16, wal_path=wal)
+    again = _torch_engine(key_width=16, val_width=16, wal_path=wal)
+    try:
+        assert again.scan(None, None, ts=10) == want
+        assert again.replay_cache_get("client", 1) == (
+            {"ok": True} if record == "batch" else None)
+    finally:
+        again.close()
 
 
 # --------------------------------------------------------------- YCSB
@@ -196,7 +205,16 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 10
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"cockroach_tpu_torch/flow/dispatch.py",
-            "cockroach_tpu_torch/flow/fuse.py"} <= names
+            "cockroach_tpu_torch/flow/fuse.py",
+            "cockroach_tpu_torch/storage/rowcodec.py",
+            "cockroach_tpu_torch/storage/disk.py",
+            "cockroach_tpu_torch/kv/hlc.py",
+            "cockroach_tpu_torch/kv/txn.py",
+            "cockroach_tpu_torch/kv/table.py",
+            "cockroach_tpu_torch/kv/index.py",
+            "cockroach_tpu_torch/kv/jobs.py",
+            "cockroach_tpu_torch/plan/indexopt.py",
+            "cockroach_tpu_torch/bench/tpch_kv.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "cockroach_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"

@@ -245,8 +245,9 @@ def test_topk_and_other_nodes_raise(cats):
 
 
 def test_run_executes_optimized_plan(cats, monkeypatch):
-    """Rel.run executes optimized_plan() (top-k pushdown), which raises
-    for a scan of a table with secondary indexes until the KV slice."""
+    """Rel.run executes optimized_plan() (index selection, then top-k
+    pushdown); index selection rewrites only scans of KV tables, so a
+    host table that names indexes keeps its plan, as in the reference."""
     tcat = cats[1]
     rel = tQ.q3(tcat)
     opt = rel.optimized_plan()
@@ -257,8 +258,7 @@ def test_run_executes_optimized_plan(cats, monkeypatch):
     assert tpch_oracle.mismatch("q3", got, want) is None
     monkeypatch.setattr(tcat.get("orders"), "indexes", ("o_custkey",),
                         raising=False)
-    with pytest.raises(NotImplementedError, match="KV slice"):
-        rel.optimized_plan()
+    assert repr(rel.optimized_plan()) == repr(opt)
 
 
 def test_streaming_scan_raises(cats):

@@ -44,6 +44,22 @@ live rows; the ``{"tpch_kv": ...}`` line (``kv_launches`` in the kernel
 table counts the storage kernels' launches in the load, the ladders and
 the refresh functions).
 
+The SPMD plane (``plan/distribute.py``, ``parallel/``,
+``Rel.run_distributed``): right after the SF1 phase, q3, q9 and q18 at
+SF1 through ``bench/tpch_dist.run_dist`` on meshes of 3 and 8 shards on
+the card (every run held to the oracle; cold, warm, median, idle share,
+dispatches, attempts, capacity factor, rows through all_to_all, upload
+seconds, peak memory, beside the one-device median); after the SF10
+phase, all 22 queries at sf=0.01 (seed 11) over 1, 3 and 8 shards equal
+to the one-device card run, the 8-shard runs equal to the CPU's with the
+same capacity factor, explain_distributed equal to the CPU's text, the
+skewed-window retry at the CPU's factor; then BASELINE config #3's three
+nodes as 3 shards: each of q3, q9, q18 at SF10 over its host tables, or
+at the largest scale whose predicted footprint (its SF1 peak of reserved
+memory, grown as the capacities do: doubled per exchange and rounded to
+powers of two) fits the card, on the ``{"distsql": ...}`` line (``distsql_launches`` in the kernel table: neither storage kernel
+is on that path).
+
 Fusion (``flow/fuse.py``, ``flow/dispatch.py``): all 22 queries at SF0.05
 and under the SF10 scaling fused equal to unfused bit for bit, CUDA
 graphs captured in the first fused run and none in a repeat run; at SF1
@@ -558,7 +574,7 @@ def device_profile(fn) -> dict:
             "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
             "idle_share": (1 - busy_us / wall_us) if busy_us
             else "not measured",
-            "top_device_ops": [[n[:40], v[0] / 1e3, v[1]] for n, v in top]}
+            "top_device_ops": [[n[:32], v[0] / 1e3, v[1]] for n, v in top]}
 
 
 def tpch_results(sf: float, devices, seed: int = TPCH_SEED,
@@ -1372,7 +1388,7 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
     profiled once; q7 and q21 cold and warm (warm equal to cold); q3 with
     workmem_bytes lowered until its orders build spills to the Grace hash
     join, and q9 and q7 with workmem_rows at its floor, each equal to its
-    default run."""
+    default run. Returns the figures and the SF10 catalog."""
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
     from cockroach_tpu_torch.bench.tpch_run import peak_rss_bytes, run_tpch
@@ -1434,7 +1450,200 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
     emit({"tpch_sf10": out})
     fusion[f"sf{sf:g}"] = fusion_compare(cat)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
+    return out, cat
+
+
+# ---------------------------------------------------------------------------
+# the SPMD plane: Rel.run_distributed over meshes of shards on the card
+
+DIST_SEED = 11  # tests/test_distsql.py's catalog
+DIST_MESHES = (1, 3, 8)
+DIST_QUERIES = ("q3", "q9", "q18")
+DIST_RTOL = 1e-9  # tests/test_distsql.py's bound: shard-order FLOAT sums
+DIST_COLUMNS = ["median_s", "cold_s", "idle_share", "dispatches",
+                "attempts", "factor", "a2a_rows", "upload_s",
+                "peak_bytes", "peak_reserved_bytes", "single_median_s"]
+
+
+def skewed_window(cat):
+    """tests/test_distsql.py's retry case: one window partition over all
+    of lineitem, so one shard receives every row and the first attempts'
+    buckets overflow."""
+    from cockroach_tpu_torch.coldata.types import INT64
+    from cockroach_tpu_torch.ops import expr as ex
+    from cockroach_tpu_torch.sql.rel import Rel
+
+    rel = Rel.scan(cat, "lineitem", ("l_orderkey", "l_quantity"))
+    rel = rel.project([("k", ex.Const(7, INT64)), ("o", ex.ColRef(0)),
+                       ("q", ex.ColRef(1))])
+    return rel.window(["k"], [("o", False)], [("s", "sum", "q")])
+
+
+def check_distsql_parity(dev, sf: float = 0.01) -> dict:
+    """All 22 queries at `sf` (seed 11) through DistributedQuery on meshes
+    of 1, 3 and 8 shards on the card, each equal to the single-device
+    card run, the 8-shard runs equal to the CPU's 8-shard runs with the
+    same capacity factor, explain_distributed equal to the CPU's text;
+    the skewed-window retry ending at the CPU's factor."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.parallel.mesh import make_mesh
+    from cockroach_tpu_torch.parallel.planner import DistributedQuery
+
+    t0 = time.perf_counter()
+    card = gen_tpch(sf=sf, seed=DIST_SEED, device=dev)
+    cpu = gen_tpch(sf=sf, seed=DIST_SEED, device="cpu")
+    meshes = {d: make_mesh(d, device=dev) for d in DIST_MESHES}
+    cpu8 = make_mesh(8, device="cpu")
+    caps = dispatch.captures()
+    retried = {}
+    for q in sorted(Q.QUERIES):
+        rel, crel = Q.QUERIES[q](card), Q.QUERIES[q](cpu)
+        if rel.explain_distributed() != crel.explain_distributed():
+            raise AssertionError(f"{q}: explain_distributed card != CPU")
+        want = rel.run()
+        factors = []
+        for d, mesh in meshes.items():
+            dq = DistributedQuery(rel.plan, card, mesh)
+            got = dq.run()
+            bad = first_difference(got, want, rtol=DIST_RTOL)
+            if bad is not None:
+                raise AssertionError(
+                    f"{q} over {d} shards != one device on the card: {bad}")
+            factors.append(dq.factor)
+        cq = DistributedQuery(crel.plan, cpu, cpu8)
+        bad = first_difference(got, cq.run(), rtol=DIST_RTOL)
+        if bad is not None or cq.factor != factors[-1]:
+            raise AssertionError(f"{q} over 8 shards card != CPU: {bad}, "
+                                 f"factor {factors[-1]} vs {cq.factor}")
+        if max(factors) > 1:
+            retried[q] = factors
+    skew = {}
+    for name, c, mesh in (("card", card, meshes[8]), ("cpu", cpu, cpu8)):
+        rel = skewed_window(c)
+        dq = DistributedQuery(rel.plan, c, mesh)
+        skew[name] = (dq.run(), dq.factor, dq.attempts)
+    if skew["card"][1] != skew["cpu"][1] or skew["card"][1] == 1:
+        raise AssertionError(f"skewed retry: factor {skew['card'][1]} on the "
+                             f"card, {skew['cpu'][1]} on the CPU")
+    if sorted_rows(skew["card"][0]) != sorted_rows(skew["cpu"][0]):
+        raise AssertionError("skewed retry: card rows != CPU rows")
+    out = {"sf": sf, "queries": len(Q.QUERIES), "meshes": list(DIST_MESHES),
+           "retried": retried, "skew_factor": skew["card"][1],
+           "skew_attempts": skew["card"][2],
+           "captures": dispatch.captures() - caps,
+           "s": time.perf_counter() - t0}
+    log(f"distsql: 22 queries over {list(DIST_MESHES)} shards equal one "
+        f"device, 8 shards equal the CPU, skewed retry factor "
+        f"{out['skew_factor']} on both, {out['s']:.0f}s")
     return out
+
+
+def dist_runs(cat, shards: int, single: dict, queries=DIST_QUERIES,
+              runs: int = 3, dev="cuda") -> dict:
+    """`queries` over `shards` shards (bench/tpch_dist.run_dist, every
+    run held to the oracle), one more run of each profiled; compact rows
+    of DIST_COLUMNS, the single-device median beside them."""
+    from cockroach_tpu_torch.bench.tpch_dist import run_dist
+
+    def profile(q, dq):
+        return {"idle_share": device_profile(dq.run)["idle_share"]}
+
+    res = run_dist(queries, shards=shards, runs=runs, device=dev,
+                   catalog=cat, after=profile)
+    rows = {}
+    for q in queries:
+        r = res[q]
+        r["peak_bytes"] = r["peak_device_bytes"]
+        r["single_median_s"] = single.get(q)
+        rows[q] = [r[c] for c in DIST_COLUMNS]
+    return rows
+
+
+def host_twin(cat):
+    """The catalog's host tables on a fresh catalog with no device columns:
+    the distributed path uploads its own shards from the host columns."""
+    from cockroach_tpu_torch.catalog import Catalog, Table
+
+    twin = Catalog(cat.device)
+    for t in cat.tables.values():
+        twin.add(Table(name=t.name, schema=t.schema, columns=t.columns,
+                       valids=t.valids, dictionaries=t.dictionaries,
+                       ordering=t.ordering))
+    return twin
+
+
+def run_distsql_sf1(sf1, ladder: dict, dev="cuda") -> dict:
+    """At SF1, beside the ladder: q3, q9, q18 over 3 and 8 shards."""
+    single = {q: ladder[q]["median_s"] for q in DIST_QUERIES}
+    out = {f"{d}_shards": dist_runs(sf1, d, single, dev=dev)
+           for d in (3, 8)}
+    log("distsql SF1: q3 q9 q18 over 3 and 8 shards equal to the oracle")
+    return out
+
+
+def dist_growth(rows1: int, sf: float, shards: int) -> float:
+    """How a query's capacities grow from SF1 to `sf` on `shards` shards:
+    the ratio of lineitem's first exchange tile, pow2(2 x its shard
+    capacity), as parallel/planner.py sizes it (every later stage scales
+    with it)."""
+    from cockroach_tpu_torch.parallel.planner import _pow2
+
+    def tile(rows):
+        return _pow2(2 * max(1024, -(-rows // (shards * 1024)) * 1024))
+
+    return tile(int(rows1 * sf)) / tile(rows1)
+
+
+def run_distsql_phase(card: str, parity: dict, sf1: dict, cat10,
+                      single10: dict, rows1: int, dev="cuda") -> None:
+    """BASELINE config #3's three nodes as a 3-shard mesh: each of q3, q9,
+    q18 at SF10 (the one-device SF10 medians, `single10`, beside it), or
+    at the largest scale whose predicted footprint (its SF1 3-shard peak
+    of reserved memory times dist_growth) fits the card's free memory
+    with a margin; a query that fits only at SF1 keeps its SF1 row.
+    Prints the {"distsql": ...} line."""
+    import gc
+
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow import dispatch
+
+    t0 = time.perf_counter()
+    dispatch.clear_kernel_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    col = DIST_COLUMNS.index("peak_reserved_bytes")
+    scale, predicted = {}, {}
+    for q in DIST_QUERIES:
+        res1 = sf1["3_shards"][q][col]
+        fits = [s for s in (10, 5, 3, 2)
+                if res1 * dist_growth(rows1, s, 3) <= 0.8 * free]
+        scale[q] = fits[0] if fits else 1
+        predicted[q] = res1 * dist_growth(rows1, scale[q], 3)
+    log(f"distsql: {free / 2**30:.1f} GiB free; scales {scale}, predicted "
+        f"reserved GiB "
+        f"{ {q: round(v / 2**30, 1) for q, v in predicted.items()} }")
+    rows = {}  # a query that fits only at SF1 keeps its row in "sf1"
+    for sf in sorted(set(scale.values()) - {1}, reverse=True):
+        qs = tuple(q for q in DIST_QUERIES if scale[q] == sf)
+        cat = (cat10 if sf == 10 and cat10 is not None
+               else gen_tpch(sf=sf, seed=TPCH_SEED, device=dev))
+        rows.update(dist_runs(cat, 3, single10 if sf == 10 else {}, qs,
+                              dev=dev))
+        del cat
+        gc.collect()
+    cut = {q: f"SF{scale[q]}: one 80 GB card holds all three shards"
+           for q in DIST_QUERIES if scale[q] < 10}
+    out = {"parity": parity, "columns": DIST_COLUMNS, "sf1": sf1,
+           "config3_3_shards": {"scale": scale, **rows},
+           "cut": cut or None,
+           "predicted_reserved_bytes": predicted, "free_bytes": free,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    log(f"distsql config #3: q3 q9 q18 over 3 shards at {scale} equal to "
+        f"the oracle")
+    emit({"distsql": out})
 
 
 # ---------------------------------------------------------------------------
@@ -1977,14 +2186,32 @@ def main() -> int:
     kernels = time_kernels(dev, errs)
     fusion: dict = {}
     tpch, sf1 = run_tpch_phase(card, fusion)
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    dist_sf1 = run_distsql_sf1(sf1, tpch["ladder"])
+    dist_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                     "merge_path": cuda_merge.merge_perm.launches}
     _, kv_launches = run_kv_phase(card, sf1, tpch.pop("ladder"))
     del sf1
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
-    run_sf10_phase(card, fusion)
+    sf10, cat10 = run_sf10_phase(card, fusion)
     emit({"fusion": fusion, "card": card})
     sf10_launches = {"scan_filter": cuda_scan.scan_filter.launches,
                      "merge_path": cuda_merge.merge_perm.launches}
+    # the SPMD plane: parity at sf=0.01, then config #3's three shards
+    # over the SF10 host tables (their device columns freed first)
+    twin = host_twin(cat10)
+    del cat10
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    parity = check_distsql_parity(dev)
+    run_distsql_phase(card, parity, dist_sf1, twin,
+                      {q: sf10[q]["median_s"] for q in DIST_QUERIES},
+                      tpch["lineitem_rows"])
+    del twin
+    dist_launches["scan_filter"] += cuda_scan.scan_filter.launches
+    dist_launches["merge_path"] += cuda_merge.merge_perm.launches
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
     run_tpcds_phase(card, tpch["merge_join"])
@@ -1999,9 +2226,11 @@ def main() -> int:
         k["sf10_launches"] = sf10_launches[k["name"]]
         k["tpcds_launches"] = tpcds_launches[k["name"]]
         k["kv_launches"] = kv_launches[k["name"]]
+        k["distsql_launches"] = dist_launches[k["name"]]
         k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
         k["on_tpcds_path"] = k["tpcds_launches"] > 0
         k["on_kv_path"] = k["kv_launches"] > 0
+        k["on_distsql_path"] = k["distsql_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     write_line(card)

@@ -72,6 +72,12 @@ class Table:
             self.schema.index(name): d for name, d in self.dictionaries.items()
         }
 
+    def estimated_rows(self) -> int:
+        """Planner cardinality (the broadcast-join choice of
+        plan/distribute.py): the physical count, as the reference's when
+        no ANALYZE snapshot is installed (the port has no ANALYZE)."""
+        return self.num_rows
+
     def col_stats(self) -> dict[str, tuple]:
         """Per-column (lo, hi) bounds over valid rows for integer-represented
         columns; computed once on the host and cached."""

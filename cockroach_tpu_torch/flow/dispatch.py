@@ -23,7 +23,11 @@ buffers allocated outside the pool. The graphs run one at a time on one
 stream, so temporaries may share memory, and no graph's replay can
 overwrite another's outputs. A graph's outputs are overwritten by its own
 next replay: a caller that keeps a tile past that takes a copy (``own``,
-or ``persist`` for a spool).
+or ``persist`` for a spool). ``own_pool=True`` is for a large one-off
+program (a distributed query's attempt, whose temporaries run to tens of
+GB): each of its graphs captures into a pool of its own, released when
+the graph dies, and the cache its warm-up leaves is emptied before the
+capture, whose pool cannot take the default pool's cached blocks.
 
 Graph inputs. A tensor argument that is a *static* buffer (another
 graph's output, a buffer marked with ``mark_static`` such as a resident
@@ -395,7 +399,10 @@ class _Graph:
             self.static_in.append(x)
         dev = next(x for x in leaves if isinstance(x, torch.Tensor)).device
         args = _unflatten(spec, self.static_in)
-        pool = _pool(dev)
+        # a function with a pool of its own releases its temporaries when
+        # its graphs die (empty_cache frees only pools without live graphs)
+        pool = (torch.cuda.graph_pool_handle() if kern.own_pool
+                else _pool(dev))
         cur = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
         side.wait_stream(cur)
@@ -421,6 +428,11 @@ class _Graph:
             outs = [torch.empty_like(w) if isinstance(w, torch.Tensor)
                     else w for w in warm_leaves]
             del warm, warm_leaves
+            if kern.own_pool:
+                # the warm-up's cached blocks go back to the card: the
+                # capture's pool cannot take them, and the allocator
+                # frees none while capturing
+                torch.cuda.empty_cache()
             with torch.cuda.stream(side):
                 self.graph.capture_begin(pool=pool,
                                          capture_error_mode="thread_local")
@@ -489,10 +501,11 @@ class _Graph:
 class _Kernel:
     """The callable ``jit`` returns."""
 
-    def __init__(self, fn, key, carry: bool):
+    def __init__(self, fn, key, carry: bool, own_pool: bool = False):
         self.fn = fn
         self.key = key
         self.carry = carry
+        self.own_pool = own_pool
         self.name = getattr(fn, "__qualname__", repr(fn))
         self._seen: set = set()
         self._graphs: dict = {}
@@ -537,12 +550,14 @@ class _Kernel:
         return g.run(leaves)
 
 
-def jit(fn=None, key=None, carry: bool = False):
+def jit(fn=None, key=None, carry: bool = False, own_pool: bool = False):
     """Wrap `fn` for counted, capture-once replay-per-call execution (see
     the module docstring). With `key`, structurally identical kernels
-    share one wrapper process-wide (and with it their graphs)."""
+    share one wrapper process-wide (and with it their graphs); with
+    `own_pool`, each of its graphs captures into a pool of its own."""
     if fn is None:
-        return functools.partial(jit, key=key, carry=carry)
+        return functools.partial(jit, key=key, carry=carry,
+                                 own_pool=own_pool)
     global _cache_hits
     if key is not None:
         with _lock:
@@ -550,7 +565,7 @@ def jit(fn=None, key=None, carry: bool = False):
             if cached is not None:
                 _cache_hits += 1
                 return cached
-    k = _Kernel(fn, key, carry)
+    k = _Kernel(fn, key, carry, own_pool)
     if key is not None:
         with _lock:
             try:  # racing builders: the first insert wins

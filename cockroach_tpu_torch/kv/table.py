@@ -442,6 +442,11 @@ class KVTable:
         self._count_cache = (key, n)
         return n
 
+    def estimated_rows(self) -> int:
+        """Planner cardinality: the newest-visible count (the reference's
+        when no ANALYZE snapshot is installed; the port has no ANALYZE)."""
+        return self.num_rows
+
     def col_stats(self) -> dict[str, tuple]:
         """Per-column (lo, hi) bounds: none until ANALYZE statistics
         (sql/stats.py) are ported, so plans over KV tables never size a

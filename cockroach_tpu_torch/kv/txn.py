@@ -37,6 +37,14 @@ class TransactionAbortedError(Exception):
     """Non-retryable inside the closure: the txn was aborted."""
 
 
+# txn control-flow errors cross the query error boundary unwrapped (the
+# colexecerror.ExpectedError discipline)
+from ..utils.errors import register_passthrough as _rp  # noqa: E402
+
+_rp(TransactionRetryError)
+_rp(TransactionAbortedError)
+
+
 _txn_ids = itertools.count(1)
 
 

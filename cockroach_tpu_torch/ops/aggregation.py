@@ -394,6 +394,45 @@ def merge_dense_states(specs: tuple[AggSpec, ...], acc, new):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh reduction of positionally aligned states (sharded -> replicated)
+
+
+def psum_dense_states(specs: tuple[AggSpec, ...], shard_states: list,
+                      mesh) -> list:
+    """Reduce per-shard dense (or scalar) states across the mesh: sums and
+    counts ride psum, min/max pmin/pmax, bool_and/bool_or pmin/pmax over
+    int32 lanes, valid flags OR (psum > 0). `shard_states`: one state
+    list per shard; returns the reduced list for every shard."""
+    from ..parallel import mesh as mesh_mod
+
+    out_shards = [[] for _ in shard_states]
+    for j, spec in enumerate(specs):
+        ds = [st[j][0] for st in shard_states]
+        vs = [st[j][1] for st in shard_states]
+        if spec.func in ("sum", "count", "count_rows"):
+            rd = mesh_mod.psum(ds, mesh)
+        elif spec.func == "min":
+            rd = mesh_mod.pmin(ds, mesh)
+        elif spec.func in ("max", "any_not_null"):
+            rd = mesh_mod.pmax(ds, mesh)
+        elif spec.func == "avg":  # (sum, count)
+            parts = [mesh_mod.psum([d[i] for d in ds], mesh)
+                     for i in range(len(ds[0]))]
+            rd = [tuple(p[s] for p in parts) for s in range(len(ds))]
+        elif spec.func in ("bool_and", "bool_or"):
+            red = mesh_mod.pmin if spec.func == "bool_and" else mesh_mod.pmax
+            rd = [x.to(torch.bool) for x in
+                  red([d.to(torch.int32) for d in ds], mesh)]
+        else:
+            raise ValueError(spec.func)
+        rv = [x > 0 for x in
+              mesh_mod.psum([v.to(torch.int32) for v in vs], mesh)]
+        for s, out in enumerate(out_shards):
+            out.append((rd[s], rv[s]))
+    return out_shards
+
+
 def dense_layout(key_sizes: tuple[int, ...]) -> tuple[int, tuple[int, ...]]:
     """(G, strides) for the dense group-code space: one extra code per key
     column for NULL (every NULL combination is its own group)."""
@@ -449,6 +488,18 @@ def dense_scatter_states(
             col = batch.cols[spec.col]
         out.append(_segment_agg(spec, col, live, seg, G, t))
     return out, group_rows
+
+
+def dense_onehot_states(
+    batch: Batch,
+    schema: Schema,
+    codes: torch.Tensor,
+    G: int,
+    specs: tuple[AggSpec, ...],
+):
+    """One-hot dense partial states (``smallgroup_partial_states``): the
+    [rows, G] membership matrix, the right shape only for tiny G."""
+    return smallgroup_partial_states(batch, schema, codes, G, specs)
 
 
 def dense_finalize(base: Schema, group_cols, strides, key_sizes, G,

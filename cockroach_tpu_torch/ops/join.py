@@ -38,7 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..coldata.batch import Batch, Column, device_table
+from ..coldata.batch import Batch, Column, device_table, scatter_rows
 from ..coldata.types import Family, Schema
 from ..storage.keys import flip
 from .hashing import hash_columns
@@ -479,6 +479,102 @@ def hash_join_general(
         for c in build.cols
     )
     return Batch(cols=pcols + bcols, mask=out_live), total
+
+
+def hash_join_static(
+    probe: Batch,
+    probe_schema: Schema,
+    probe_keys: tuple[int, ...],
+    build: Batch,
+    build_schema: Schema,
+    build_keys: tuple[int, ...],
+    spec: JoinSpec,
+    out_capacity: int,
+    steps: int,
+    probe_hash_tables=None,
+    build_hash_tables=None,
+    build_code_remaps=None,
+):
+    """A hashed-key join that reads nothing on the host, for a program
+    captured whole (the distributed lowering) -> (batch, excess), with
+    `excess` a device count that is 0 when the output is exact.
+
+    - Unique builds, semi and anti joins are probe-aligned: each probe
+      row verifies at most `steps` candidates of its run of equal hashes
+      (the first key-equal one wins). Absent a 64-bit hash collision the
+      first candidate has the probe's key, so one step is exact; probes
+      whose run outlasts `steps` unresolved count into `excess`.
+    - Inner and left joins over duplicate keys verify their candidate
+      pairs in a pair tile of `out_capacity` slots and emit into an
+      output tile of `out_capacity`; `excess` is the rows past it
+      (``max(total - out_capacity, 0)``), the total taken from the runs
+      when the candidates overflow the pair tile (absent collisions the
+      runs are the matches)."""
+    cap = probe.capacity
+    bcap = build.capacity
+    dev = probe.device
+    sh, order = build_index(build, build_schema, build_keys,
+                            build_hash_tables)
+    lo, run, p_active = _probe_runs(probe, probe_schema, probe_keys, sh,
+                                    None, probe_hash_tables)
+    if spec.build_unique or spec.join_type in ("semi", "anti"):
+        found = torch.zeros(cap, dtype=torch.bool, device=dev)
+        found_idx = torch.zeros(cap, dtype=torch.int64, device=dev)
+        for k in range(steps):
+            bidx = order[torch.clamp(lo + k, 0, bcap - 1)]
+            hit = (k < run) & ~found & _keys_equal(
+                probe, probe_keys, build, build_keys, bidx,
+                build_code_remaps)
+            found_idx = torch.where(hit, bidx, found_idx)
+            found = found | hit
+        unresolved = (p_active & ~found & (run > steps)).sum(
+            dtype=torch.int64)
+        found = found & p_active & build.mask[found_idx]
+        return emit_unique(probe, build, spec, found_idx, found), unresolved
+    if spec.join_type not in ("inner", "left"):
+        raise ValueError(f"unsupported join type {spec.join_type}")
+    oc = out_capacity
+    slot = torch.arange(oc, device=dev)
+    # candidate pair s: probe row pair_p[s], position s - cbase in its run
+    cends = torch.cumsum(run, 0)
+    pair_p = torch.clamp(torch.searchsorted(cends, slot, right=True),
+                         max=cap - 1)
+    pair_live = slot < cends[-1]
+    pair_b = order[torch.clamp(lo[pair_p] + slot - (cends - run)[pair_p],
+                               0, bcap - 1)]
+    eq = pair_live & _keys_equal(probe, probe_keys, build, build_keys,
+                                 pair_b, build_code_remaps,
+                                 pidx=pair_p) & build.mask[pair_b]
+    eq64 = eq.to(torch.int64)
+    cnt = torch.zeros(cap, dtype=torch.int64, device=dev).index_add_(
+        0, pair_p, eq64)
+    matched = scatter_rows(pair_b, torch.where(
+        eq, torch.cumsum(eq64, 0) - eq64, oc), oc)
+    mbase = torch.cumsum(cnt, 0) - cnt
+    left = spec.join_type == "left"
+
+    def emitted(c):
+        return torch.where(probe.mask, torch.clamp(c, min=1), c) if left \
+            else c
+
+    out_rows = emitted(cnt)
+    total = torch.where(cends[-1] <= oc, out_rows.sum(),
+                        emitted(run).sum())
+    incl = torch.cumsum(out_rows, 0)
+    out_p = torch.clamp(torch.searchsorted(incl, slot, right=True),
+                        max=cap - 1)
+    out_live = slot < incl[-1]
+    m = slot - (incl - out_rows)[out_p]
+    out_found = out_live & (m < cnt[out_p])
+    out_b = matched[torch.clamp(mbase[out_p] + m, 0, oc - 1)]
+    pcols = tuple(
+        Column(data=c.data[out_p], valid=c.valid[out_p] & out_live)
+        for c in probe.cols)
+    bcols = tuple(
+        Column(data=c.data[out_b], valid=c.valid[out_b] & out_found)
+        for c in build.cols)
+    return (Batch(cols=pcols + bcols, mask=out_live),
+            torch.clamp(total - oc, min=0))
 
 
 def join_output_schema(

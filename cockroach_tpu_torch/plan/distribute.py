@@ -1,0 +1,272 @@
+"""Distribution planner — rewrite a single-node plan for the mesh; the
+port of ``cockroach_tpu.plan.distribute``.
+
+Reference: pkg/sql/distsql_physical_planner.go decides, per plan node, how to
+spread work across nodes: partitioned TableReaders per leaseholder
+(PartitionSpans), local/final aggregation staged around a hash-router
+shuffle, both-sides-hash-routed joins (or broadcast of a small side), and a
+final merge onto the gateway. Here the same decisions become explicit plan
+nodes — Exchange (all-to-all), Broadcast / Gather (all_gather) — that
+parallel/planner.py lowers into one program over the mesh.
+
+Every rewrite rule returns (node, replicated): `replicated` tracks whether
+the subtree's output is identical on every device (post-Gather/Broadcast) or
+row-sharded. Replicated inputs need no further distribution machinery.
+"""
+
+from __future__ import annotations
+
+from ..catalog import Catalog
+from . import spec as S
+
+# build sides at or below this row estimate replicate to every device
+# instead of shuffling both join sides (the reference's stats-driven
+# broadcast-join choice, made here from catalog cardinalities)
+BROADCAST_ROWS_DEFAULT = 1 << 17
+
+
+def estimated_rows(plan: S.PlanNode, catalog: Catalog) -> int:
+    """Crude upper-bound cardinality from catalog tables (the stats stand-in
+    for the reference's cost model)."""
+    if isinstance(plan, S.TableScan):
+        return catalog.get(plan.table).estimated_rows()
+    if isinstance(plan, (S.HashJoin, S.MergeJoin)):
+        return max(estimated_rows(plan.probe, catalog),
+                   estimated_rows(plan.build, catalog))
+    if isinstance(plan, S.Limit):
+        return min(plan.limit + plan.offset,
+                   estimated_rows(plan.input, catalog))
+    if isinstance(plan, S.TopK):
+        return min(plan.k, estimated_rows(plan.input, catalog))
+    if isinstance(plan, S.Union):
+        return sum(estimated_rows(k, catalog) for k in plan.inputs)
+    if hasattr(plan, "input"):
+        return estimated_rows(plan.input, catalog)
+    return 1 << 30
+
+
+def distribute(
+    plan: S.PlanNode,
+    catalog: Catalog,
+    broadcast_rows: int | None = None,
+) -> S.PlanNode:
+    """Rewrite `plan` with explicit distribution stages for SPMD lowering.
+    broadcast_rows=None means BROADCAST_ROWS_DEFAULT — resolved HERE, the
+    one source of truth for every caller."""
+    if broadcast_rows is None:
+        broadcast_rows = BROADCAST_ROWS_DEFAULT
+    node, _ = _rewrite(plan, catalog, broadcast_rows)
+    return node
+
+
+def _gather(node: S.PlanNode, replicated: bool) -> S.PlanNode:
+    return node if replicated else S.Gather(node)
+
+
+def _broadcast(node: S.PlanNode, replicated: bool) -> S.PlanNode:
+    return node if replicated else S.Broadcast(node)
+
+
+def _rewrite(plan, catalog, broadcast_rows):
+    if isinstance(plan, S.TableScan):
+        return plan, False
+
+    if isinstance(plan, (S.Filter, S.Project)):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        return type(plan)(child, *_rest_fields(plan)), rep
+
+    if isinstance(plan, S.Aggregate):
+        # (string_agg never reaches here: DistributedQuery._needs_local
+        # routes such plans to local operator execution before distribute)
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        if plan.key_sizes is not None:
+            # dense-state path: positionally-aligned [G] states merge with
+            # psum/pmin/pmax collectives — no shuffle, replicated output
+            return S.Aggregate(child, plan.group_cols, plan.aggs,
+                               key_sizes=plan.key_sizes), True
+        if rep:
+            return S.Aggregate(child, plan.group_cols, plan.aggs), True
+        # local/final staging around a hash shuffle on the group keys
+        # (distsql_physical_planner.go aggregation planning)
+        partial = S.Aggregate(child, plan.group_cols, plan.aggs,
+                              mode="partial")
+        k = len(plan.group_cols)
+        exch = S.Exchange(partial, tuple(range(k)))
+        final = S.Aggregate(exch, plan.group_cols, plan.aggs, mode="final",
+                            base_schema=schema_of(plan.input, catalog))
+        return final, False
+
+    if isinstance(plan, S.ScalarAggregate):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        # lowering merges partial scalar states with psum/pmin/pmax
+        return S.ScalarAggregate(child, plan.aggs), True
+
+    if isinstance(plan, S.Distinct):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        if rep:
+            return S.Distinct(child, plan.cols), True
+        # local distinct -> shuffle on the distinct cols -> local distinct
+        local = S.Distinct(child, plan.cols)
+        k = len(plan.cols) if plan.cols else _schema_len(plan.input, catalog)
+        exch = S.Exchange(local, tuple(range(k)))
+        return S.Distinct(exch, None), False
+
+    if isinstance(plan, S.HashJoin):
+        probe, prep = _rewrite(plan.probe, catalog, broadcast_rows)
+        build, brep = _rewrite(plan.build, catalog, broadcast_rows)
+        if prep:  # replicated probe: replicate build too, join locally
+            return S.HashJoin(probe, _broadcast(build, brep), plan.probe_keys,
+                              plan.build_keys, plan.spec), True
+        if brep or estimated_rows(plan.build, catalog) <= broadcast_rows:
+            return S.HashJoin(probe, _broadcast(build, brep), plan.probe_keys,
+                              plan.build_keys, plan.spec), False
+        # both-sides hash-routed shuffle join (colflow router placement)
+        return S.HashJoin(
+            S.Exchange(probe, plan.probe_keys),
+            S.Exchange(build, plan.build_keys),
+            plan.probe_keys, plan.build_keys, plan.spec,
+        ), False
+
+    if isinstance(plan, S.MergeJoin):
+        probe, prep = _rewrite(plan.probe, catalog, broadcast_rows)
+        build, brep = _rewrite(plan.build, catalog, broadcast_rows)
+        # merge join keeps probe-side order: broadcast the build side
+        return (S.MergeJoin(probe, _broadcast(build, brep), plan.probe_key,
+                            plan.build_key, plan.spec), prep)
+
+    if isinstance(plan, S.Limit) and isinstance(plan.input, S.TopK):
+        # distributed top-k with the device k-selection: each device folds
+        # its shard down to k rows, the gather moves D*k rows, and one
+        # final replicated TopK + Limit merges them (sorttopk.go +
+        # OrderedSynchronizer roles)
+        tk = plan.input
+        child, rep = _rewrite(tk.input, catalog, broadcast_rows)
+        if rep:
+            return S.Limit(S.TopK(child, tk.keys, tk.k), plan.limit,
+                           plan.offset), True
+        local = S.TopK(child, tk.keys, tk.k)
+        merged = S.TopK(S.Gather(local), tk.keys, tk.k)
+        return S.Limit(merged, plan.limit, plan.offset), True
+
+    if isinstance(plan, S.TopK):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        if rep:
+            return S.TopK(child, plan.keys, plan.k), True
+        local = S.TopK(child, plan.keys, plan.k)
+        return S.TopK(S.Gather(local), plan.keys, plan.k), True
+
+    if isinstance(plan, S.Limit) and isinstance(plan.input, S.Sort):
+        # distributed top-k (sorttopk.go + OrderedSynchronizer roles): each
+        # device sorts ITS shard and keeps only limit+offset rows, the
+        # gather moves D*(limit+offset) rows instead of the full result,
+        # and one final sorted-merge + limit runs replicated
+        sort = plan.input
+        child, rep = _rewrite(sort.input, catalog, broadcast_rows)
+        if rep:
+            return S.Limit(S.Sort(child, sort.keys), plan.limit,
+                           plan.offset), True
+        k = plan.limit + plan.offset
+        local = S.Limit(S.Sort(child, sort.keys), k, 0)
+        merged = S.Sort(S.Gather(local), sort.keys)
+        return S.Limit(merged, plan.limit, plan.offset), True
+
+    if isinstance(plan, S.Sort):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        return S.Sort(_gather(child, rep), plan.keys), True
+
+    if isinstance(plan, S.Limit):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        return S.Limit(_gather(child, rep), plan.limit, plan.offset), True
+
+    if isinstance(plan, S.Window):
+        child, rep = _rewrite(plan.input, catalog, broadcast_rows)
+        if rep:
+            return S.Window(child, plan.partition_cols, plan.order_keys,
+                            plan.specs), True
+        if plan.partition_cols:
+            # co-locate each partition via shuffle, then window locally
+            exch = S.Exchange(child, plan.partition_cols)
+            return S.Window(exch, plan.partition_cols, plan.order_keys,
+                            plan.specs), False
+        return S.Window(S.Gather(child), plan.partition_cols,
+                        plan.order_keys, plan.specs), True
+
+    if isinstance(plan, S.Union):
+        kids = [_rewrite(k, catalog, broadcast_rows) for k in plan.inputs]
+        if all(rep for _, rep in kids):
+            return S.Union(tuple(k for k, _ in kids)), True
+        if any(rep for _, rep in kids):
+            # mixing a replicated child with sharded ones would duplicate
+            # its rows D times; gather everything instead
+            return S.Union(tuple(_gather(k, rep) for k, rep in kids)), True
+        return S.Union(tuple(k for k, _ in kids)), False
+
+    if isinstance(plan, (S.Exchange, S.Broadcast, S.Gather)):
+        raise TypeError(f"plan already distributed: {type(plan).__name__}")
+
+    raise TypeError(f"cannot distribute plan node {type(plan).__name__}")
+
+
+def _rest_fields(plan):
+    """Positional fields after `input` for Filter/Project reconstruction."""
+    if isinstance(plan, S.Filter):
+        return (plan.predicate,)
+    return (plan.exprs, plan.names, plan.dict_overrides)
+
+
+def schema_of(plan: S.PlanNode, catalog: Catalog):
+    """Output schema of a plan subtree — a lightweight metadata walk (no
+    operator construction, no dictionary bridges)."""
+    from ..coldata.types import Schema
+    from ..ops import aggregation as agg_ops
+    from ..ops import expr as ex
+    from ..ops import join as join_ops
+    from ..ops import window as win_ops
+
+    if isinstance(plan, S.TableScan):
+        t = catalog.get(plan.table)
+        names = plan.columns or t.schema.names
+        return t.schema.select(tuple(t.schema.index(n) for n in names))
+    if isinstance(plan, (S.Filter, S.Sort, S.Limit, S.TopK,
+                         S.Exchange, S.Broadcast, S.Gather)):
+        return schema_of(plan.input, catalog)
+    if isinstance(plan, S.Union):
+        return schema_of(plan.inputs[0], catalog)
+    if isinstance(plan, S.Project):
+        base = schema_of(plan.input, catalog)
+        return Schema(tuple(plan.names),
+                      tuple(ex.expr_type(e, base) for e in plan.exprs))
+    if isinstance(plan, S.Distinct):
+        base = schema_of(plan.input, catalog)
+        cols = plan.cols or tuple(range(len(base)))
+        return base.select(cols)
+    if isinstance(plan, (S.Aggregate, S.ScalarAggregate)):
+        gcols = getattr(plan, "group_cols", ())
+        mode = getattr(plan, "mode", "complete")
+        base = (plan.base_schema if mode == "final"
+                else schema_of(plan.input, catalog))
+        return agg_ops.agg_output_schema(base, gcols, plan.aggs, mode)
+    if isinstance(plan, (S.HashJoin, S.MergeJoin)):
+        return join_ops.join_output_schema(
+            schema_of(plan.probe, catalog),
+            schema_of(plan.build, catalog), plan.spec,
+        )
+    if isinstance(plan, S.Window):
+        return win_ops.window_output_schema(
+            schema_of(plan.input, catalog), plan.specs
+        )
+    if isinstance(plan, S.HashBucket):
+        return schema_of(plan.input, catalog)
+    if isinstance(plan, S.RemoteStream):
+        return plan.schema
+    if isinstance(plan, S.StreamUnion):
+        return schema_of(plan.inputs[0], catalog)
+    if isinstance(plan, S.IndexScan):
+        t = catalog.get(plan.table)
+        names = plan.columns or t.schema.names
+        return t.schema.select(tuple(t.schema.index(n) for n in names))
+    raise TypeError(f"no schema rule for {type(plan).__name__}")
+
+
+def _schema_len(plan: S.PlanNode, catalog: Catalog) -> int:
+    return len(schema_of(plan, catalog))

@@ -1,9 +1,10 @@
 """Relational plan builder — the optbuilder analog; the port of the
-one-device surface of ``cockroach_tpu.sql.rel``: scan, filter, project,
+surface of ``cockroach_tpu.sql.rel``: scan, filter, project,
 select, groupby (string_agg included), scalar_agg, sort, limit,
 distinct, window, join (inner, left, right, full, semi, anti),
 merge_join, union_all, cross_join, the string predicates and transforms,
-and explain / explain_analyze.
+explain / explain_analyze, and run_distributed / explain_distributed
+(parallel/planner.py).
 
 ``Rel`` is a fluent builder over the plan IR that tracks output schema and
 string dictionaries as the plan grows, so string literals resolve to
@@ -379,6 +380,37 @@ class Rel:
 
     def run(self) -> dict[str, np.ndarray]:
         return run_plan(self.optimized_plan(), self.catalog)
+
+    def run_distributed(self, mesh=None,
+                        broadcast_rows: int | None = None
+                        ) -> dict[str, np.ndarray]:
+        """Run distributed over the mesh (``parallel.mesh.make_mesh``;
+        None: one shard per card): the plan is rewritten with
+        Exchange/Broadcast/Gather stages (plan/distribute.py) and lowered
+        into one program over the shards (parallel/planner.py)."""
+        from ..parallel import mesh as mesh_mod
+        from ..parallel.planner import DistributedQuery
+
+        if mesh is None:
+            mesh = mesh_mod.make_mesh()
+        return DistributedQuery(
+            self.plan, self.catalog, mesh, broadcast_rows=broadcast_rows
+        ).run()
+
+    def explain_distributed(self, broadcast_rows: int | None = None) -> str:
+        """EXPLAIN of the distributed plan (Exchange/Broadcast/Gather
+        stages visible). Pass the same broadcast_rows as run_distributed
+        to see the plan that runs."""
+        from ..parallel.planner import _needs_local
+        from ..plan.distribute import distribute
+        from ..plan.explain import explain_plan
+
+        if _needs_local(self.plan):
+            # run_distributed runs this plan locally
+            return ("distribution: local (plan not distributable)\n"
+                    + explain_plan(self.plan))
+        return explain_plan(
+            distribute(self.plan, self.catalog, broadcast_rows))
 
     def explain(self) -> str:
         """EXPLAIN: the optimized plan tree with its fusion groups."""

@@ -134,6 +134,11 @@ class WriteIntentError(Exception):
         self.txns = txns
 
 
+from ..utils.errors import register_passthrough as _rp  # noqa: E402
+
+_rp(WriteIntentError)  # expected error: crosses the query boundary unwrapped
+
+
 @dataclass
 class MVCCStats:
     """Coarse engine stats (enginepb.MVCCStats analog)."""

@@ -1,0 +1,55 @@
+"""Query error boundary — the colexecerror analog; the port of the part of
+``cockroach_tpu.utils.errors`` that the distributed runner needs.
+
+Reference: pkg/sql/colexecerror/error.go:45 CatchVectorizedRuntimeError
+converts engine panics into SQL errors at the flow boundary. Here the
+boundary wraps the distributed runner: any failure below it surfaces as a
+typed QueryError naming the failing stage, while expected errors (an
+intent conflict, a transaction retry) pass through untouched.
+"""
+
+from __future__ import annotations
+
+import functools
+
+
+class QueryError(Exception):
+    """A query failed inside the execution engine. str() is user-facing;
+    __cause__ keeps the original exception."""
+
+    def __init__(self, stage: str, cause: BaseException):
+        self.stage = stage
+        super().__init__(
+            f"query execution failed in {stage}: "
+            f"{type(cause).__name__}: {cause}"
+        )
+
+
+# exception types that are not engine failures and cross the boundary
+# unwrapped
+_PASSTHROUGH: tuple[type, ...] = (QueryError, KeyboardInterrupt, SystemExit)
+
+
+def register_passthrough(exc_type: type) -> None:
+    """Let a domain exception (e.g. storage.lsm.WriteIntentError) cross the
+    boundary unwrapped — the analog of colexecerror.ExpectedError."""
+    global _PASSTHROUGH
+    if exc_type not in _PASSTHROUGH:
+        _PASSTHROUGH = _PASSTHROUGH + (exc_type,)
+
+
+def query_boundary(stage: str):
+    """Decorator: wrap engine failures in QueryError (panic -> error)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except _PASSTHROUGH:
+                raise
+            except Exception as e:
+                raise QueryError(stage, e) from e
+        return wrapped
+
+    return deco

@@ -44,6 +44,21 @@ live rows; the ``{"tpch_kv": ...}`` line (``kv_launches`` in the kernel
 table counts the storage kernels' launches in the load, the ladders and
 the refresh functions).
 
+The SQL front door (``sql/parser.py``, ``binder.py``, ``plancache.py``,
+``session.py``, ``server/pgwire.py``, ``bench/load.py``), after the KV
+phase over the SF1 catalog: a ``PgServer`` on the card; one connection
+sends the 22 TPC-H texts (``bench/tpch_sql.py``; q5 under the cost-based
+join order), each cold, again with a plan-cache hit and verbatim from the
+memo, every result equal to the hand-built plan on the card and q1, q3,
+q9, q18 to the oracle, beside parse + bind ms, captures per run and the
+hand-built median; the 22 plans stay cached within the plan cache's
+byte budget (``plancache.MAX_DEVICE_FRACTION`` of the card); q6
+rebound with three literal sets captures no graph and equals the
+cache-off results; 4 connections at once run q1, q3, q18 and q6 (three
+literal sets) five times, each equal to one connection; ``run_mixed_load`` with 8 sessions for 10 s at SF1 reads
+back every acknowledged insert; the ``{"sql": ...}`` line
+(``sql_launches`` in the kernel table).
+
 The SPMD plane (``plan/distribute.py``, ``parallel/``,
 ``Rel.run_distributed``): right after the SF1 phase, q3, q9 and q18 at
 SF1 through ``bench/tpch_dist.run_dist`` on meshes of 3 and 8 shards on
@@ -94,6 +109,7 @@ exits non-zero; without CUDA it exits non-zero before any result.
 from __future__ import annotations
 
 import bisect
+import faulthandler
 import json
 import os
 import statistics
@@ -1253,6 +1269,10 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
     dev = torch.device(dev)
     parity = check_kv_parity(dev)
     log("TPC-H sf0.01 over KV: 22 queries card == CPU == host tables")
+    # the parity run's catalogs, engines and graphs are garbage now:
+    # free them before the SF1 load rather than at a collection inside it
+    gc.collect()
+    torch.cuda.synchronize()
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1298,6 +1318,328 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
         "index lookups == full scan; checkpoint + WAL reopened")
     emit({"tpch_kv": out})
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# The SQL front door (sql/parser.py, binder.py, plancache.py, session.py,
+# server/pgwire.py, bench/load.py)
+
+
+class PgClient:
+    """A Postgres v3 client over one socket: simple queries, text rows."""
+
+    def __init__(self, addr):
+        import socket
+        import struct
+
+        self._struct = struct
+        self.sock = socket.create_connection(addr, timeout=600)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._buf = bytearray()
+        body = struct.pack("!I", 196608) + b"user\x00smoke\x00\x00"
+        self.sock.sendall(struct.pack("!I", len(body) + 4) + body)
+        self._until_ready()
+
+    def _until_ready(self) -> list:
+        """Every message up to ReadyForQuery, read in 64 KB chunks."""
+        msgs = []
+        buf = self._buf
+        off = 0
+        while True:
+            while len(buf) - off < 5 or len(buf) - off < 1 + int.from_bytes(
+                    buf[off + 1:off + 5], "big"):
+                c = self.sock.recv(1 << 16)
+                if not c:
+                    raise ConnectionError("server closed the connection")
+                buf += c
+            tag = bytes(buf[off:off + 1])
+            n = int.from_bytes(buf[off + 1:off + 5], "big")
+            msgs.append((tag, bytes(buf[off + 5:off + 1 + n])))
+            off += 1 + n
+            if tag == b"Z":
+                self._buf = buf[off:]
+                return msgs
+
+    def query(self, sql: str) -> dict:
+        """{column: [text or None]} of one statement; raises on an
+        ErrorResponse."""
+        st = self._struct
+        body = sql.encode() + b"\x00"
+        self.sock.sendall(b"Q" + st.pack("!I", len(body) + 4) + body)
+        names, rows = [], []
+        for tag, body in self._until_ready():
+            if tag == b"E":
+                raise AssertionError(
+                    f"server error: {body.decode(errors='replace')}")
+            if tag == b"T":
+                off = 2
+                for _ in range(st.unpack("!H", body[:2])[0]):
+                    end = body.index(b"\x00", off)
+                    names.append(body[off:end].decode())
+                    off = end + 1 + 18
+            elif tag == b"D":
+                off, row = 2, []
+                for _ in range(st.unpack("!H", body[:2])[0]):
+                    ln = st.unpack("!i", body[off:off + 4])[0]
+                    off += 4
+                    row.append(None if ln < 0
+                               else body[off:off + ln].decode())
+                    off += max(ln, 0)
+                rows.append(row)
+        return {n: [r[i] for r in rows] for i, n in enumerate(names)}
+
+    def close(self) -> None:
+        self.sock.sendall(b"X" + self._struct.pack("!I", 4))
+        self.sock.close()
+
+
+def wire_arrays(wire: dict, like: dict) -> dict:
+    """Text columns from the wire as arrays typed like `like`'s columns
+    (its column order): integers and floats parsed, text kept, NULL as
+    None."""
+    out = {}
+    for name, ref in like.items():
+        vals = wire[name]
+        kind = np.asarray(ref).dtype.kind
+        if kind in "iu" and None not in vals:
+            out[name] = np.array([int(v) for v in vals], dtype=np.int64)
+        elif kind == "f" and None not in vals:
+            out[name] = np.array([float(v) for v in vals])
+        elif kind == "b" and None not in vals:
+            out[name] = np.array([v == "t" for v in vals])
+        else:
+            out[name] = np.array(vals, dtype=object)
+    return out
+
+
+def wire_mismatch(q: str, wire: dict, want: dict) -> str | None:
+    """None when the wire's rows equal `want` (tpch_oracle.mismatch's
+    bounds over `want`'s columns)."""
+    from cockroach_tpu_torch.bench import tpch_oracle
+
+    missing = [c for c in want if c not in wire]
+    if missing:
+        return f"{q}: columns {missing} missing on the wire"
+    return tpch_oracle.mismatch(q, wire_arrays(wire, want), want)
+
+
+def q6_text(text: str, discount: float, quantity: int) -> str:
+    """q6 with its discount (the BETWEEN's midpoint) and quantity."""
+    out = text.replace("between 0.05 and 0.07",
+                       f"between {discount - 0.01:.2f} and "
+                       f"{discount + 0.01:.2f}")
+    return out.replace("< 24", f"< {quantity}")
+
+
+Q6_LITERALS = ((0.06, 24), (0.05, 25), (0.07, 23))
+# the binder's default (heuristic) join order joins q5's customer to its
+# supplier on their nation key before orders: about 3.6e10 rows at SF1,
+# a 32 GiB emission tile (ROADMAP Queue 3 item 17, as in the reference);
+# the cost-based order joins orders first
+SQL_JOIN_ORDER = {"q5": "cost"}
+SQL_CONCURRENT = ("q1", "q3", "q6", "q18")
+
+
+def wire_ms(conn, text: str) -> tuple[float, dict]:
+    t0 = time.perf_counter()
+    got = conn.query(text)
+    return (time.perf_counter() - t0) * 1e3, got
+
+
+def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
+                  duration_s: float = 10.0, sf: float = 1.0) -> dict:
+    """The SQL front door on the card over the SF1 host catalog: a
+    PgServer on `dev`; one connection sends all 22 TPC-H texts (q5 under
+    the cost-based join order, ``SQL_JOIN_ORDER``), each cold,
+    again with the plan cache hit (a text that differs by whitespace) and
+    verbatim (the memo), every result equal to the hand-built Rel on the
+    card (q1, q3, q9, q18 also to the oracle), parse + bind timed in
+    process, each plan's device bytes counted, all 22 kept within the
+    plan cache's byte budget; q6 rebound with three literal sets captures no new graph and
+    equals the cache-off result; 4 connections at once run q1, q3, q6
+    (three literal sets) and q18 five times each, equal to one
+    connection; then the mixed serving load (bench/load.py) with
+    `sessions` sessions for `duration_s` seconds, every acknowledged
+    insert read back. Prints the ``{"sql": ...}`` line and returns it."""
+    import threading
+
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_oracle
+    from cockroach_tpu_torch.bench.load import run_mixed_load
+    from cockroach_tpu_torch.bench.tpch_sql import TPCH_SQL
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.server.pgwire import PgServer
+    from cockroach_tpu_torch.sql import parser as P
+    from cockroach_tpu_torch.sql import plancache
+    from cockroach_tpu_torch.sql.binder import Binder
+
+    t_phase = time.perf_counter()
+    queries = sorted(TPCH_SQL, key=lambda q: int(q[1:]))
+    srv = PgServer(catalog=cat, device=dev).serve_background()
+    conn = PgClient(srv.addr)
+    per_q = {}
+    hand = {}
+    cache = plancache.cache_for(cat)
+    entries0, evictions0 = len(cache), cache.evictions
+    try:
+        for q in queries:
+            text = TPCH_SQL[q]
+            rel = Q.QUERIES[q](cat)
+            hand[q] = rel.run()  # warm: its graphs captured
+            hand_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                again = rel.run()
+                hand_ms.append((time.perf_counter() - t0) * 1e3)
+            bad = tpch_oracle.mismatch(q, again, hand[q])
+            if bad is not None:
+                raise AssertionError(f"hand-built {q} not repeatable: {bad}")
+            order = SQL_JOIN_ORDER.get(q)
+            if order is not None:
+                conn.query("SET CLUSTER SETTING sql.opt.join_order = "
+                           f"'{order}'")
+            try:
+                pb = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    Binder(cat).bind(P.parse_statement(text))
+                    pb.append((time.perf_counter() - t0) * 1e3)
+                row = [statistics.median(pb)]
+                caps = []
+                b0 = cache.bytes
+                for variant in (text, text + " ", text + " "):
+                    c0 = dispatch.captures()
+                    ms, got = wire_ms(conn, variant)
+                    caps.append(dispatch.captures() - c0)
+                    bad = wire_mismatch(q, got, hand[q])
+                    if bad is not None:
+                        raise AssertionError(f"SQL {q} over the wire != "
+                                             f"hand-built: {bad}")
+                    row.append(ms)
+            finally:
+                if order is not None:
+                    conn.query("SET CLUSTER SETTING sql.opt.join_order = "
+                               "'heuristic'")
+            oracle = tpch_oracle.ORACLES.get(q)
+            if oracle is not None:
+                bad = wire_mismatch(q, got, oracle(cat))
+                if bad is not None:
+                    raise AssertionError(f"SQL {q} != oracle: {bad}")
+            row.append(statistics.median(hand_ms))
+            if caps[2]:
+                raise AssertionError(f"SQL {q}: the memo run captured "
+                                     f"{caps[2]} graphs")
+            row += caps[:2]
+            row.append(round((cache.bytes - b0) / 1e6))  # its entry's MB
+            if torch.device(dev).type == "cuda":
+                row.append(round(torch.cuda.memory_reserved() / 1e9))
+            per_q[q] = row
+        log("SQL: 22 texts over the wire == hand-built (cold, hit, memo), "
+            "ladder == oracle, memo captured nothing")
+        # the 22 plans stay cached, within the cache's byte budget
+        plans = {"entries": len(cache) - entries0,
+                 "evictions": cache.evictions - evictions0,
+                 "bytes": cache.bytes, "budget": cache.budget()}
+        if (plans["entries"] != len(queries) or plans["evictions"]
+                or cache.bytes > (plans["budget"] or 0)):
+            raise AssertionError(f"the 22 plans not cached within the "
+                                 f"budget: {plans}")
+        log(f"SQL: the 22 plans cached in {cache.bytes} device bytes, "
+            f"budget {plans['budget']}")
+        # q6 rebound: one cache entry, no new capture after the first run
+        entries0 = len(cache)
+        q6 = {}
+        caps = []
+        for disc, qty in Q6_LITERALS:
+            _, q6[(disc, qty)] = wire_ms(
+                conn, q6_text(TPCH_SQL["q6"], disc, qty))
+            caps.append(dispatch.captures())
+        if len(set(caps)) != 1:
+            raise AssertionError(f"q6 rebinds captured graphs: {caps}")
+        if len(cache) != entries0:
+            raise AssertionError("q6 rebinds made new cache entries")
+        conn.query("SET CLUSTER SETTING sql.plan_cache.enabled = false")
+        try:
+            for (disc, qty), got in q6.items():
+                want = conn.query(q6_text(TPCH_SQL["q6"], disc, qty))
+                if got != want:
+                    raise AssertionError(
+                        f"q6 ({disc}, {qty}) cached {got} != uncached "
+                        f"{want}")
+        finally:
+            conn.query("SET CLUSTER SETTING sql.plan_cache.enabled = true")
+        if len({v["revenue"][0] for v in q6.values()}) != 3:
+            raise AssertionError("q6's three literal sets gave equal results")
+        log("SQL q6 rebound x3: one entry, no capture, == cache off")
+        # 4 connections at once against one
+        texts = [TPCH_SQL["q1"], TPCH_SQL["q3"], TPCH_SQL["q18"]] + [
+            q6_text(TPCH_SQL["q6"], d, n) for d, n in Q6_LITERALS]
+        reps = 5
+        single = [conn.query(t) for t in texts]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for t in texts:
+                conn.query(t)
+        one_s = time.perf_counter() - t0
+        outs, errs = [], []
+
+        def client():
+            c = PgClient(srv.addr)
+            try:
+                for _ in range(reps):
+                    outs.append([c.query(t) for t in texts])
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errs.append(e)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client) for _ in range(4)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        four_s = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        if len(outs) != 4 * reps or any(o != single for o in outs):
+            raise AssertionError("4 concurrent connections != one")
+        log(f"SQL 4 connections x {reps} x {len(texts)} statements == one "
+            "connection")
+    finally:
+        conn.close()
+        srv.close()
+    # dropping the cached plans hands their device bytes back
+    plans["bytes_at_end"] = cache.bytes
+    if torch.device(dev).type == "cuda":
+        a0 = torch.cuda.memory_allocated()
+        cache.clear()
+        plans["freed_by_clear"] = a0 - torch.cuda.memory_allocated()
+    load = run_mixed_load(sessions=sessions, duration_s=duration_s, sf=sf,
+                          device=dev, catalog=cat)
+    if not load["readback_ok"] or load["errors"] or load["threads_alive"]:
+        raise AssertionError(f"mixed load failed: {load}")
+    log(f"mixed load: {sessions} sessions x {duration_s:g}s, every insert "
+        "read back")
+    out = {"columns": ["parse_bind_ms", "cold_ms", "warm_ms", "memo_ms",
+                       "handbuilt_ms", "cold_captures", "warm_captures",
+                       "entry_mb", "reserved_gb"],
+           **per_q,
+           "plan_cache": plans,
+           # graphs captured by the 2nd and 3rd literal sets (0)
+           "q6_rebind_captures": caps[-1] - caps[0],
+           # one connection's share alone, and 4 connections at once
+           "concurrent": {"statements_per_conn": reps * len(texts),
+                          "one_conn_s": one_s, "four_conns_s": four_s},
+           "load": {k: load.get(k) for k in (
+               "sessions", "duration_s", "ops_per_sec", "point_ops_per_sec",
+               "inserts_per_sec", "analytic_ops_per_sec", "conflicts",
+               "p99_queue_wait_ms", "p99_exec_wait_ms", "p99_stmt_ms",
+               "p99_point_ms", "p99_analytic_ms", "peak_bytes",
+               "device_peak_bytes", "inserted_keys", "missing_inserts")},
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit({"sql": out})
+    return out
 
 
 # the SF10 scaling of the sf=0.01 parity run: every size threshold over
@@ -2163,6 +2505,7 @@ def card_line() -> str:
 
 
 def main() -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2192,6 +2535,11 @@ def main() -> int:
     dist_launches = {"scan_filter": cuda_scan.scan_filter.launches,
                      "merge_path": cuda_merge.merge_perm.launches}
     _, kv_launches = run_kv_phase(card, sf1, tpch.pop("ladder"))
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+    run_sql_phase(card, sf1)
+    sql_launches = {"scan_filter": cuda_scan.scan_filter.launches,
+                    "merge_path": cuda_merge.merge_perm.launches}
     del sf1
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
@@ -2227,10 +2575,12 @@ def main() -> int:
         k["tpcds_launches"] = tpcds_launches[k["name"]]
         k["kv_launches"] = kv_launches[k["name"]]
         k["distsql_launches"] = dist_launches[k["name"]]
+        k["sql_launches"] = sql_launches[k["name"]]
         k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
         k["on_tpcds_path"] = k["tpcds_launches"] > 0
         k["on_kv_path"] = k["kv_launches"] > 0
         k["on_distsql_path"] = k["distsql_launches"] > 0
+        k["on_sql_path"] = k["sql_launches"] > 0
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t0:.1f}s")
     write_line(card)

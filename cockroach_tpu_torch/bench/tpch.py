@@ -17,6 +17,7 @@ import numpy as np
 
 from ..catalog import Catalog, Table
 from ..coldata.types import DATE, DECIMAL, INT64, STRING, Schema
+from ..device import resolve_device
 
 EPOCH = np.datetime64("1970-01-01")
 START_DATE = (np.datetime64("1992-01-01") - EPOCH).astype(int)  # 8035
@@ -367,4 +368,21 @@ def gen_tpch(sf: float = 0.01, seed: int = 19920101,
         },
         ordering=("o_orderkey",),
     ))
+    return cat
+
+
+_CACHED: dict = {}
+
+
+def gen_tpch_cached(sf: float, seed: int = 19920101,
+                    device="cuda") -> Catalog:
+    """gen_tpch memoized per process by (scale, seed, device): repeated
+    harness runs (bench/load.py) share one generated catalog. The
+    reference also keeps a ``.npz`` copy on disk; the port does not write
+    outside the process."""
+    dev = resolve_device(device)
+    key = (float(sf), int(seed), str(dev))
+    cat = _CACHED.get(key)
+    if cat is None:
+        cat = _CACHED[key] = gen_tpch(sf=sf, seed=seed, device=dev)
     return cat

@@ -72,11 +72,24 @@ class Table:
             self.schema.index(name): d for name, d in self.dictionaries.items()
         }
 
+    def set_stats(self, st) -> None:
+        """Install ANALYZE statistics (sql/stats.TableStats). Planner
+        consumers read the snapshot, which may go stale as the
+        reference's optimizer statistics do; the (lo, hi) bounds replace
+        the ``col_stats`` view."""
+        self.table_stats = st
+        self._stats = {
+            n: (c.lo, c.hi)
+            for n, c in st.cols.items()
+            if c.lo is not None and c.hi is not None
+        } if st is not None else None
+
     def estimated_rows(self) -> int:
         """Planner cardinality (the broadcast-join choice of
-        plan/distribute.py): the physical count, as the reference's when
-        no ANALYZE snapshot is installed (the port has no ANALYZE)."""
-        return self.num_rows
+        plan/distribute.py, the binder's join order): the ANALYZE
+        snapshot when present, else the physical count."""
+        st = getattr(self, "table_stats", None)
+        return st.row_count if st is not None else self.num_rows
 
     def col_stats(self) -> dict[str, tuple]:
         """Per-column (lo, hi) bounds over valid rows for integer-represented
@@ -199,19 +212,37 @@ class Table:
 
 
 class Catalog:
-    """Table namespace; every table lives on the catalog's device."""
+    """Table namespace, on one device, plus a schema version. Every DDL
+    that can stale a built plan (CREATE TABLE, CREATE/DROP INDEX,
+    ANALYZE) bumps ``version``; the prepared-plan cache
+    (sql/plancache.py) keys its entries on it."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.tables: dict[str, Table] = {}
+        self.version = 0
+
+    def bump_version(self) -> int:
+        self.version += 1
+        return self.version
 
     def add(self, table: Table) -> Table:
         table.device = self.device
         self.tables[table.name] = table
+        self.bump_version()
         return table
 
     def get(self, name: str) -> Table:
-        return self.tables[name]
+        t = self.tables.get(name)
+        if t is None and name.startswith("crdb_internal."):
+            # virtual tables materialize on read from the process
+            # registries (sql/crdb_internal.py)
+            from .sql import crdb_internal
+
+            return crdb_internal.build(self, name)
+        if t is None:
+            return self.tables[name]  # the usual KeyError
+        return t
 
 
 def sql_type(spec) -> SQLType:

@@ -46,6 +46,19 @@ Spools. A spool keeps its tiles in buffers that keep their address from
 run to run (``persist``), so the graphs of its once-per-spool functions
 (a merge, a sort, a join build) read it by reference and hold no copy.
 
+Threads. A graph's input buffers and outputs, and a chain shared by key,
+are shared by every caller, and a capture uses the side stream, the
+shared pool and ``gc.disable`` of the whole process. A graph's outputs
+are read by the next function or the readback after its replay returns,
+so no lock narrower than the query keeps another session's replay of
+the same graph from overwriting them: every call of a ``jit`` wrapper is
+made under ``exec_lock()``, which the runtime (``run_operator``) and the
+distributed runner (parallel/planner.py) hold for the whole of one
+query's execution, captures included. Sessions (sql/session.py,
+server/pgwire.py) parse, bind, plan and write to KV concurrently; their
+queries run on the device one at a time, and each query's wait for the
+lock lands in the ``sql_exec_lock_wait_seconds`` histogram.
+
 No fallback: a capture that fails raises ``GraphCaptureError`` naming the
 function. A function that cannot be captured (it reads a device value on
 the host) is not wrapped by ``jit``; ``counted`` runs it eagerly and
@@ -59,13 +72,19 @@ import dataclasses
 import functools
 import gc
 import threading
+import time
 import weakref
 
 import torch
 
 from ..coldata import batch as batch_mod
+from ..utils import metric
 
 _lock = threading.Lock()
+# one query's execution at a time (see the module docstring), and how
+# deep this thread holds it
+_exec_lock = threading.RLock()
+_exec_depth = threading.local()
 _total = 0
 _compiles = 0
 _captures = 0
@@ -79,6 +98,25 @@ MAX_VARIANTS = 8  # graphs kept per signature (one per by-reference set)
 
 class GraphCaptureError(RuntimeError):
     """A CUDA graph capture failed; names the function."""
+
+
+@contextlib.contextmanager
+def exec_lock():
+    """Held by one query's execution from its first pull to its readback
+    (flow/runtime.run_operator); re-entrant, so a query run inside
+    another (a scalar subquery at bind time) joins it. The outermost
+    acquire's wait is observed in ``sql_exec_lock_wait_seconds``."""
+    depth = getattr(_exec_depth, "n", 0)
+    t0 = time.perf_counter()
+    _exec_lock.acquire()
+    if depth == 0:
+        metric.EXEC_LOCK_WAIT_SECONDS.observe(time.perf_counter() - t0)
+    _exec_depth.n = depth + 1
+    try:
+        yield
+    finally:
+        _exec_depth.n = depth
+        _exec_lock.release()
 
 
 def note(n: int = 1) -> None:
@@ -160,10 +198,11 @@ def _storage_ptr(t: torch.Tensor) -> int:
 
 
 def _register(t: torch.Tensor, kind: str) -> None:
-    if len(_static) > 4096:  # drop the entries of freed buffers
-        for k in [k for k, (r, _) in _static.items() if r() is None]:
-            del _static[k]
-    _static[_storage_ptr(t)] = (weakref.ref(t), kind)
+    with _lock:
+        if len(_static) > 4096:  # drop the entries of freed buffers
+            for k in [k for k, (r, _) in _static.items() if r() is None]:
+                del _static[k]
+        _static[_storage_ptr(t)] = (weakref.ref(t), kind)
 
 
 def _static_kind(t: torch.Tensor):
@@ -518,8 +557,9 @@ class _Kernel:
                    None)
         sig = (spec, tuple(_leaf_sig(x) for x in leaves))
         if dev is None or dev.type != "cuda":
-            if sig not in self._seen:
-                self._seen.add(sig)
+            new = sig not in self._seen
+            self._seen.add(sig)
+            if new:
                 note_compile()
                 if _check_capture:
                     self.fn(*args)  # the warm-up, as on the card
@@ -544,10 +584,48 @@ class _Kernel:
         variants.insert(0, g)
         if len(variants) > MAX_VARIANTS:
             variants.pop()  # the least recently used
+        sink = getattr(_recording, "sink", None)
+        if sink is not None:
+            sink.append((weakref.ref(self), sig, weakref.ref(g)))
         note_compile()
         with _lock:
             _captures += 1
         return g.run(leaves)
+
+
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def recording_graphs(sink: list):
+    """Within the block, each graph this thread captures is noted in
+    `sink` (weakly), so ``release_graphs`` can drop them later: a cached
+    plan's graphs, which shared wrappers would otherwise keep, with the
+    buffers they read by reference, after the plan itself is gone."""
+    saved = getattr(_recording, "sink", None)
+    _recording.sink = sink
+    try:
+        yield
+    finally:
+        _recording.sink = saved
+
+
+def release_graphs(sink: list) -> int:
+    """Drop the graphs `sink` noted from their wrappers (a later call
+    captures anew); returns how many were still held. Takes
+    ``exec_lock``: no replay runs meanwhile."""
+    n = 0
+    with exec_lock():
+        for kref, sig, gref in sink:
+            k, g = kref(), gref()
+            variants = None if k is None else k._graphs.get(sig)
+            if g is None or not variants:
+                continue
+            kept = [v for v in variants if v is not g]
+            n += len(variants) - len(kept)
+            variants[:] = kept
+        sink.clear()
+    return n
 
 
 def jit(fn=None, key=None, carry: bool = False, own_pool: bool = False):

@@ -64,10 +64,11 @@ class BytesMonitor:
     ancestor up to ROOT; ``high_water`` is the peak of ``used``."""
 
     def __init__(self, name: str, parent: "BytesMonitor | None" = None,
-                 budget: int = 0):
+                 budget: int = 0, level: str = "operator"):
         self.name = name
         self.parent = parent
         self.budget = int(budget)
+        self.level = level
         self.used = 0
         self.high_water = 0
         self.spills = 0
@@ -153,7 +154,7 @@ class BytesMonitor:
 
 
 # the node-level root monitor
-ROOT = BytesMonitor("root")
+ROOT = BytesMonitor("root", level="root")
 
 _STAGING: dict[str, BytesMonitor] = {}
 
@@ -163,7 +164,8 @@ def staging_monitor(name: str) -> BytesMonitor:
     with _TREE_LOCK:
         m = _STAGING.get(name)
         if m is None or m.closed:
-            m = _STAGING[name] = BytesMonitor(name, parent=ROOT)
+            m = _STAGING[name] = BytesMonitor(name, parent=ROOT,
+                                              level="staging")
         return m
 
 
@@ -207,23 +209,63 @@ def current_query() -> BytesMonitor | None:
     return _CURRENT_QUERY.get()
 
 
+def root_budget() -> int:
+    from ..utils import settings
+
+    return int(settings.get("sql.mem.root_budget_bytes"))
+
+
+def mem_pressure() -> float:
+    """ROOT used over the configured root budget (0.0 when the budget is
+    unlimited): the signal admission sheds by."""
+    b = root_budget()
+    return (ROOT.used / b) if b > 0 else 0.0
+
+
+def session_monitor(name: str) -> BytesMonitor:
+    """A session's node of the tree, under ROOT: its statements' query
+    monitors open under it."""
+    return BytesMonitor(name, parent=ROOT, level="session")
+
+
 @contextlib.contextmanager
-def query_scope():
-    """Enter (or join) the current query's monitor. Nested scopes share
-    the outer monitor; the outermost exit closes it, records its peak in
+def query_scope(parent: BytesMonitor | None = None, name: str | None = None):
+    """Enter (or join) the current statement's query monitor, under
+    `parent` (a session's monitor) or ROOT. Nested scopes share the outer
+    monitor; the outermost exit closes it, records its peak in
     ``sql_mem_query_peak_bytes`` and counts any retained bytes as a
     drain failure."""
     existing = _CURRENT_QUERY.get()
     if existing is not None:
         yield existing
         return
-    qm = BytesMonitor(f"query-{next(_QUERY_SEQ)}", parent=ROOT)
+    qm = BytesMonitor(name or f"query-{next(_QUERY_SEQ)}",
+                      parent=parent or ROOT, level="query")
     tok = _CURRENT_QUERY.set(qm)
     try:
         yield qm
     finally:
         _CURRENT_QUERY.reset(tok)
         _close_query(qm)
+
+
+def monitor_rows() -> list[dict]:
+    """Depth-first snapshot of the live monitor tree (the
+    crdb_internal.node_memory_monitors row shape)."""
+    rows: list[dict] = []
+
+    def walk(m: BytesMonitor, depth: int) -> None:
+        rows.append({
+            "name": m.name, "level": m.level, "depth": depth,
+            "used": m.used, "peak": m.high_water,
+            "budget": m.budget, "spills": m.spills,
+        })
+        for c in m.children():
+            walk(c, depth + 1)
+
+    with _TREE_LOCK:
+        walk(ROOT, 0)
+    return rows
 
 
 def _close_query(qm: BytesMonitor) -> None:

@@ -229,12 +229,15 @@ def _fold(op: OneInputOperator, tag: str, tile_raw, tile_jit, merge_raw,
 _chain_cache: dict = {}
 
 
-def _compose_parts(op, child, raw_fn, key=None):
+def _compose_parts(op, child, raw_fn, key=None, extra=()):
     """Chain raw_fn onto the child's fused streaming function (arguments
     pass through; the composition is cached per operator instance). When
     the child's chain and this op both carry structural kernel keys, the
     composed chain is shared process-wide too, so two queries with
-    identical fused prefixes share one function and its graphs."""
+    identical fused prefixes share one function and its graphs.
+    ``extra`` appends this op's runtime arguments (parameter values)
+    after the child's; the chain splits them back out by position, so
+    the values stay arguments, read at every call."""
     parts = child.stream_parts()
     if parts is None:
         return None
@@ -260,7 +263,7 @@ def _compose_parts(op, child, raw_fn, key=None):
         op._chain_fn = chain
         op._chain_base = cfn
     op._parts_key = chain_key
-    return src, op._chain_fn, tuple(cargs)
+    return src, op._chain_fn, tuple(cargs) + tuple(extra)
 
 
 def _keep(op: Operator, k: int, b: Batch) -> Batch:
@@ -496,27 +499,43 @@ class IndexScanOp(SourceOperator):
 
 
 class FilterOp(OneInputOperator):
-    """Predicate mask."""
+    """Predicate mask. With ``params`` (a plancache.ParamStore), the
+    predicate's ex.Param leaves read their values from arguments of the
+    function (0-d tensors, copied into a graph's input buffers at every
+    replay) instead of constants, so a cached plan rebinds literals with
+    no new capture (the prepared-plan fast path)."""
 
-    def __init__(self, child: Operator, predicate: ex.Expr):
+    def __init__(self, child: Operator, predicate: ex.Expr, params=None):
         super().__init__(child)
         self.output_schema = child.output_schema
         schema = child.output_schema
         self.predicate = predicate
+        self._params = params
+        if params is None:
+            def raw(b: Batch) -> Batch:
+                return b.with_mask(ex.filter_mask(b, schema, predicate))
+        else:
+            def raw(b: Batch, *pv) -> Batch:
+                with ex.param_scope(pv):
+                    return b.with_mask(ex.filter_mask(b, schema, predicate))
 
-        def raw(b: Batch) -> Batch:
-            return b.with_mask(ex.filter_mask(b, schema, predicate))
-
-        self._key = dispatch.kernel_key("filter", schema, predicate)
+        self._key = dispatch.kernel_key(
+            "filter", schema, predicate, params is not None)
         self._raw = raw
         self._fn = dispatch.jit(raw, key=self._key)
 
     def stream_parts(self):
-        return _compose_parts(self, self.child, self._raw, key=self._key)
+        extra = () if self._params is None else self._params.args()
+        return _compose_parts(self, self.child, self._raw, key=self._key,
+                              extra=extra)
 
     def _next(self):
         b = self.child.next_batch()
-        return None if b is None else self._fn(b)
+        if b is None:
+            return None
+        if self._params is None:
+            return self._fn(b)
+        return self._fn(b, *self._params.args())
 
 
 class ProjectOp(OneInputOperator):

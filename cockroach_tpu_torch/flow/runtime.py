@@ -151,7 +151,14 @@ def _pull(root: Operator, shrink: _ReadbackShrink, overlap: bool) -> list:
 def run_operator(root: Operator) -> dict[str, np.ndarray]:
     """Run the operator tree (re-running while speculative capacities
     overflow); {column name: host array}. The query's dispatches, new
-    signatures and memory peak land on the root (EXPLAIN ANALYZE)."""
+    signatures and memory peak land on the root (EXPLAIN ANALYZE). Holds
+    ``dispatch.exec_lock()`` throughout: concurrent sessions' queries
+    run on the device one at a time."""
+    with dispatch.exec_lock():
+        return _run_operator(root)
+
+
+def _run_operator(root: Operator) -> dict[str, np.ndarray]:
     overlap = settings.get("sql.distsql.readback_overlap")
     d0, c0 = dispatch.total(), dispatch.compiles()
     with query_scope() as qmon:

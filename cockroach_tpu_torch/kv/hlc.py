@@ -7,10 +7,17 @@ message receipt (clock.Update). Here the pair packs into one int64
 (wall millis << 20 | logical), matching the storage layer's single-int64
 version timestamps. Milliseconds (not the reference's nanos) so the packed
 value stays inside int64 until ~year 2248 with 2^20 logical ticks per ms.
+
+``now`` and ``update`` hold a lock: sessions on several threads share one
+clock, and an unguarded read-modify-write of the last reading lets one
+thread store an older reading over a newer one, after which a read can
+take a timestamp below an acknowledged commit and miss it. The
+reference's clock has no lock (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 LOGICAL_BITS = 20
@@ -38,8 +45,13 @@ class Clock:
         self._wall_fn = wall_fn or (lambda: int(time.time() * 1e3))
         self._last = 0
         self._ticks = 0  # local increments since the wall last advanced
+        self._mu = threading.Lock()
 
     def now(self) -> int:
+        with self._mu:
+            return self._now()
+
+    def _now(self) -> int:
         wall = self._wall_fn()
         ts = pack(wall, 0)
         if ts <= self._last:
@@ -61,9 +73,10 @@ class Clock:
 
     def update(self, observed: int) -> int:
         """Advance past an observed remote timestamp (clock.Update)."""
-        if observed > self._last:
-            self._last = observed
-        return self.now()
+        with self._mu:
+            if observed > self._last:
+                self._last = observed
+            return self._now()
 
 
 class ManualClock(Clock):

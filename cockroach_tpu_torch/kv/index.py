@@ -148,7 +148,7 @@ class Streamer:
         view = eng._merged_view() if len(pks) else None
         if view is None:
             return empty_batch(schema, cap_out, eng.device)
-        ts = tbl.read_ts if tbl.read_ts is not None else tbl.db.clock.now()
+        ts, reader = tbl.read_context()
         spks = np.sort(np.asarray(pks, dtype=np.int64))
         sw = K.encode_bound(rowcodec.encode_pk(tbl.table_id, int(spks[0])),
                             eng.key_width)
@@ -156,7 +156,7 @@ class Streamer:
             rowcodec.encode_pk(tbl.table_id, int(spks[-1])) + b"\x01",
             eng.key_width)
         sel, conflict = mvcc.mvcc_scan_filter(
-            view, int(ts), int(tbl.reader_txn),
+            view, int(ts), int(reader),
             K.words_tensor(sw, eng.device), K.words_tensor(ew, eng.device))
         if bool(conflict.any()):
             raise eng._intent_error(view, conflict)
@@ -198,8 +198,8 @@ def scan_pks(table, index: IndexDesc, lo: int | None, hi: int | None,
     """Primary keys whose indexed value falls in [lo, hi], read from the
     index keyspace at the table's read context (ts and txn visibility)."""
     start, end = value_span(index.index_id, lo, hi)
-    ts = table.read_ts if table.read_ts is not None else table.db.clock.now()
-    rows = table.db.engine.scan(start, end, ts=ts, txn=table.reader_txn,
+    ts, reader = table.read_context()
+    rows = table.db.engine.scan(start, end, ts=ts, txn=reader,
                                 max_keys=max_keys)
     return np.array([decode_entry(k)[1] for k, _ in rows], dtype=np.int64)
 

@@ -21,6 +21,9 @@ engine. BYTES and JSON columns are refused.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
@@ -36,6 +39,24 @@ _UNSUPPORTED = (Family.BYTES, Family.JSON)
 # unscoped table ids come from the system tenant's range (kv/tenant.py's
 # _SYSTEM_RANGE in the reference)
 _SYSTEM_RANGE = (1, 127)
+
+# the transaction the running statement reads as (``reading_as``); a
+# context variable, so each thread (each pgwire connection, each load
+# session) sees only its own statement's snapshot
+_READ_AS: contextvars.ContextVar[Txn | None] = contextvars.ContextVar(
+    "ctpu_torch_read_as", default=None)
+
+
+@contextlib.contextmanager
+def reading_as(txn: Txn):
+    """Within the block, this thread's scans of txn's database's tables
+    read AT txn's snapshot AS txn (its own intents visible, foreign ones
+    conflict); other threads keep reading at now()."""
+    tok = _READ_AS.set(txn)
+    try:
+        yield
+    finally:
+        _READ_AS.reset(tok)
 
 
 def unique_strings(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -116,8 +137,10 @@ class KVTable:
         if db.engine.val_width < need:
             raise ValueError(
                 f"engine val_width {db.engine.val_width} < row width {need}")
-        # snapshot timestamp for reads (None = now() at decode time) and
-        # the txn whose own intents a columnar scan sees
+        # a pinned snapshot timestamp for every reader of this table
+        # (None = now() at decode time) and the txn whose own intents a
+        # columnar scan sees; a statement inside ``reading_as`` reads at
+        # its txn's instead (``read_context``)
         self.read_ts: int | None = None
         self.reader_txn: int = 0
         self._string_cols = tuple(
@@ -442,16 +465,43 @@ class KVTable:
         self._count_cache = (key, n)
         return n
 
+    def set_stats(self, st) -> None:
+        """Install ANALYZE statistics (sql/stats.TableStats): their
+        (lo, hi) bounds feed ``col_stats`` for exact-key planning, their
+        row count ``estimated_rows``."""
+        self.table_stats = st
+
     def estimated_rows(self) -> int:
-        """Planner cardinality: the newest-visible count (the reference's
-        when no ANALYZE snapshot is installed; the port has no ANALYZE)."""
-        return self.num_rows
+        """Planner cardinality: the ANALYZE snapshot when present, else
+        the newest-visible count."""
+        st = getattr(self, "table_stats", None)
+        return st.row_count if st is not None else self.num_rows
 
     def col_stats(self) -> dict[str, tuple]:
-        """Per-column (lo, hi) bounds: none until ANALYZE statistics
-        (sql/stats.py) are ported, so plans over KV tables never size a
-        dense key range from them."""
-        return {}
+        """Per-column (lo, hi) bounds from the ANALYZE snapshot; none
+        without one, so plans over KV tables never size a dense key range
+        from a guess."""
+        st = getattr(self, "table_stats", None)
+        if st is None:
+            return {}
+        return {
+            n: (c.lo, c.hi)
+            for n, c in st.cols.items()
+            if c.lo is not None and c.hi is not None
+        }
+
+    def read_context(self, now: bool = True) -> tuple[int | None, int]:
+        """(read timestamp, reader txn id) of a scan from this thread: the
+        ``reading_as`` txn's when it belongs to this table's database,
+        else the table's pin; an unpinned timestamp is the clock's now(),
+        or None with `now` False."""
+        txn = _READ_AS.get()
+        if txn is not None and txn.db is self.db:
+            return txn.read_ts, txn.txn_id
+        ts = self.read_ts
+        if ts is None and now:
+            ts = self.db.clock.now()
+        return ts, self.reader_txn
 
     def snapshot_live_rows(self) -> int:
         """Live-row count at the current read context (read_ts,
@@ -459,8 +509,8 @@ class KVTable:
         view = self.db.engine._merged_view()
         if view is None:
             return 0
-        ts = self.read_ts if self.read_ts is not None else self.db.clock.now()
-        sel, _ = self._span_filter(view, ts, self.reader_txn)
+        ts, txn = self.read_context()
+        sel, _ = self._span_filter(view, ts, txn)
         self.host_syncs += 1
         return int(sel.sum())
 
@@ -483,7 +533,7 @@ class KVTable:
         """Identity of the snapshot ``device_batch`` decodes now: equal
         tokens guarantee bit-identical decodes."""
         eng = self.db.engine
-        return (id(eng), eng._seq, self.read_ts, self.reader_txn)
+        return (id(eng), eng._seq) + self.read_context(now=False)
 
     def device_batch(self, names: tuple[str, ...] | None = None,
                      persistent: bool = False) -> Batch:
@@ -497,12 +547,12 @@ class KVTable:
         the next persistent decode overwrites the batch."""
         names = names or self.schema.names
         idxs = tuple(self.schema.index(n) for n in names)
-        ts = self.read_ts if self.read_ts is not None else self.db.clock.now()
+        ts, txn = self.read_context()
         eng: Engine = self.db.engine
         view = eng._merged_view()
         if view is None:
             return empty_batch(self.schema.select(idxs), 1024, eng.device)
-        sel, conflict = self._span_filter(view, ts, self.reader_txn)
+        sel, conflict = self._span_filter(view, ts, txn)
         self.host_syncs += 1
         if bool(conflict.any()):
             raise eng._intent_error(view, conflict)

@@ -392,9 +392,16 @@ def eval_expr(e: Expr, cols, schema: Schema):
                 torch.ones(n, dtype=torch.bool, device=dev))
 
     if isinstance(e, Param):
+        # the value is a 0-d tensor argument of the function (a cached
+        # plan's ParamStore), so a CUDA graph reads it from its input
+        # buffer at every replay instead of baking it in at capture
         n, dev = cols[0].data.shape[0], cols[0].data.device
-        return (_full(n, param_value(e.slot), e.type.torch_dtype, dev),
-                torch.ones(n, dtype=torch.bool, device=dev))
+        v = param_value(e.slot)
+        if isinstance(v, torch.Tensor):
+            data = v.to(e.type.torch_dtype).expand(n)
+        else:
+            data = _full(n, v, e.type.torch_dtype, dev)
+        return data, torch.ones(n, dtype=torch.bool, device=dev)
 
     if isinstance(e, CodeLookup):
         c = cols[e.col]

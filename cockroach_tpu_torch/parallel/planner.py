@@ -715,8 +715,12 @@ class DistributedQuery:
 
         @query_boundary("distributed flow")
         def _go():
-            out, schema, dicts = self.run_batch()
-            return shards_to_host(out, schema, dicts, self.root.replicated)
+            # the attempt's graph replays and its readback: one query on
+            # the device at a time, as flow/runtime.run_operator
+            with dispatch.exec_lock():
+                out, schema, dicts = self.run_batch()
+                return shards_to_host(out, schema, dicts,
+                                      self.root.replicated)
 
         return _go()
 

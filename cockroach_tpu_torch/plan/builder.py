@@ -94,12 +94,14 @@ def _clustered_input(plan: S.PlanNode, group_cols, catalog: Catalog):
             return False, False
 
 
-def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
+def build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     """Instantiate the operator tree for `plan` over `catalog`'s tables,
     then collapse its stateless per-tile chains into FusedPipeline
     segments (flow/fuse.py) unless ``sql.distsql.fusion.enabled`` is
-    off."""
-    op = _build(plan, catalog)
+    off. ``params`` (a sql/plancache.ParamStore) reaches the FilterOps
+    whose predicates carry ex.Param leaves, so a cached plan rebinds
+    literals as arguments instead of capturing again."""
+    op = _build(plan, catalog, params)
     if settings.get("sql.distsql.fusion.enabled"):
         from ..flow import fuse
 
@@ -107,7 +109,7 @@ def build(plan: S.PlanNode, catalog: Catalog) -> Operator:
     return op
 
 
-def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
+def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     if isinstance(plan, S.TableScan):
         if plan.shard is not None:
             raise NotImplementedError(
@@ -119,12 +121,13 @@ def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
         return ops.IndexScanOp(catalog.get(plan.table), plan.index, plan.lo,
                                plan.hi, plan.columns)
     if isinstance(plan, S.Filter):
-        return ops.FilterOp(_build(plan.input, catalog), plan.predicate)
+        return ops.FilterOp(_build(plan.input, catalog, params),
+                            plan.predicate, params=params)
     if isinstance(plan, S.Project):
-        return ops.ProjectOp(_build(plan.input, catalog), plan.exprs,
+        return ops.ProjectOp(_build(plan.input, catalog, params), plan.exprs,
                              plan.names, plan.dict_overrides)
     if isinstance(plan, S.Aggregate):
-        child = _build(plan.input, catalog)
+        child = _build(plan.input, catalog, params)
         if plan.key_sizes is not None and plan.mode == "complete":
             return ops.SmallGroupAggregateOp(
                 child, plan.group_cols, plan.aggs, plan.key_sizes)
@@ -145,32 +148,32 @@ def _build(plan: S.PlanNode, catalog: Catalog) -> Operator:
                 f"{plan.mode}-mode aggregation is a distributed stage, "
                 "which waits for the port's multi-device slice (ROADMAP "
                 "Queue 1)")
-        return ops.ScalarAggregateOp(_build(plan.input, catalog), plan.aggs)
+        return ops.ScalarAggregateOp(_build(plan.input, catalog, params), plan.aggs)
     if isinstance(plan, S.Sort):
-        return ops.SortOp(_build(plan.input, catalog), plan.keys)
+        return ops.SortOp(_build(plan.input, catalog, params), plan.keys)
     if isinstance(plan, S.TopK):
-        return ops.TopKOp(_build(plan.input, catalog), plan.keys, plan.k)
+        return ops.TopKOp(_build(plan.input, catalog, params), plan.keys, plan.k)
     if isinstance(plan, S.Limit):
-        return ops.LimitOp(_build(plan.input, catalog), plan.limit,
+        return ops.LimitOp(_build(plan.input, catalog, params), plan.limit,
                            plan.offset)
     if isinstance(plan, S.Distinct):
-        return ops.DistinctOp(_build(plan.input, catalog), plan.cols)
+        return ops.DistinctOp(_build(plan.input, catalog, params), plan.cols)
     if isinstance(plan, S.Window):
-        return ops.WindowOp(_build(plan.input, catalog), plan.partition_cols,
+        return ops.WindowOp(_build(plan.input, catalog, params), plan.partition_cols,
                             plan.order_keys, plan.specs)
     if isinstance(plan, S.MergeJoin):
         return ops.MergeJoinOp(
-            _build(plan.probe, catalog), _build(plan.build, catalog),
+            _build(plan.probe, catalog, params), _build(plan.build, catalog, params),
             plan.probe_key, plan.build_key, plan.spec)
     if isinstance(plan, S.HashJoin):
         return ops.HashJoinOp(
-            _build(plan.probe, catalog), _build(plan.build, catalog),
+            _build(plan.probe, catalog, params), _build(plan.build, catalog, params),
             plan.probe_keys, plan.build_keys, plan.spec)
     if isinstance(plan, S.Union):
-        return ops.UnionOp(tuple(_build(p, catalog) for p in plan.inputs))
+        return ops.UnionOp(tuple(_build(p, catalog, params) for p in plan.inputs))
     if isinstance(plan, S.Exchange):
         # single-device build: the shuffle is the identity
-        return _build(plan.input, catalog)
+        return _build(plan.input, catalog, params)
     raise NotImplementedError(
         f"plan node {type(plan).__name__} (the distribution nodes) waits "
         "for the port's multi-device slice (ROADMAP Queue 1)")

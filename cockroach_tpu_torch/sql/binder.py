@@ -1,0 +1,2249 @@
+"""SQL binder/lowering — the optbuilder analog (pkg/sql/opt/optbuilder).
+
+Turns a parsed ``Select`` AST into a ``Rel`` plan against a catalog:
+
+- FROM sources bind to scans (or nested Selects); implicit-join queries are
+  planned by extracting equi-join conjuncts from WHERE and greedily joining
+  connected sources largest-probe-first (a cut-down version of the join
+  ordering the reference's cost-based xform rules perform);
+- single-source conjuncts push down below the join (the norm rules'
+  filter-pushdown equivalent);
+- EXISTS / IN (SELECT ...) decorrelate into semi/anti joins on the
+  correlated equality columns (optbuilder's subquery hoisting);
+- aggregation splits into pre-projection -> groupby -> HAVING filter ->
+  post-projection, with aggregates collected across SELECT/HAVING/ORDER BY;
+- string predicates (LIKE, =, IN, range) lower to host-prepared dictionary
+  lookups (CodeLookup), date/interval literal arithmetic constant-folds to
+  day literals on the host.
+
+The port of ``cockroach_tpu.sql.binder``, binding against the port's
+``Rel``, ``ops.expr`` and catalog. ``BindError`` is the one class the
+DDL planners of ``kv/index.py`` raise too.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..catalog import Catalog
+from ..coldata.types import BOOL, FLOAT64, INT64, Family, SQLType
+from ..kv.index import BindError
+from ..ops import expr as ex
+from . import parser as P
+from .rel import Rel
+
+class UnportedError(BindError):
+    """The statement needs a module of the reference that the port has
+    not got yet; the message names it."""
+
+    def __init__(self, what: str, module: str):
+        super().__init__(
+            f"{what} is not supported: it needs {module}, which is not "
+            "ported")
+        self.module = module
+
+
+AGG_FUNCS = {"sum", "avg", "min", "max", "count", "stddev", "stddev_samp",
+             "stddev_pop", "variance", "var_samp", "var_pop",
+             "bool_and", "bool_or", "every", "string_agg"}
+
+# SQL spellings -> kernel aggregate names (sample variants are the defaults,
+# matching CockroachDB/Postgres; EVERY is the standard spelling of bool_and)
+_AGG_CANON = {"variance": "var", "var_samp": "var", "stddev_samp": "stddev",
+              "every": "bool_and"}
+
+
+# ---------------------------------------------------------------------------
+# helpers
+
+
+def _positional(seq, numlit) -> str:
+    """ORDER BY <position>: 1-based, bounds-checked (0 would silently hit
+    Python's negative indexing). seq: output names or (name, expr) items."""
+    pos = int(numlit.value)
+    if pos < 1 or pos > len(seq):
+        raise BindError(
+            f"ORDER BY position {pos} is out of range (1..{len(seq)})"
+        )
+    item = seq[pos - 1]
+    return item if isinstance(item, str) else item[0]
+
+
+def _conjuncts(e: P.Node | None) -> list[P.Node]:
+    if e is None:
+        return []
+    if isinstance(e, P.Bin) and e.op == "and":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _days(date_str: str) -> int:
+    return int(
+        (np.datetime64(date_str) - np.datetime64("1970-01-01")).astype(int)
+    )
+
+
+def _date_add(days: int, n: int, unit: str) -> int:
+    """Calendar-correct date + interval on the host (constant folding)."""
+    d = np.datetime64("1970-01-01") + np.timedelta64(days, "D")
+    if unit == "day":
+        d = d + np.timedelta64(n, "D")
+    elif unit == "month":
+        m = d.astype("datetime64[M]") + np.timedelta64(n, "M")
+        dom = (d - d.astype("datetime64[M]")).astype(int)
+        d = m.astype("datetime64[D]") + np.timedelta64(dom, "D")
+    elif unit == "year":
+        return _date_add(days, 12 * n, "month")
+    else:
+        raise BindError(f"unsupported interval unit {unit}")
+    return int((d - np.datetime64("1970-01-01")).astype(int))
+
+
+def _fold(e: P.Node) -> P.Node:
+    """Fold date/interval/numeric literal arithmetic into literals."""
+    if isinstance(e, P.Bin) and e.op in ("+", "-"):
+        l, r = _fold(e.left), _fold(e.right)
+        if isinstance(l, P.NumLit) and isinstance(r, P.IntervalLit):
+            # folded DateLits are day numbers; intervals add calendar-exactly
+            n = r.n if e.op == "+" else -r.n
+            return P.NumLit(_date_add(int(l.value), n, r.unit))
+        if isinstance(l, P.NumLit) and isinstance(r, P.NumLit):
+            v = l.value + r.value if e.op == "+" else l.value - r.value
+            return P.NumLit(v)
+        return P.Bin(e.op, l, r)
+    if isinstance(e, P.DateLit):
+        return P.NumLit(_days(e.value))
+    return e
+
+
+# SQL: now()/current_date are constant WITHIN a statement. The session
+# resets this at each execute(); every occurrence in one statement then
+# folds to the same instant (conn_executor's statement timestamp role).
+_STMT_NOW_US: list[int | None] = [None]
+
+
+def begin_statement() -> None:
+    _STMT_NOW_US[0] = None
+    # fresh snapshots for crdb_internal virtual tables: bind-time and
+    # build-time materializations within THIS statement stay identical
+    from . import crdb_internal
+
+    crdb_internal.bump_generation()
+
+
+def _statement_now_us() -> int:
+    if _STMT_NOW_US[0] is None:
+        import time as _time
+
+        _STMT_NOW_US[0] = int(_time.time() * 1e6)
+    return _STMT_NOW_US[0]
+
+
+def _intersect_except(left: Rel, right: Rel, op: str) -> Rel:
+    """INTERSECT / EXCEPT with SQL set (DISTINCT) semantics via the
+    tagged-union reduction: dedupe both arms, tag rows 0/1, UNION ALL,
+    group by every output column, keep groups by their tag profile.
+    Grouping — unlike a join — already treats NULLs as equal, which is
+    exactly the set-operation rule, and union_all reconciles string
+    dictionaries across arms. (INTERSECT/EXCEPT ALL bag semantics are
+    rejected at parse time.)"""
+    if len(left.schema) != len(right.schema):
+        raise BindError(f"{op.upper()} inputs must have equal arity")
+    names = list(left.schema.names)
+    tag = "__setop_tag"
+    while tag in names:
+        tag += "_"
+
+    def tagged(r: Rel, t: int) -> Rel:
+        r = r.distinct()
+        items = [(n, r.c(r.schema.names[i]))
+                 for i, n in enumerate(names)]
+        return r.project(items + [(tag, ex.lit(t))])
+
+    u = tagged(left, 0).union_all(tagged(right, 1))
+    g = u.groupby(names, [("__mn", "min", tag), ("__mx", "max", tag)])
+    if op == "intersect":
+        keep = ex.and_(ex.Cmp("eq", g.c("__mn"), ex.lit(0)),
+                       ex.Cmp("eq", g.c("__mx"), ex.lit(1)))
+    else:  # except: present in left only
+        keep = ex.Cmp("eq", g.c("__mx"), ex.lit(0))
+    g = g.filter(keep)
+    return g.project([(n, g.c(n)) for n in names])
+
+
+def _replace_node(tree: P.Node, target: P.Node, repl: P.Node) -> P.Node:
+    """Rebuild `tree` with the (identity-matched) `target` node replaced.
+    Frozen dataclass AST: rebuild only along the path to the target."""
+    if tree is target:
+        return repl
+    import dataclasses as _dc
+
+    if not _dc.is_dataclass(tree):
+        return tree
+    changes = {}
+    for f in _dc.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, P.Node):
+            nv = _replace_node(v, target, repl)
+            if nv is not v:
+                changes[f.name] = nv
+        elif isinstance(v, tuple):
+            nvs = tuple(
+                _replace_node(x, target, repl) if isinstance(x, P.Node)
+                else x
+                for x in v
+            )
+            if any(a is not b for a, b in zip(nvs, v)):
+                changes[f.name] = nvs
+    return _dc.replace(tree, **changes) if changes else tree
+
+
+def _like_regex(pattern: str) -> re.Pattern:
+    parts = []
+    for ch in pattern:
+        if ch == "%":
+            parts.append(".*")
+        elif ch == "_":
+            parts.append(".")
+        else:
+            parts.append(re.escape(ch))
+    return re.compile("^" + "".join(parts) + "$", re.DOTALL)
+
+
+def _walk(e: P.Node):
+    yield e
+    for f in getattr(e, "__dataclass_fields__", {}):
+        v = getattr(e, f)
+        if isinstance(v, P.Node) and not isinstance(v, P.Select):
+            yield from _walk(v)
+        elif isinstance(v, tuple):
+            for x in v:
+                if isinstance(x, P.Node) and not isinstance(x, P.Select):
+                    yield from _walk(x)
+                elif (isinstance(x, tuple) and len(x) == 2
+                      and isinstance(x[0], P.Node)):
+                    yield from _walk(x[0])
+                    yield from _walk(x[1])
+
+
+def _has_agg(e: P.Node) -> bool:
+    # a sum() INSIDE an OVER clause is a window aggregate, not grouping:
+    # WindowCall subtrees are pruned from the walk entirely
+    if isinstance(e, P.WindowCall):
+        return False
+    if isinstance(e, P.FuncCall) and e.name in AGG_FUNCS:
+        return True
+    for f in getattr(e, "__dataclass_fields__", {}):
+        v = getattr(e, f)
+        if isinstance(v, P.Node) and not isinstance(v, P.Select):
+            if _has_agg(v):
+                return True
+        elif isinstance(v, tuple):
+            for x in v:
+                if isinstance(x, P.Node) and not isinstance(x, P.Select):
+                    if _has_agg(x):
+                        return True
+                elif isinstance(x, tuple):
+                    # nested pair tuples (CASE whens: (cond, result))
+                    for y in x:
+                        if (isinstance(y, P.Node)
+                                and not isinstance(y, P.Select)
+                                and _has_agg(y)):
+                            return True
+    return False
+
+
+# ---------------------------------------------------------------------------
+# bound sources
+
+
+@dataclass
+class Source:
+    """One FROM item bound to a Rel, with name scoping."""
+
+    alias: str
+    rel: Rel
+    cols: tuple[str, ...]  # output names as exposed to the query
+    # base-table cardinality, captured before filter pushdown (join ordering
+    # still sees the true relative sizes); subqueries get a large default
+    base_rows: int = 1 << 30
+    # post-pushdown cardinality estimate from ANALYZE histograms
+    # (statistics_builder.go selectivity role); None = no estimate, join
+    # ordering falls back to base_rows
+    est_rows: int | None = None
+    # base-table provenance (None for subquery sources); lets bind-time
+    # checks prove column non-nullability from the catalog's valid bitmaps
+    table: str | None = None
+    # combined sources (a bound LEFT JOIN) expose their constituent aliases
+    # so table-qualified references through either side still resolve
+    sub_aliases: tuple[tuple[str, tuple[str, ...]], ...] = ()
+
+
+class Scope:
+    """Resolves Ident -> (source index, source-local column POSITION).
+
+    Positions (not names) are the only sound currency once a combined
+    source (a bound LEFT JOIN) or a self-join carries duplicate names."""
+
+    def __init__(self, sources: list[Source]):
+        self.sources = sources
+
+    def resolve(self, ident: P.Ident) -> tuple[int, int]:
+        if ident.table is not None:
+            for i, s in enumerate(self.sources):
+                if s.alias == ident.table:
+                    if ident.name not in s.cols:
+                        raise BindError(
+                            f"column {ident.name} not in {ident.table}"
+                        )
+                    return i, s.cols.index(ident.name)
+                off = 0
+                for sub_alias, sub_cols in s.sub_aliases:
+                    if sub_alias == ident.table:
+                        if ident.name not in sub_cols:
+                            raise BindError(
+                                f"column {ident.name} not in {ident.table}"
+                            )
+                        return i, off + sub_cols.index(ident.name)
+                    off += len(sub_cols)
+            raise BindError(f"unknown table alias {ident.table}")
+        hits = [
+            (i, p)
+            for i, s in enumerate(self.sources)
+            for p, c in enumerate(s.cols)
+            if c == ident.name
+        ]
+        if not hits:
+            raise BindError(f"unknown column {ident.name}")
+        if len(hits) > 1:
+            raise BindError(f"ambiguous column {ident.name}: qualify it")
+        return hits[0]
+
+    def name_of(self, i: int, pos: int) -> str:
+        return self.sources[i].cols[pos]
+
+    def sources_of(self, e: P.Node) -> set[int]:
+        out = set()
+        for x in _walk(e):
+            if isinstance(x, P.Ident):
+                out.add(self.resolve(x)[0])
+        return out
+
+
+# ---------------------------------------------------------------------------
+# expression lowering against a single Rel
+
+
+class ExprLowerer:
+    """Lower AST expressions against one Rel's schema (after joins).
+
+    resolver, when given, maps an Ident to a column POSITION via the query's
+    scope + join column map — the only correct resolution once a self-join
+    has produced duplicate column names in the joined schema."""
+
+    def __init__(self, rel: Rel, names: dict[str, int] | None = None,
+                 resolver=None):
+        self.rel = rel
+        self.resolver = resolver
+        # name -> column index (defaults to the rel's schema)
+        self.names = names or {
+            n: i for i, n in enumerate(rel.schema.names)
+        }
+
+    def idx(self, ident: P.Ident) -> int:
+        if self.resolver is not None:
+            return self.resolver(ident)
+        if ident.name in self.names:
+            return self.names[ident.name]
+        raise BindError(f"unknown column {ident.name}")
+
+    def _is_string_col(self, e: P.Node) -> int | None:
+        if isinstance(e, P.Ident):
+            i = self.idx(e)
+            if self.rel.schema.types[i].family is Family.STRING:
+                return i
+        return None
+
+    def _colname(self, i: int) -> str:
+        return self.rel.schema.names[i]
+
+    # positional string-predicate helpers: Rel's name-based str_* entry
+    # points mis-resolve duplicate names after self-joins, so the lowerer
+    # builds the dictionary-code lookups itself from a column POSITION
+    def _str_pred_at(self, i: int, fn) -> ex.Expr:
+        d = self.rel.dicts[i]
+        table = np.array([bool(fn(str(v))) for v in d.values])
+        if len(table) == 0:
+            table = np.zeros(1, dtype=bool)
+        return ex.CodeLookup(col=i, table=table)
+
+    def _str_eq_at(self, i: int, value: str) -> ex.Expr:
+        from ..coldata.types import INT32
+
+        code = self.rel.dicts[i].code_of(value)
+        return ex.Cmp("eq", ex.ColRef(i), ex.Const(code, INT32))
+
+    def lower(self, e: P.Node) -> ex.Expr:
+        e = _fold(e)
+        if isinstance(e, P.Ident):
+            try:
+                return ex.ColRef(self.idx(e))
+            except BindError:
+                if e.table is None and e.name in ("current_date",
+                                                  "current_timestamp"):
+                    from ..coldata.types import DATE as _DATE
+                    from ..coldata.types import TIMESTAMP as _TS
+
+                    us = _statement_now_us()
+                    if e.name == "current_date":
+                        return ex.Const(us // 86_400_000_000, _DATE)
+                    return ex.Const(us, _TS)
+                raise
+        if isinstance(e, P.NumLit):
+            if isinstance(e.value, int):
+                return ex.lit(int(e.value))
+            return ex.Const(float(e.value), FLOAT64)
+        if isinstance(e, P.NullLit):
+            return ex.Const(None, INT64)
+        if (isinstance(e, P.Bin) and e.op in ("+", "-")
+                and isinstance(e.right, P.IntervalLit)):
+            # column ± day/week interval: a constant day add (exact).
+            # month/year intervals on COLUMNS need per-row calendar
+            # arithmetic (literal dates fold calendar-exactly in _fold)
+            iv = e.right
+            if iv.unit in ("day", "week"):
+                days = iv.n * (7 if iv.unit == "week" else 1)
+                return ex.BinOp(e.op, self.lower(e.left),
+                                ex.Const(days, INT64))
+            raise BindError(
+                f"column {e.op} INTERVAL {iv.unit} is not supported "
+                "(day/week intervals only; month/year need per-row "
+                "calendar arithmetic)"
+            )
+        if isinstance(e, P.Bin) and e.op in ("and", "or"):
+            return ex.BoolOp(e.op, (self.lower(e.left), self.lower(e.right)))
+        if isinstance(e, P.Bin):
+            if e.op == "%":
+                raise BindError("modulo not supported on device")
+            return ex.BinOp(e.op, self.lower(e.left), self.lower(e.right))
+        if isinstance(e, P.Not):
+            return ex.Not(self.lower(e.arg))
+        if isinstance(e, P.IsNull):
+            return ex.IsNull(self.lower(e.arg), negate=e.negated)
+        if isinstance(e, P.Cmp):
+            return self.lower_cmp(e)
+        if isinstance(e, P.Between):
+            b = ex.and_(
+                self.lower(P.Cmp("ge", e.arg, e.lo)),
+                self.lower(P.Cmp("le", e.arg, e.hi)),
+            )
+            return ex.Not(b) if e.negated else b
+        if isinstance(e, P.Like):
+            i = self._is_string_col(e.arg)
+            if i is None:
+                raise BindError("LIKE requires a string column")
+            rx = _like_regex(e.pattern.lower() if e.ci else e.pattern)
+            if e.ci:  # ILIKE: case-insensitive on both sides
+                pred = self._str_pred_at(
+                    i, lambda s: rx.match(s.lower()) is not None
+                )
+            else:
+                pred = self._str_pred_at(
+                    i, lambda s: rx.match(s) is not None
+                )
+            return ex.Not(pred) if e.negated else pred
+        if isinstance(e, P.IsDistinct):
+            a = self.lower(e.left)
+            b = self.lower(e.right)
+            ta = ex.expr_type(a, self.rel.schema)
+            if ta.family is Family.STRING:
+                raise BindError(
+                    "IS DISTINCT FROM over strings is not supported"
+                )
+            # NOT DISTINCT == (both NULL) OR (a = b known-true); Kleene
+            # algebra keeps the result two-valued
+            not_distinct = ex.or_(
+                ex.and_(ex.IsNull(a), ex.IsNull(b)),
+                ex.and_(ex.Cmp("eq", a, b),
+                        ex.IsNull(a, negate=True),
+                        ex.IsNull(b, negate=True)),
+            )
+            return not_distinct if e.negated else ex.Not(not_distinct)
+        if isinstance(e, P.InList):
+            i = self._is_string_col(e.arg)
+            if i is not None:
+                vals = [
+                    x.value for x in e.items if isinstance(x, P.StrLit)
+                ]
+                if len(vals) != len(e.items):
+                    raise BindError("string IN list must be all literals")
+                vset = set(vals)
+                pred = self._str_pred_at(i, lambda s: s in vset)
+                return ex.Not(pred) if e.negated else pred
+            if (isinstance(e.arg, P.FuncCall)
+                    and e.arg.name == "substring"):
+                return self.lower_substring_in(e)
+            arg = self.lower(e.arg)
+            cmps = [
+                ex.Cmp("eq", arg, self.lower(x)) for x in e.items
+            ]
+            pred = ex.or_(*cmps) if len(cmps) > 1 else cmps[0]
+            return ex.Not(pred) if e.negated else pred
+        if isinstance(e, P.Case):
+            whens = tuple(
+                (self.lower(c), self.lower(v)) for c, v in e.whens
+            )
+            if e.otherwise is None:
+                otherwise = ex.Const(None, ex.expr_type(
+                    whens[0][1], self.rel.schema))
+            else:
+                otherwise = self.lower(e.otherwise)
+            return ex.Case(whens, otherwise)
+        if isinstance(e, P.Cast):
+            from ..coldata.types import BOOL as _BOOL
+            from ..coldata.types import DATE as _DATE
+            from ..coldata.types import TIMESTAMP as _TS
+
+            dec = SQLType(
+                Family.DECIMAL,
+                precision=e.precision if e.precision is not None else 38,
+                scale=e.scale if e.scale is not None else 2,
+            )
+            to = {
+                "int": INT64, "integer": INT64, "bigint": INT64,
+                "smallint": SQLType(Family.INT, width=16),
+                "float": FLOAT64, "double": FLOAT64, "real": FLOAT64,
+                "decimal": dec, "numeric": dec,
+                "bool": _BOOL, "boolean": _BOOL,
+                "date": _DATE, "timestamp": _TS,
+            }.get(e.to)
+            if to is None:
+                raise BindError(f"unsupported cast target {e.to}")
+            if isinstance(e.arg, P.StrLit):
+                # string-literal casts resolve at bind time ('5'::int)
+                v = e.arg.value
+                try:
+                    if to.family is Family.INT:
+                        return ex.Const(int(v), to)
+                    if to.family is Family.FLOAT:
+                        return ex.Const(float(v), to)
+                    if to.family is Family.DECIMAL:
+                        # Const holds the UNSCALED value for DECIMAL —
+                        # eval_expr applies the 10^scale encoding
+                        return ex.Const(float(v), to)
+                    if to.family is Family.BOOL:
+                        lv = v.strip().lower()
+                        if lv in ("t", "true", "yes", "on", "1"):
+                            return ex.Const(True, to)
+                        if lv in ("f", "false", "no", "off", "0"):
+                            return ex.Const(False, to)
+                        raise BindError(
+                            f"invalid bool literal {v!r}"
+                        )
+                    if to.family is Family.DATE:
+                        days = int((np.datetime64(v, "D") -
+                                    np.datetime64("1970-01-01", "D")
+                                    ).astype(int))
+                        return ex.Const(days, to)
+                    if to.family is Family.TIMESTAMP:
+                        # microsecond unit keeps the time-of-day (a "D"
+                        # parse would silently floor to midnight)
+                        us = int((np.datetime64(v.strip().replace(" ", "T"),
+                                                "us")
+                                  - np.datetime64("1970-01-01", "us")
+                                  ).astype(np.int64))
+                        return ex.Const(us, to)
+                except ValueError as err:
+                    raise BindError(
+                        f"invalid {e.to} literal {v!r}: {err}"
+                    ) from None
+            return ex.Cast(self.lower(e.arg), to)
+        if isinstance(e, P.Extract):
+            if e.part == "year":
+                return ex.ExtractYear(self.lower(e.arg))
+            if e.part in ex.EXTRACT_PARTS:
+                return ex.ExtractPart(e.part, self.lower(e.arg))
+            raise BindError(f"EXTRACT({e.part}) not supported")
+        if isinstance(e, P.FuncCall) and e.name in AGG_FUNCS:
+            raise BindError(
+                f"aggregate {e.name} not allowed in this context"
+            )
+        if (isinstance(e, P.FuncCall) and len(e.args) == 1
+                and e.name in ("abs", "ceil", "ceiling", "floor", "round",
+                               "sign", "trunc", "log")
+                + tuple(ex._FUNC1_FLOAT)):
+            # CockroachDB's log(x) is base 10 (builtins.go); ln is natural
+            name = {"ceiling": "ceil", "log": "log10"}.get(e.name, e.name)
+            return ex.Func1(name, self.lower(e.args[0]))
+        if (isinstance(e, P.FuncCall) and len(e.args) == 2
+                and e.name in ("pow", "power", "mod", "div", "atan2")):
+            name = "pow" if e.name == "power" else e.name
+            return ex.Func2(name, self.lower(e.args[0]),
+                            self.lower(e.args[1]))
+        if (isinstance(e, P.FuncCall) and len(e.args) == 2
+                and e.name == "round"):
+            n = self.lower(e.args[1])
+            if not isinstance(n, ex.Const) or n.value is None:
+                raise BindError("round(x, n) requires a literal n")
+            return ex.Func2("round2", self.lower(e.args[0]),
+                            ex.Const(int(n.value), INT64))
+        if (isinstance(e, P.FuncCall) and e.name in ("greatest", "least")
+                and e.args):
+            lowered = tuple(self.lower(a) for a in e.args)
+            for le in lowered:
+                if ex.expr_type(le, self.rel.schema).family in (
+                        Family.STRING, Family.BYTES, Family.JSON):
+                    # dict codes don't order by value; needs a rank-table
+                    # rewrite like string range predicates
+                    raise BindError(
+                        f"{e.name} over strings is not supported"
+                    )
+            out = ex.Greatest(lowered, is_least=e.name == "least")
+            try:  # surface family-unification failures at bind time
+                ex.expr_type(out, self.rel.schema)
+            except TypeError as err:
+                raise BindError(str(err)) from None
+            return out
+        if isinstance(e, P.FuncCall) and e.name == "nullif" \
+                and len(e.args) == 2:
+            a = self.lower(e.args[0])
+            b = self.lower(e.args[1])
+            t = ex.expr_type(a, self.rel.schema)
+            if t.family is Family.STRING:
+                # dict codes from different columns don't compare; the
+                # string path would need a shared-dictionary rewrite
+                raise BindError("NULLIF over strings is not supported")
+            return ex.Case(whens=((ex.Cmp("eq", a, b), ex.Const(None, t)),),
+                           otherwise=a)
+        if isinstance(e, P.FuncCall) and e.name == "coalesce" and e.args:
+            return ex.Coalesce(tuple(self.lower(a) for a in e.args))
+        if (isinstance(e, P.FuncCall) and not e.args
+                and e.name in ("now", "current_timestamp",
+                               "transaction_timestamp",
+                               "statement_timestamp")):
+            from ..coldata.types import TIMESTAMP as _TS
+
+            return ex.Const(_statement_now_us(), _TS)
+        if (isinstance(e, P.FuncCall)
+                and e.name in ("starts_with", "strpos")
+                and len(e.args) == 2):
+            i = self._is_string_col(e.args[0])
+            lit = e.args[1]
+            if i is None or not isinstance(lit, P.StrLit):
+                raise BindError(f"{e.name} requires (string column, "
+                                "string literal)")
+            d = self.rel.dicts[i]
+            if e.name == "starts_with":
+                table = np.array(
+                    [str(v).startswith(lit.value) for v in d.values],
+                    dtype=bool,
+                )
+                out_t = BOOL
+            else:  # strpos: 1-based position, 0 when absent
+                table = np.array(
+                    [str(v).find(lit.value) + 1 for v in d.values],
+                    dtype=np.int64,
+                )
+                out_t = INT64
+            if len(table) == 0:
+                table = np.zeros(1, table.dtype)
+            return ex.CodeLookup(col=i, table=table, out_type=out_t)
+        if (isinstance(e, P.FuncCall) and e.name == "ascii"
+                and len(e.args) == 1):
+            i = self._is_string_col(e.args[0])
+            if i is None:
+                raise BindError("ascii requires a string column")
+            d = self.rel.dicts[i]
+            table = np.array(
+                [ord(str(v)[0]) if len(str(v)) else 0 for v in d.values],
+                dtype=np.int64,
+            )
+            if len(table) == 0:
+                table = np.zeros(1, np.int64)
+            return ex.CodeLookup(col=i, table=table, out_type=INT64)
+        if (isinstance(e, P.FuncCall)
+                and e.name in ("length", "char_length")
+                and len(e.args) == 1):
+            i = self._is_string_col(e.args[0])
+            if i is None:
+                raise BindError(f"{e.name} requires a string column")
+            d = self.rel.dicts[i]
+            table = np.array([len(str(v)) for v in d.values],
+                             dtype=np.int64)
+            if len(table) == 0:
+                table = np.zeros(1, np.int64)
+            return ex.CodeLookup(col=i, table=table, out_type=INT64)
+        raise BindError(f"cannot lower expression {e}")
+
+    def lower_cmp(self, e: P.Cmp) -> ex.Expr:
+        # string column vs string literal
+        for a, b, flip in ((e.left, e.right, False), (e.right, e.left, True)):
+            i = self._is_string_col(a)
+            if i is not None and isinstance(b, P.StrLit):
+                op = e.op
+                if flip:
+                    op = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+                          "eq": "eq", "ne": "ne"}[op]
+                if op == "eq":
+                    return self._str_eq_at(i, b.value)
+                if op == "ne":
+                    return ex.Not(self._str_eq_at(i, b.value))
+                import operator as _op
+
+                fns = {"lt": _op.lt, "le": _op.le, "gt": _op.gt,
+                       "ge": _op.ge}
+                return self._str_pred_at(
+                    i, lambda s: fns[op](s, b.value)
+                )
+        # substring(col from a for n) = 'lit'  (Q22 country-code pattern)
+        if (isinstance(e.left, P.FuncCall) and e.left.name == "substring"
+                and isinstance(e.right, P.StrLit)):
+            return self.lower_substring_in(
+                P.InList(e.left, (e.right,), negated=(e.op == "ne"))
+            )
+        l = self.lower(e.left)
+        r = self.lower(e.right)
+        # exact decimal compare: float literal vs DECIMAL column folds to a
+        # scaled-int literal when representable (avoids fp rounding surprises)
+        lt = ex.expr_type(l, self.rel.schema)
+        rt = ex.expr_type(r, self.rel.schema)
+        if (lt.family is Family.DECIMAL and isinstance(r, ex.Const)
+                and rt.family is Family.FLOAT):
+            scaled = r.value * (10 ** lt.scale)
+            if abs(scaled - round(scaled)) < 1e-9:
+                r = ex.Const(r.value, lt)
+        if (rt.family is Family.DECIMAL and isinstance(l, ex.Const)
+                and lt.family is Family.FLOAT):
+            scaled = l.value * (10 ** rt.scale)
+            if abs(scaled - round(scaled)) < 1e-9:
+                l = ex.Const(l.value, rt)
+        return ex.Cmp(e.op, l, r)
+
+    def lower_substring_in(self, e: P.InList) -> ex.Expr:
+        fc = e.arg
+        col = fc.args[0]
+        i = self._is_string_col(col)
+        if i is None:
+            raise BindError("substring requires a string column")
+        start = int(fc.args[1].value) - 1
+        n = int(fc.args[2].value)
+        vals = {x.value for x in e.items}
+        pred = self._str_pred_at(i, lambda s: s[start:start + n] in vals)
+        return ex.Not(pred) if e.negated else pred
+
+
+# ---------------------------------------------------------------------------
+# the binder
+
+
+class Binder:
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+        self.ctes: dict[str, Rel] = {}
+
+    def bind(self, sel: P.Select) -> Rel:
+        if sel.set_ops:
+            return self._bind_set_ops(sel)
+        for name, csel in sel.ctes:
+            # CTEs bind once; every reference shares the one plan subtree
+            # (the distributed lowering memoizes shared subtrees, so a CTE
+            # used twice computes once inside the SPMD program)
+            self.ctes[name] = self.bind(csel)
+        if not sel.from_:
+            # FROM-less SELECT: one synthetic row (Postgres' implicit
+            # dual); constants/builtins project over it
+            sel = P.dataclasses.replace(
+                sel, from_=(P.TableRef("__dual", None),)
+            )
+            if "__dual" not in self.catalog.tables:
+                import numpy as _np
+
+                from ..catalog import Table as _Table
+                from ..coldata.types import INT64 as _I64
+                from ..coldata.types import Schema as _Schema
+
+                self.catalog.add(_Table.from_strings(
+                    "__dual", _Schema.of(__dual=_I64),
+                    {"__dual": _np.zeros(1, _np.int64)},
+                ))
+        sources, join_filters = self._bind_from(sel.from_)
+        scope = Scope(sources)
+
+        conjuncts = [(_fold(c)) for c in _conjuncts(sel.where)]
+        conjuncts = join_filters + conjuncts
+
+        # classify conjuncts
+        equi_edges: list[tuple[int, str, int, str]] = []
+        per_source: dict[int, list[P.Node]] = {}
+        residual: list[P.Node] = []
+        sub_joins: list[tuple[P.Node, set[int]]] = []
+        corr_scalars: list[P.Node] = []
+        for c in conjuncts:
+            if isinstance(c, (P.Exists, P.InSelect)) or (
+                isinstance(c, P.Not)
+                and isinstance(c.arg, (P.Exists, P.InSelect))
+            ):
+                node = c.arg if isinstance(c, P.Not) else c
+                negate = isinstance(c, P.Not)
+                sub_joins.append((node, negate))
+                continue
+            sub = next((x for x in _walk(c)
+                        if isinstance(x, P.ScalarSubquery)), None)
+            if sub is not None and self._scalar_sub_is_correlated(sub):
+                corr_scalars.append(c)
+                continue
+            if isinstance(c, P.Cmp) and c.op == "eq" and \
+                    isinstance(c.left, P.Ident) and isinstance(c.right, P.Ident):
+                li, lp = scope.resolve(c.left)
+                ri, rp = scope.resolve(c.right)
+                if li != ri:
+                    equi_edges.append((li, lp, ri, rp))
+                    continue
+            srcs = scope.sources_of(c)
+            if len(srcs) == 1:
+                per_source.setdefault(next(iter(srcs)), []).append(c)
+            else:
+                # an OR whose every branch repeats the same equi-join edge
+                # (TPC-H q19's shape) contributes that edge to the join
+                # graph; the full OR stays as a post-join filter
+                equi_edges.extend(self._or_common_equis(c, scope))
+                residual.append(c)
+
+        # scalar subqueries inside residual/per-source conjuncts: execute
+        # uncorrelated ones now (constant folding through the engine)
+        # (correlated scalar subqueries are future work)
+
+        # push single-source filters down
+        for i, preds in per_source.items():
+            s = sources[i]
+            lower = ExprLowerer(s.rel)
+            for p in preds:
+                s.rel = s.rel.filter(self._lower_with_subqueries(lower, p))
+                lower = ExprLowerer(s.rel)
+            s.est_rows = self._estimate_source_rows(s, preds)
+
+        # greedy join order: start at the largest source
+        joined = self._join_sources(sources, equi_edges, scope)
+
+        # decorrelated EXISTS / IN-select as semi/anti joins
+        for node, negate in sub_joins:
+            joined = self._apply_sub_join(joined, node, negate, scope, sources)
+
+        resolver = self._make_resolver(scope, joined)
+
+        # correlated scalar subqueries: decorrelate into a grouped join
+        for c in corr_scalars:
+            joined = self._apply_corr_scalar(joined, c, scope)
+            resolver = self._make_resolver(scope, joined)
+
+        # residual multi-source predicates
+        if residual:
+            for c in residual:
+                lower = ExprLowerer(joined.rel, resolver=resolver)
+                joined.rel = joined.rel.filter(
+                    self._lower_with_subqueries(lower, c))
+
+        # correlated scalar subqueries in the SELECT list: LEFT-join the
+        # grouped inner (a key with no inner rows keeps the row, scalar
+        # NULL — SQL's select-position semantics, unlike the WHERE
+        # position's row-dropping inner join) and rewrite each item to
+        # reference the joined column through a marker ident
+        sub_markers: dict[str, int] = {}
+        if any(isinstance(x, P.ScalarSubquery)
+               and self._scalar_sub_is_correlated(x)
+               for it in sel.items for x in _walk(it.expr)):
+            new_items = []
+            for it in sel.items:
+                expr = it.expr
+                for x in _walk(expr):
+                    if (isinstance(x, P.ScalarSubquery)
+                            and self._scalar_sub_is_correlated(x)):
+                        rel2, sub_pos, _, _ = self._join_corr_scalar(
+                            joined, scope, x, how="left"
+                        )
+                        joined = BoundQuery(rel2, joined.sources,
+                                            joined.colmap)
+                        mname = f"_s{len(sub_markers)}"
+                        sub_markers[mname] = sub_pos
+                        marker: P.Node = P.Ident("__selsub", mname)
+                        inner_item = x.select.items[0].expr
+                        if (isinstance(inner_item, P.FuncCall)
+                                and inner_item.name == "count"):
+                            # count over an empty correlated group is 0,
+                            # not NULL (the classic decorrelation count
+                            # bug; the left join yields NULL there)
+                            marker = P.FuncCall(
+                                "coalesce", (marker, P.NumLit(0))
+                            )
+                        expr = _replace_node(expr, x, marker)
+                new_items.append(P.SelectItem(expr, it.alias))
+            sel = P.dataclasses.replace(sel, items=tuple(new_items))
+            base_resolver = resolver
+
+            def resolver(ident: P.Ident, _base=base_resolver):  # noqa: F811
+                if ident.table == "__selsub":
+                    return sub_markers[ident.name]
+                if _base is not None:
+                    return _base(ident)
+                return joined.rel.idx(ident.name)
+
+        return self._finish(sel, joined.rel, resolver)
+
+    def _bind_set_ops(self, sel: P.Select) -> Rel:
+        """UNION [ALL] chain (left-associative; non-ALL steps deduplicate,
+        SQL set semantics). ORDER BY / LIMIT on `sel` apply to the WHOLE
+        union (the parser hoists a trailing arm's order/limit up).
+        Reference surface: sql.y set operations -> UnionClause."""
+        import dataclasses as _dc
+
+        # CTEs scope over EVERY arm: register them on this binder first,
+        # then bind each arm with the shared registry
+        for name, csel in sel.ctes:
+            self.ctes[name] = self.bind(csel)
+        base = _dc.replace(sel, set_ops=(), order_by=(), limit=None,
+                           offset=0, ctes=())
+        rel = self.bind(base)
+        for op, is_all, arm in sel.set_ops:
+            arm_rel = self.bind(arm)
+            if op == "union":
+                rel = rel.union_all(arm_rel)
+                if not is_all:
+                    rel = rel.distinct()
+            else:
+                rel = _intersect_except(rel, arm_rel, op)
+        keys = []
+        for o in sel.order_by:
+            if isinstance(o.expr, P.Ident) and o.expr.name in rel.schema.names:
+                keys.append((o.expr.name, o.desc))
+            elif isinstance(o.expr, P.NumLit):
+                keys.append(
+                    (_positional(rel.schema.names, o.expr), o.desc))
+            else:
+                raise BindError(
+                    "UNION ORDER BY must name an output column or position"
+                )
+        if keys:
+            rel = rel.sort(keys)
+        if sel.limit is not None or sel.offset:
+            rel = rel.limit(sel.limit if sel.limit is not None else (1 << 62),
+                            sel.offset)
+        return rel
+
+    @staticmethod
+    def _make_resolver(scope: Scope, joined: "BoundQuery"):
+        """Ident -> joined-schema POSITION via scope + join column map;
+        required once self-joins duplicate names in the joined schema."""
+        if joined.colmap is None:
+            return None
+
+        def resolve(ident: P.Ident) -> int:
+            i, p = scope.resolve(ident)
+            pos = joined.colmap.get((i, p))
+            if pos is None:
+                raise BindError(
+                    f"column {ident.name} not available after join"
+                )
+            return pos
+
+        return resolve
+
+    # -- FROM ---------------------------------------------------------------
+
+    def _bind_from(self, items) -> tuple[list[Source], list[P.Node]]:
+        sources: list[Source] = []
+        join_filters: list[P.Node] = []
+
+        def bind_item(it):
+            if isinstance(it, P.TableRef) and it.name in self.ctes:
+                rel = self.ctes[it.name]
+                sources.append(
+                    Source(it.alias or it.name, rel, rel.schema.names)
+                )
+            elif isinstance(it, P.TableRef):
+                rel = Rel.scan(self.catalog, it.name)
+                sources.append(
+                    Source(it.alias or it.name, rel, rel.schema.names,
+                           base_rows=self.catalog.get(it.name).estimated_rows(),
+                           table=it.name)
+                )
+            elif isinstance(it, P.SubqueryRef):
+                rel = self.bind(it.select)
+                sources.append(Source(it.alias, rel, rel.schema.names))
+            elif isinstance(it, P.Join) and it.kind == "inner":
+                bind_item(it.left)
+                bind_item(it.right)
+                # ON conjuncts go into the shared predicate pool; the join
+                # planner extracts the equi keys
+                join_filters.extend(_conjuncts(it.on))
+            elif isinstance(it, P.Join) and it.kind == "left":
+                sources.append(self._bind_left_join(it))
+            else:
+                raise BindError(f"unsupported FROM item {it}")
+
+        for it in items:
+            bind_item(it)
+        return sources, join_filters
+
+    def _bind_left_join(self, it: P.Join) -> Source:
+        """LEFT OUTER JOIN of two primaries -> one combined source.
+
+        ON conjuncts split into equi keys and single-side predicates; a
+        right-only predicate filters the build side BEFORE the outer join
+        (ON-clause semantics: a failed predicate null-extends rather than
+        dropping the left row). Left-only ON predicates would need a
+        post-join mask and are refused."""
+        sub_sources, _ = self._bind_from([it.left, it.right])
+        if len(sub_sources) != 2:
+            raise BindError("nested outer joins not supported")
+        left, right = sub_sources
+        sub_scope = Scope([left, right])
+        keys: list[tuple[int, int]] = []
+        for c in _conjuncts(it.on):
+            c = _fold(c)
+            if (isinstance(c, P.Cmp) and c.op == "eq"
+                    and isinstance(c.left, P.Ident)
+                    and isinstance(c.right, P.Ident)):
+                li, lp = sub_scope.resolve(c.left)
+                ri, rp = sub_scope.resolve(c.right)
+                if {li, ri} == {0, 1}:
+                    keys.append((lp, rp) if li == 0 else (rp, lp))
+                    continue
+            srcs = sub_scope.sources_of(c)
+            if srcs == {1}:
+                def _right_resolver(ident: P.Ident) -> int:
+                    i, p = sub_scope.resolve(ident)
+                    if i != 1:
+                        raise BindError("predicate crossed join sides")
+                    return p
+                lower = ExprLowerer(right.rel, resolver=_right_resolver)
+                right = Source(right.alias, right.rel.filter(lower.lower(c)),
+                               right.cols, right.base_rows, right.table)
+            else:
+                raise BindError(
+                    "LEFT JOIN ON supports equi keys and right-side "
+                    "predicates only"
+                )
+        if not keys:
+            raise BindError("LEFT JOIN requires at least one equi key")
+        rel = left.rel.join(right.rel, on=keys, how="left",
+                            build_unique=False)
+        return Source(
+            alias=f"{left.alias}*{right.alias}", rel=rel,
+            cols=rel.schema.names, base_rows=left.base_rows,
+            sub_aliases=((left.alias, left.cols), (right.alias, right.cols)),
+        )
+
+    # -- join planning ------------------------------------------------------
+
+    # -- cardinality estimation (statistics_builder.go reduction) -----------
+
+    def _source_stats(self, s: "Source"):
+        if s.table is None:
+            return None
+        return getattr(self.catalog.get(s.table), "table_stats", None)
+
+    def _estimate_source_rows(self, s: "Source", preds) -> int | None:
+        """base_rows x the product of per-conjunct selectivities estimated
+        from ANALYZE histograms (independence assumption, like the
+        reference). None when the base table has no statistics."""
+        st = self._source_stats(s)
+        if st is None:
+            return None
+        frac = 1.0
+        for p in preds:
+            frac *= self._pred_fraction(st, p, s)
+        return max(1, int(round(st.row_count * frac)))
+
+    _DEFAULT_PRED_FRAC = 1.0 / 3.0  # unestimatable conjunct (reference's
+    # unknown-selectivity constant is also 1/3, memo/statistics_builder.go)
+
+    def _pred_fraction(self, st, p: P.Node, s: "Source") -> float:
+        if isinstance(p, P.Cmp) and p.op in ("lt", "le", "gt", "ge", "eq"):
+            col, lit, op = None, None, p.op
+            if isinstance(p.left, P.Ident):
+                col, lit = p.left, p.right
+            elif isinstance(p.right, P.Ident):
+                col, lit = p.right, p.left
+                flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+                        "eq": "eq"}
+                op = flip[op]
+            if col is not None and col.name in st.cols:
+                v = self._literal_for_stats(lit, col.name, s)
+                if v is not None:
+                    return st.cols[col.name].cmp_fraction(op, v)
+        if isinstance(p, P.Between) and isinstance(p.arg, P.Ident) \
+                and p.arg.name in st.cols:
+            lo = self._literal_for_stats(p.lo, p.arg.name, s)
+            hi = self._literal_for_stats(p.hi, p.arg.name, s)
+            if lo is not None and hi is not None:
+                cs = st.cols[p.arg.name]
+                f = max(0.0, cs.frac_le(hi) - cs.frac_le(lo - 1))
+                return 1.0 - f if p.negated else f
+        return self._DEFAULT_PRED_FRAC
+
+    def _literal_for_stats(self, e: P.Node, col: str, s: "Source"):
+        """Literal -> the RAW statistics domain (scaled DECIMALs, day
+        counts) for column `col`, or None if not a literal."""
+        from .session import NotALiteral, Session
+
+        try:
+            t = s.rel.type_of(col)
+        except (KeyError, ValueError):
+            return None
+        try:
+            v = Session._literal(_fold(e), t)
+        except (NotALiteral, BindError):
+            return None
+        if v is None or isinstance(v, str):
+            return None
+        return int(v) if not isinstance(v, float) else int(round(v))
+
+    def _col_ndv(self, s: "Source", pos: int, est: float) -> float:
+        st = self._source_stats(s)
+        if st is not None and pos < len(s.rel.schema.names):
+            cs = st.cols.get(s.rel.schema.names[pos])
+            if cs is not None and cs.ndv > 0:
+                # a filtered source cannot have more distinct keys than rows
+                return float(min(cs.ndv, max(1.0, est)))
+        return max(1.0, est)  # unknown: assume keys ~unique (FK shape)
+
+    def _join_sources(self, sources, equi_edges, scope) -> "BoundQuery":
+        n = len(sources)
+        if n == 1:
+            colmap = {(0, p): p
+                      for p in range(len(sources[0].rel.schema))}
+            return BoundQuery(sources[0].rel, {0: sources[0]}, colmap)
+        sizes = [
+            s.est_rows if s.est_rows is not None else s.base_rows
+            for s in sources
+        ]
+        from ..utils import settings as _settings
+
+        if (_settings.get("sql.opt.join_order") == "cost"
+                and 2 <= n <= 6):
+            tree = self._dp_join_order(sources, equi_edges, sizes)
+            if tree is not None:
+                return self._build_join_tree(tree, sources, equi_edges)
+        start = max(range(n), key=lambda i: sizes[i])
+        placed = {start}
+        rel = sources[start].rel
+        colmap = {(start, p): p for p in range(len(rel.schema))}
+        while len(placed) < n:
+            # find edges from placed to unplaced, fully positional: probe
+            # side through colmap, build side source-local
+            cand: dict[int, list[tuple[int, int]]] = {}
+            for li, lp, ri, rp in equi_edges:
+                if li in placed and ri not in placed:
+                    cand.setdefault(ri, []).append((colmap[(li, lp)], rp))
+                elif ri in placed and li not in placed:
+                    cand.setdefault(li, []).append((colmap[(ri, rp)], lp))
+            if not cand:
+                # no equi edge reaches the remaining sources: cartesian
+                # product with the smallest one (crossJoiner role)
+                nxt = min((i for i in range(n) if i not in placed),
+                          key=lambda i: sizes[i])
+                off = len(rel.schema)
+                nb = len(sources[nxt].rel.schema)
+                rel = rel.cross_join(sources[nxt].rel)
+                for p in range(nb):
+                    colmap[(nxt, p)] = off + p
+                placed.add(nxt)
+                continue
+            # smallest build side first
+            nxt = min(cand, key=lambda i: sizes[i])
+            on = cand[nxt]  # (probe joined POSITION, build local POSITION)
+            off = len(rel.schema)
+            nb = len(sources[nxt].rel.schema)
+            rel = rel.join(
+                sources[nxt].rel, on=on, how="inner", build_unique=False
+            )
+            for p in range(nb):
+                colmap[(nxt, p)] = off + p
+            placed.add(nxt)
+        return BoundQuery(rel, {i: sources[i] for i in placed}, colmap)
+
+    def _dp_join_order(self, sources, equi_edges, sizes):
+        """Selinger-style left-deep DP over the equi-join graph
+        (opt/xform's JoinOrderBuilder reduced to reorder_joins_limit=6
+        left-deep trees). State = subset of placed sources; value =
+        (cost, est rows, order). Joining a connected source keeps
+        max(rows, size) rows (the FK-join assumption the distributor's
+        estimated_rows also makes); an unconnected source multiplies
+        (cartesian). Cost = sum of intermediate result sizes. Returns the
+        best order as an index tuple, or None to decline (missing
+        estimates) so the caller falls back to the greedy heuristic."""
+        n = len(sources)
+        if any(sz is None for sz in sizes):
+            return None
+        adj = [set() for _ in range(n)]
+        for li, _lp, ri, _rp in equi_edges:
+            adj[li].add(ri)
+            adj[ri].add(li)
+        # best[mask] = (cost, rows, order)
+        best: dict[int, tuple[float, float, tuple[int, ...]]] = {
+            1 << i: (0.0, float(max(1, sizes[i])), (i,)) for i in range(n)
+        }
+        for mask in range(1, 1 << n):
+            cur = best.get(mask)
+            if cur is None or mask == (1 << n) - 1:
+                continue
+            cost, rows, order = cur
+            connected = set()
+            for i in order:
+                connected |= adj[i]
+            for j in range(n):
+                if mask & (1 << j):
+                    continue
+                sj = float(max(1, sizes[j]))
+                out = (max(rows, sj) if j in connected else rows * sj)
+                cand = (cost + out, out, order + (j,))
+                prev = best.get(mask | (1 << j))
+                if prev is None or cand[0] < prev[0]:
+                    best[mask | (1 << j)] = cand
+        full = best.get((1 << n) - 1)
+        return None if full is None else full[2]
+
+    def _build_join_tree(self, order, sources, equi_edges) -> "BoundQuery":
+        """Materialize a left-deep join in the DP's order: each step joins
+        the next source on every equi edge reaching the placed prefix
+        (positions resolved through colmap), or cross-joins when no edge
+        reaches (the DP already priced that cartesian)."""
+        n = len(sources)
+        start = order[0]
+        placed = {start}
+        rel = sources[start].rel
+        colmap = {(start, p): p for p in range(len(rel.schema))}
+        for nxt in order[1:]:
+            on = []  # (probe joined POSITION, build local POSITION)
+            for li, lp, ri, rp in equi_edges:
+                if li in placed and ri == nxt:
+                    on.append((colmap[(li, lp)], rp))
+                elif ri in placed and li == nxt:
+                    on.append((colmap[(ri, rp)], lp))
+            off = len(rel.schema)
+            nb = len(sources[nxt].rel.schema)
+            if on:
+                rel = rel.join(sources[nxt].rel, on=on, how="inner",
+                               build_unique=False)
+            else:
+                rel = rel.cross_join(sources[nxt].rel)
+            for p in range(nb):
+                colmap[(nxt, p)] = off + p
+            placed.add(nxt)
+        return BoundQuery(rel, {i: sources[i] for i in range(n)}, colmap)
+
+    def _apply_sub_join(self, joined: "BoundQuery", node, negate, scope,
+                        sources) -> "BoundQuery":
+        if isinstance(node, P.InSelect):
+            how = "anti" if (negate != node.negated) else "semi"
+            sub = self.bind_subquery_for_in(node.select)
+            arg = node.arg
+            if not isinstance(arg, P.Ident):
+                raise BindError("IN (SELECT) argument must be a column")
+            resolver = self._make_resolver(scope, joined)
+            outer_pos = (resolver(arg) if resolver is not None
+                         else joined.rel.idx(arg.name))
+            inner_col = sub.schema.names[0]
+            if how == "anti":
+                # NOT IN under three-valued logic: a NULL in the subquery
+                # empties the output; a NULL probe key is not-true (dropped)
+                # — EXCEPT against an empty subquery, where x NOT IN () is
+                # TRUE for every x including NULL. A plain anti join gets
+                # only the last case right. When bind-time analysis proves
+                # both sides non-nullable, the anti join is exact; otherwise
+                # evaluate the (uncorrelated) subquery once and pick the
+                # branch, the way the reference's optbuilder wraps NOT IN in
+                # null-rejecting projections (pkg/sql/opt/optbuilder).
+                nullable = True
+                try:
+                    self._require_non_nullable(arg, scope, "NOT IN argument")
+                    self._require_inner_non_nullable(node.select)
+                    nullable = False
+                except BindError:
+                    pass
+                if nullable:
+                    # bind-time evaluation of the (uncorrelated) subquery —
+                    # the same eager-execution precedent as scalar
+                    # subqueries; the anti join below re-runs the sub plan,
+                    # an accepted double execution for this rare shape
+                    vals = sub.run()[inner_col]
+                    n_sub = len(vals)
+                    has_null = (vals.dtype == object
+                                and any(v is None for v in vals))
+                    if has_null:
+                        # never-true — but keep the anti join in the plan
+                        # (below) so the subquery's table scans stay
+                        # visible to in-txn read-span tracking
+                        joined.rel = joined.rel.filter(ex.lit(False))
+                    elif n_sub > 0:
+                        # drop NULL probe keys, then anti join
+                        joined.rel = joined.rel.filter(
+                            ex.Not(ex.IsNull(ex.ColRef(outer_pos)))
+                        )
+                    # empty subquery: plain anti join keeps every row
+                    # (including NULL keys) — exactly NOT IN () = TRUE
+            joined.rel = joined.rel.join(
+                sub, on=[(outer_pos, inner_col)], how=how, build_unique=False
+            )
+            return joined
+        how = "anti" if negate else "semi"
+        if isinstance(node, P.Exists):
+            # correlated equality conjuncts reference outer columns
+            sub_sel = node.select
+            inner_rel, corr, ne_pairs = self._bind_correlated(
+                sub_sel, joined)
+            resolver = self._make_resolver(scope, joined)
+
+            def opos(ident: P.Ident) -> int:
+                return (resolver(ident) if resolver is not None
+                        else joined.rel.idx(ident.name))
+
+            on_pos = [(opos(oid), iname) for oid, iname in corr]
+            if not ne_pairs:
+                joined.rel = joined.rel.join(
+                    inner_rel, on=on_pos, how=how, build_unique=False
+                )
+                return joined
+            # EXISTS with an extra `inner.s <> outer.s` correlation (TPC-H
+            # q21): aggregate the inner per correlation key to (min s,
+            # max s); some inner s differs from outer s iff min != s or
+            # max != s. NOT EXISTS additionally keeps keys with no inner
+            # rows (left join, NULL min). The reference reaches the same
+            # plans through optbuilder's apply-decorrelation rules.
+            if len(ne_pairs) != 1:
+                raise BindError("at most one <> correlation supported")
+            o_ident, i_name = ne_pairs[0]
+            grouped = inner_rel.groupby(
+                [ik for _, ik in corr],
+                [("_mn", "min", i_name), ("_mx", "max", i_name)],
+            )
+            n0 = len(joined.rel.schema)
+            names0 = joined.rel.schema.names
+            s_pos = opos(o_ident)
+            mn_pos = n0 + len(corr)
+            mx_pos = mn_pos + 1
+            if how == "semi":
+                rel = joined.rel.join(grouped, on=on_pos, how="inner",
+                                      build_unique=True)
+                pred = ex.or_(
+                    ex.Cmp("ne", ex.ColRef(mn_pos), ex.ColRef(s_pos)),
+                    ex.Cmp("ne", ex.ColRef(mx_pos), ex.ColRef(s_pos)),
+                )
+            else:
+                rel = joined.rel.join(grouped, on=on_pos, how="left",
+                                      build_unique=True)
+                pred = ex.or_(
+                    ex.IsNull(ex.ColRef(mn_pos)),
+                    ex.and_(
+                        ex.Cmp("eq", ex.ColRef(mn_pos), ex.ColRef(s_pos)),
+                        ex.Cmp("eq", ex.ColRef(mx_pos), ex.ColRef(s_pos)),
+                    ),
+                )
+            rel = rel.filter(pred)
+            joined.rel = rel.project(
+                [(names0[i], ex.ColRef(i)) for i in range(n0)]
+            )
+            return joined
+        raise BindError(f"unsupported subquery predicate {node}")
+
+    @staticmethod
+    def _or_common_equis(c: P.Node, scope: Scope):
+        """Equi edges present in EVERY branch of an OR (hoistable to the
+        join graph; the OR itself remains a residual filter)."""
+        if not (isinstance(c, P.Bin) and c.op == "or"):
+            return []
+
+        def disjuncts(e):
+            if isinstance(e, P.Bin) and e.op == "or":
+                return disjuncts(e.left) + disjuncts(e.right)
+            return [e]
+
+        per_branch = []
+        for b in disjuncts(c):
+            eqs = set()
+            for cj in _conjuncts(b):
+                if (isinstance(cj, P.Cmp) and cj.op == "eq"
+                        and isinstance(cj.left, P.Ident)
+                        and isinstance(cj.right, P.Ident)):
+                    try:
+                        li, lp = scope.resolve(cj.left)
+                        ri, rp = scope.resolve(cj.right)
+                    except BindError:
+                        continue
+                    if li != ri:
+                        key = ((li, lp), (ri, rp))
+                        if key[0] > key[1]:
+                            key = (key[1], key[0])
+                        eqs.add(key)
+            per_branch.append(eqs)
+        common = set.intersection(*per_branch) if per_branch else set()
+        return [(li, lp, ri, rp) for (li, lp), (ri, rp) in common]
+
+    def _scalar_sub_is_correlated(self, sub: P.ScalarSubquery) -> bool:
+        """True when the subquery references columns outside its own FROM."""
+        try:
+            inner_sources, _ = self._bind_from(sub.select.from_)
+        except BindError:
+            return False
+        inner_scope = Scope(inner_sources)
+        nodes = list(sub.select.items) + (
+            [sub.select.where] if sub.select.where is not None else []
+        )
+        for n in nodes:
+            for x in _walk(n):
+                if isinstance(x, P.Ident):
+                    try:
+                        inner_scope.resolve(x)
+                    except BindError:
+                        return True
+        return False
+
+    def _join_corr_scalar(self, joined: "BoundQuery", scope: Scope,
+                          sub: P.ScalarSubquery, how: str):
+        """Shared decorrelation core: bind the subquery GROUPED BY its
+        equality-correlation keys and join the group result onto the
+        outer rel (`how`: inner for WHERE position — a missing key drops
+        the row; left for SELECT position — a missing key yields a NULL
+        scalar, row kept). Returns (rel, sub_pos, n_outer, outer_names).
+        A bare (non-aggregate) inner column wraps in max(): exact when
+        the correlation key is unique, a documented divergence from the
+        reference's more-than-one-row runtime error otherwise."""
+        sel2 = sub.select
+        if len(sel2.items) != 1:
+            raise BindError("scalar subquery must produce one column")
+        inner_sources, jf2 = self._bind_from(sel2.from_)
+        inner_scope = Scope(inner_sources)
+
+        def is_inner(ident: P.Ident) -> bool:
+            try:
+                inner_scope.resolve(ident)
+                return True
+            except BindError:
+                return False
+
+        corr: list[tuple[P.Ident, P.Ident]] = []  # (outer, inner)
+        inner_where: list[P.Node] = []
+        for c in jf2 + [_fold(x) for x in _conjuncts(sel2.where)]:
+            if (isinstance(c, P.Cmp) and c.op == "eq"
+                    and isinstance(c.left, P.Ident)
+                    and isinstance(c.right, P.Ident)):
+                li, ri = is_inner(c.left), is_inner(c.right)
+                if li and not ri:
+                    corr.append((c.right, c.left))
+                    continue
+                if ri and not li:
+                    corr.append((c.left, c.right))
+                    continue
+            for x in _walk(c):
+                if isinstance(x, P.Ident) and not is_inner(x):
+                    raise BindError(
+                        "correlated scalar subquery supports only equality "
+                        f"correlation (found outer ref {x.name})"
+                    )
+            inner_where.append(c)
+
+        if not corr:
+            raise BindError("scalar subquery correlation not found")
+
+        item = sel2.items[0].expr
+        if not any(isinstance(x, P.FuncCall) and x.name in AGG_FUNCS
+                   for x in _walk(item)):
+            # a bare (aggregate-free) item gets max() single-row
+            # semantics; exact when the correlation key is unique (see
+            # docstring divergence note)
+            item = P.FuncCall("max", (item,))
+
+        # rewritten inner AST: group by the correlation keys
+        key_items = tuple(
+            P.SelectItem(inner_id, alias=f"_ck{i}")
+            for i, (_, inner_id) in enumerate(corr)
+        )
+        where2 = None
+        for c in inner_where:
+            where2 = c if where2 is None else P.Bin("and", where2, c)
+        sel3 = P.Select(
+            items=key_items + (P.SelectItem(item, alias="_sub"),),
+            from_=sel2.from_,
+            where=where2,
+            group_by=tuple(inner_id for _, inner_id in corr),
+            having=None, order_by=(), limit=None, offset=0,
+            distinct=False,
+        )
+        grouped = self.bind(sel3)
+
+        resolver = self._make_resolver(scope, joined)
+        n_outer = len(joined.rel.schema)
+        outer_names = joined.rel.schema.names
+        on = [
+            (resolver(outer_id) if resolver else
+             joined.rel.idx(outer_id.name), f"_ck{i}")
+            for i, (outer_id, _) in enumerate(corr)
+        ]
+        rel = joined.rel.join(grouped, on=on, how=how, build_unique=True)
+        sub_pos = n_outer + len(corr)  # "_sub" column position
+        return rel, sub_pos, n_outer, outer_names
+
+    def _apply_corr_scalar(self, joined: "BoundQuery", conjunct: P.Node,
+                           scope: Scope) -> "BoundQuery":
+        """Decorrelate `expr CMP (select agg(...) from ... where inner.k =
+        outer.k and ...)` — the reference's optbuilder/norm rules turn these
+        into grouped joins (plan_opt.go); here the rewrite happens on the
+        AST: bind the subquery GROUPED BY its correlation keys, inner-join
+        the group result on the keys (group output is unique per key), then
+        filter and project the helper columns away.
+
+        Inner-join semantics are exactly SQL's: a key with no inner rows
+        yields a NULL scalar, the comparison is not-true, the row drops."""
+        # fold any UNCORRELATED subqueries in the conjunct to literals first
+        # so the marker substitution below can only ever target the one
+        # correlated subquery
+        conjunct = self._replace_scalar_subqueries(conjunct)
+        subs = [x for x in _walk(conjunct)
+                if isinstance(x, P.ScalarSubquery)]
+        if len(subs) != 1:
+            raise BindError(
+                "at most one correlated scalar subquery per predicate"
+            )
+        sub = subs[0]
+        rel, sub_pos, n_outer, outer_names = self._join_corr_scalar(
+            joined, scope, sub, how="inner"
+        )
+        resolver = self._make_resolver(scope, joined)
+
+        # lower the conjunct with the subquery replaced by the joined column
+        marker = P.Ident("__corr__", "_sub")
+
+        def replace(e: P.Node) -> P.Node:
+            if isinstance(e, P.ScalarSubquery):
+                return marker
+            if isinstance(e, P.Cmp):
+                return P.Cmp(e.op, replace(e.left), replace(e.right))
+            if isinstance(e, P.Bin):
+                return P.Bin(e.op, replace(e.left), replace(e.right))
+            if isinstance(e, P.Not):
+                return P.Not(replace(e.arg))
+            return e
+
+        def resolve2(ident: P.Ident) -> int:
+            if ident is marker or (ident.table == "__corr__"):
+                return sub_pos
+            if resolver is not None:
+                return resolver(ident)
+            return joined.rel.idx(ident.name)
+
+        lower = ExprLowerer(rel, resolver=resolve2)
+        rel = rel.filter(lower.lower(replace(conjunct)))
+        # project the helper columns away, restoring original positions
+        rel = rel.project(
+            [(outer_names[i], ex.ColRef(i)) for i in range(n_outer)]
+        )
+        return BoundQuery(rel, joined.sources, joined.colmap)
+
+    def bind_subquery_for_in(self, sel: P.Select) -> Rel:
+        rel = self.bind(sel)
+        if len(rel.schema) != 1:
+            raise BindError("IN subquery must produce one column")
+        return rel
+
+    def _base_col_non_nullable(self, table: str, col: str) -> bool:
+        """Whether a base-table column provably holds no NULLs. Host tables
+        are static preloaded data, so inspecting the valid bitmap is sound;
+        KV-backed tables expose no host bitmap (nullability is decoded on
+        device) and conservatively report nullable."""
+        valids = getattr(self.catalog.get(table), "valids", None)
+        if valids is None:
+            return False
+        v = valids.get(col)
+        return v is None or bool(np.asarray(v).all())
+
+    def _require_non_nullable(self, ident: P.Ident, scope, what: str) -> None:
+        i, pos = scope.resolve(ident)
+        name = scope.name_of(i, pos)
+        src = scope.sources[i]
+        if src.table is None or not self._base_col_non_nullable(
+            src.table, name
+        ):
+            raise BindError(
+                f"{what} {ident.name} may be NULL; NOT IN over nullable "
+                "columns is not supported (three-valued NOT IN semantics)"
+            )
+
+    def _require_inner_non_nullable(self, sel: P.Select) -> None:
+        """Prove the single output column of a NOT IN subquery non-nullable:
+        a plain column of a single base table with an all-valid bitmap."""
+        items = sel.from_
+        ok = (
+            len(items) == 1 and isinstance(items[0], P.TableRef)
+            and len(sel.items) == 1
+            and isinstance(sel.items[0].expr, P.Ident)
+            and self._base_col_non_nullable(
+                items[0].name, sel.items[0].expr.name
+            )
+        )
+        if not ok:
+            raise BindError(
+                "NOT IN subquery column may be NULL; NOT IN over nullable "
+                "columns is not supported (three-valued NOT IN semantics)"
+            )
+
+    def _bind_correlated(self, sel: P.Select, joined: "BoundQuery"):
+        """Bind an EXISTS subquery: conjuncts of its WHERE that are
+        equality with an outer column become the semi-join keys."""
+        inner_sources, jf = self._bind_from(sel.from_)
+        if len(inner_sources) != 1:
+            raise BindError("correlated EXISTS supports one inner table")
+        inner = inner_sources[0]
+        outer_names = set(joined.rel.schema.names)
+
+        def side(ident: P.Ident) -> str:
+            """'inner' | 'outer' for one identifier, honoring qualifiers.
+            An unqualified name present on both sides is ambiguous."""
+            if ident.table is not None:
+                if ident.table == inner.alias:
+                    return "inner"
+                return "outer"
+            inn = ident.name in inner.cols
+            out = ident.name in outer_names
+            if inn and out:
+                raise BindError(
+                    f"ambiguous correlated column {ident.name}: qualify it"
+                )
+            if inn:
+                return "inner"
+            if out:
+                return "outer"
+            raise BindError(f"unknown column {ident.name}")
+
+        # pairs carry the outer IDENT (not its bare name): resolution to a
+        # joined-schema position must honor qualifiers, or a self-joined
+        # outer table would silently bind the wrong duplicate column
+        corr: list[tuple[P.Ident, str]] = []
+        ne_pairs: list[tuple[P.Ident, str]] = []
+        inner_preds: list[P.Node] = []
+        for c in jf + [(_fold(x)) for x in _conjuncts(sel.where)]:
+            if (isinstance(c, P.Cmp) and c.op in ("eq", "ne")
+                    and isinstance(c.left, P.Ident)
+                    and isinstance(c.right, P.Ident)):
+                ls, rs = side(c.left), side(c.right)
+                pair = None
+                if ls == "inner" and rs == "outer":
+                    pair = (c.right, c.left.name)
+                elif rs == "inner" and ls == "outer":
+                    pair = (c.left, c.right.name)
+                if pair is not None:
+                    (corr if c.op == "eq" else ne_pairs).append(pair)
+                    continue
+            # any other predicate must be purely inner; an outer reference
+            # here is a correlation shape the semi-join rewrite can't express
+            for x in _walk(c):
+                if isinstance(x, P.Ident) and side(x) == "outer":
+                    raise BindError(
+                        "correlated non-equality predicate "
+                        f"({x.table or ''}.{x.name}) not supported"
+                    )
+            inner_preds.append(c)
+        rel = inner.rel
+        for p in inner_preds:
+            rel = rel.filter(ExprLowerer(rel).lower(p))
+        if not corr:
+            raise BindError("uncorrelated EXISTS not supported")
+        return rel, corr, ne_pairs
+
+    def _lower_with_subqueries(self, lower: ExprLowerer, c: P.Node) -> ex.Expr:
+        """Lower a predicate, executing uncorrelated scalar subqueries into
+        literals first (the one-row result is a plan-time constant)."""
+        c = self._replace_scalar_subqueries(c)
+        return lower.lower(c)
+
+    def _replace_scalar_subqueries(self, c: P.Node) -> P.Node:
+        if isinstance(c, P.ScalarSubquery):
+            if self._scalar_sub_is_correlated(c):
+                return c  # handled by _apply_corr_scalar
+            rel = self.bind(c.select)
+            res = rel.run()
+            if len(rel.schema) != 1:
+                raise BindError("scalar subquery must produce one column")
+            col = res[rel.schema.names[0]]
+            if len(col) == 0:
+                return P.NullLit()  # empty scalar subquery IS NULL
+            if len(col) != 1:
+                raise BindError("scalar subquery returned more than one row")
+            v = col[0]
+            if isinstance(v, (str, bytes)):
+                return P.StrLit(v if isinstance(v, str) else v.decode())
+            if np.asarray(v).dtype.kind in "iu":
+                return P.NumLit(int(v))
+            return P.NumLit(float(v))
+        if isinstance(c, P.Cmp):
+            return P.Cmp(c.op, self._replace_scalar_subqueries(c.left),
+                         self._replace_scalar_subqueries(c.right))
+        if isinstance(c, P.Bin):
+            return P.Bin(c.op, self._replace_scalar_subqueries(c.left),
+                         self._replace_scalar_subqueries(c.right))
+        if isinstance(c, P.Not):
+            return P.Not(self._replace_scalar_subqueries(c.arg))
+        return c
+
+    # -- SELECT list / aggregation / ordering -------------------------------
+
+    def _finish(self, sel: P.Select, rel: Rel, resolver=None) -> Rel:
+        has_agg = (
+            bool(sel.group_by)
+            or any(_has_agg(it.expr) for it in sel.items)
+            or (sel.having is not None and _has_agg(sel.having))
+        )
+        window_names = None
+        if any(isinstance(it.expr, P.WindowCall) for it in sel.items):
+            if has_agg:
+                raise BindError(
+                    "window functions over aggregated results are not "
+                    "supported in this build"
+                )
+            rel, window_names = self._apply_windows(sel, rel, resolver)
+        if has_agg:
+            rel = self._aggregate(sel, rel, resolver)
+        else:
+            rel = self._project(sel, rel, resolver,
+                                window_names=window_names)
+        if sel.distinct:
+            rel = rel.distinct()
+        rel = self._order_limit(sel, rel)
+        return rel
+
+    _WINDOW_ONLY = {"row_number", "rank", "dense_rank", "ntile",
+                    "percent_rank", "cume_dist", "lag", "lead",
+                    "first_value", "last_value"}
+    _WINDOW_AGGS = {"sum", "count", "min", "max", "avg"}
+
+    def _apply_windows(self, sel: P.Select, rel: Rel, resolver):
+        """Append one column per top-level OVER item (colexecwindow via
+        Rel.window); returns (rel, {id(WindowCall) -> appended name}).
+
+        Scope (documented reductions): window calls are top-level SELECT
+        items; PARTITION BY / ORDER BY / function arguments are plain
+        columns; the default frame with ORDER BY is ROWS UNBOUNDED
+        PRECEDING..CURRENT ROW (the reference's RANGE default differs on
+        ties)."""
+        lower = ExprLowerer(rel, resolver=resolver)
+
+        def colname(e: P.Node, what: str) -> str:
+            le = lower.lower(e)
+            if not isinstance(le, ex.ColRef):
+                raise BindError(
+                    f"window {what} must be a plain column in this build"
+                )
+            return rel.schema.names[le.idx]
+
+        # group calls by their window (partition, order, frame) so each
+        # distinct window sorts once
+        groups: dict[tuple, list] = {}
+        names: dict[int, str] = {}
+        used = set(rel.schema.names)
+        for it in sel.items:
+            wc = it.expr
+            if not isinstance(wc, P.WindowCall):
+                continue
+            func = wc.func.name.lower()
+            if func not in self._WINDOW_ONLY | self._WINDOW_AGGS:
+                raise BindError(f"unknown window function {func}()")
+            if wc.func.distinct:
+                raise BindError(
+                    f"{func}(DISTINCT ...) OVER is not supported"
+                )
+            parts = tuple(colname(e, "PARTITION BY") for e in wc.partition_by)
+            order = tuple(
+                (colname(e, "ORDER BY"), desc) for e, desc in wc.order_by
+            )
+            frame = wc.frame
+            default_kind = "rows"
+            if not wc.has_frame_clause and func in (
+                self._WINDOW_AGGS | {"first_value", "last_value"}
+            ):
+                # SQL default: cumulative with ORDER BY, whole partition
+                # without. The true default is RANGE UNBOUNDED PRECEDING
+                # .. CURRENT ROW (peer-INCLUSIVE); the range kernel needs
+                # a single numeric order key, so that shape gets the exact
+                # semantics and everything else keeps the ROWS reduction
+                # (divergence only for ties on string/multi-key orders)
+                frame = (None, 0) if order else None
+                if order and len(order) == 1:
+                    i = rel.idx(order[0][0])
+                    from ..coldata.types import Family as _F
+
+                    if rel.schema.types[i].family in (
+                            _F.INT, _F.FLOAT, _F.DECIMAL, _F.DATE):
+                        default_kind = "range"
+            arg = None
+            offset = 1
+            if func in ("lag", "lead"):
+                if not wc.func.args:
+                    raise BindError(f"{func}() needs a column argument")
+                arg = colname(wc.func.args[0], "argument")
+                if len(wc.func.args) > 2:
+                    raise BindError(
+                        f"{func}() default-value argument is not "
+                        "supported (NULL is returned past the edge)"
+                    )
+                if len(wc.func.args) > 1:
+                    a = wc.func.args[1]
+                    if not isinstance(a, P.NumLit):
+                        raise BindError(
+                            f"{func}() offset must be a literal")
+                    offset = int(a.value)
+            elif func == "ntile":
+                if not (wc.func.args
+                        and isinstance(wc.func.args[0], P.NumLit)):
+                    raise BindError("ntile() needs a literal bucket count")
+                offset = int(wc.func.args[0].value)
+            elif func in self._WINDOW_AGGS or func in ("first_value",
+                                                       "last_value"):
+                if func == "count" and (
+                    not wc.func.args
+                    or isinstance(wc.func.args[0], P.Star)
+                ):
+                    arg = None
+                else:
+                    if not wc.func.args:
+                        raise BindError(f"{func}() needs an argument")
+                    arg = colname(wc.func.args[0], "argument")
+            out = it.alias or func
+            while out in used:
+                out = f"_{out}w"
+            used.add(out)
+            names[id(wc)] = out
+            fkind = wc.frame_kind if wc.has_frame_clause else default_kind
+            if fkind == "groups" and wc.has_frame_clause and not order:
+                raise BindError("GROUPS mode requires an ORDER BY clause")
+            if fkind == "range" and wc.has_frame_clause:
+                # Postgres rule: RANGE with offsets needs exactly one
+                # NUMERIC ORDER BY key; peer-only frames (UNBOUNDED /
+                # CURRENT ROW bounds) work for any order-key shape
+                if any(b not in (None, 0) for b in (wc.frame or ())):
+                    if len(order) != 1:
+                        raise BindError(
+                            "RANGE frame with offsets requires exactly "
+                            "one ORDER BY key"
+                        )
+                    from ..coldata.types import Family as _F
+
+                    fam = rel.schema.types[rel.idx(order[0][0])].family
+                    if fam not in (_F.INT, _F.FLOAT, _F.DECIMAL, _F.DATE):
+                        raise BindError(
+                            "RANGE frame offsets require a numeric "
+                            f"ORDER BY key, got {fam.name}"
+                        )
+            excl = wc.exclude if wc.has_frame_clause else "no_others"
+            if excl == "ties" and func in ("first_value", "last_value"):
+                raise BindError(
+                    "EXCLUDE TIES with first_value/last_value is not "
+                    "supported"
+                )
+            groups.setdefault((parts, order, frame, fkind, excl),
+                              []).append((out, func, arg, offset))
+        for (parts, order, frame, fkind, excl), funcs in groups.items():
+            rel = rel.window(list(parts), list(order), funcs, frame=frame,
+                             frame_kind=fkind, exclude=excl)
+        return rel, names
+
+    def _project(self, sel: P.Select, rel: Rel, resolver=None,
+                 window_names=None) -> Rel:
+        items: list[tuple[str, ex.Expr]] = []
+        expr_names: dict[P.Node, str] = {}
+        used: set[str] = set()
+        lower = ExprLowerer(rel, resolver=resolver)
+        dict_attach: list[tuple[str, object]] = []
+        for it in sel.items:
+            if isinstance(it.expr, P.Star):
+                for n in rel.schema.names:
+                    if window_names and n in set(window_names.values()):
+                        continue  # window outputs are not part of *
+                    items.append((self._uniq(n, used), ex.ColRef(rel.idx(n))))
+                continue
+            name = self._uniq(
+                it.alias or self._default_name(it.expr, len(items)), used
+            )
+            if window_names is not None and id(it.expr) in window_names:
+                # the window column was appended by _apply_windows
+                items.append(
+                    (name, ex.ColRef(rel.idx(window_names[id(it.expr)])))
+                )
+                expr_names[it.expr] = name
+                continue
+            st = self._string_transform(rel, it.expr, lower)
+            if st is not None:
+                expr, d = st
+                items.append((name, expr))
+                dict_attach.append((name, d))
+            else:
+                items.append((name, lower.lower(it.expr)))
+            expr_names[it.expr] = name
+        # resolve ORDER BY to output columns, adding hidden ones as needed
+        hidden: list[tuple[str, ex.Expr]] = []
+        order_keys: list[tuple[str, bool]] = []
+        for o in sel.order_by:
+            if o.expr in expr_names:
+                order_keys.append((expr_names[o.expr], o.desc))
+            elif isinstance(o.expr, P.NumLit):
+                order_keys.append((_positional(items, o.expr), o.desc))
+            elif (isinstance(o.expr, P.Ident)
+                  and o.expr.name in {n for n, _ in items}):
+                order_keys.append((o.expr.name, o.desc))
+            elif (isinstance(o.expr, P.Ident)
+                  and o.expr.name in rel.schema.names):
+                hn = self._uniq(o.expr.name, used)
+                hidden.append((hn, ex.ColRef(rel.idx(o.expr.name))))
+                order_keys.append((hn, o.desc))
+            else:
+                raise BindError(f"cannot order by {o.expr}")
+        proj = rel.project(items + hidden)
+        for name, d in dict_attach:
+            proj = proj.with_dict(name, d)
+        proj._visible = len(items)  # order_limit projects hidden cols away
+        proj._order_keys = order_keys
+        return proj
+
+    @staticmethod
+    def _string_transform(rel: Rel, e: P.Node, lower: ExprLowerer):
+        """String-valued functions of a STRING column (substring) — host-
+        evaluated per dictionary entry, a code-remap gather on device.
+        Returns (expr, Dictionary) or None."""
+        if not (isinstance(e, P.FuncCall) and len(e.args) >= 1
+                and isinstance(e.args[0], P.Ident)):
+            return None
+        def _lit(k):
+            a = _fold(e.args[k])  # folds unary minus / literal arithmetic
+            if isinstance(a, P.StrLit):
+                return a.value
+            if isinstance(a, P.NumLit):
+                return a.value
+            raise BindError(f"{e.name}: argument {k + 1} must be a literal")
+
+        def _initcap(s: str) -> str:
+            out, start = [], True
+            for ch in s:
+                out.append(ch.upper() if start else ch.lower())
+                start = not ch.isalnum()
+            return "".join(out)
+
+        if e.name == "substring" and len(e.args) == 3:
+            start = int(e.args[1].value) - 1
+            n = int(e.args[2].value)
+            fn = lambda s: s[start:start + n]  # noqa: E731
+        elif e.name in ("upper", "lower") and len(e.args) == 1:
+            fn = (str.upper if e.name == "upper" else str.lower)
+        elif e.name in ("trim", "btrim") and len(e.args) <= 2:
+            chars = str(_lit(1)) if len(e.args) == 2 else None
+            fn = lambda s: s.strip(chars)  # noqa: E731
+        elif e.name in ("ltrim", "rtrim") and len(e.args) <= 2:
+            chars = str(_lit(1)) if len(e.args) == 2 else None
+            strip = str.lstrip if e.name == "ltrim" else str.rstrip
+            fn = lambda s: strip(s, chars)  # noqa: E731
+        elif e.name == "replace" and len(e.args) == 3:
+            old, new = str(_lit(1)), str(_lit(2))
+            fn = lambda s: s.replace(old, new)  # noqa: E731
+        elif e.name == "initcap" and len(e.args) == 1:
+            fn = _initcap
+        elif e.name == "reverse" and len(e.args) == 1:
+            fn = lambda s: s[::-1]  # noqa: E731
+        elif e.name in ("lpad", "rpad") and len(e.args) in (2, 3):
+            width = int(_lit(1))
+            fill = str(_lit(2)) if len(e.args) == 3 else " "
+            left = e.name == "lpad"
+
+            def fn(s, width=width, fill=fill, left=left):
+                if width <= 0:
+                    return ""  # postgres: non-positive width pads to empty
+                if len(s) >= width:
+                    return s[:width]
+                pad = (fill * width)[: width - len(s)] if fill else ""
+                return pad + s if left else s + pad
+        elif e.name in ("left", "right") and len(e.args) == 2:
+            n = int(_lit(1))
+            # python slicing matches Postgres for negative n too:
+            # left(s,-2) drops the last 2, right(s,-2) drops the first 2
+            if e.name == "left":
+                fn = lambda s: s[:n]  # noqa: E731
+            else:
+                fn = lambda s: s[-n:] if n else ""  # noqa: E731
+        elif e.name == "repeat" and len(e.args) == 2:
+            n = int(_lit(1))
+            fn = lambda s: s * max(n, 0)  # noqa: E731
+        elif e.name == "split_part" and len(e.args) == 3:
+            delim, field_n = str(_lit(1)), int(_lit(2))
+
+            def fn(s, delim=delim, field_n=field_n):
+                parts = s.split(delim) if delim else [s]
+                return parts[field_n - 1] if 1 <= field_n <= len(parts) \
+                    else ""
+        elif e.name == "translate" and len(e.args) == 3:
+            src, dst = str(_lit(1)), str(_lit(2))
+            tbl = {ord(c): (dst[i] if i < len(dst) else None)
+                   for i, c in enumerate(src)}
+            fn = lambda s: s.translate(tbl)  # noqa: E731
+        elif e.name == "md5" and len(e.args) == 1:
+            import hashlib
+
+            fn = lambda s: hashlib.md5(s.encode()).hexdigest()  # noqa: E731
+        elif e.name == "concat" and len(e.args) >= 1:
+            suffix = "".join(str(_lit(k)) for k in range(1, len(e.args)))
+            fn = lambda s: s + suffix  # noqa: E731
+        else:
+            return None
+        i = lower.idx(e.args[0])
+        if rel.schema.types[i].family is not Family.STRING:
+            return None
+        from ..coldata.batch import Dictionary
+        from ..coldata.types import STRING
+
+        d = rel.dicts[i]
+        mapped = np.array([fn(str(v)) for v in d.values],
+                          dtype=object)
+        if len(mapped):
+            uvals, codes = np.unique(mapped.astype(str), return_inverse=True)
+            table = codes.astype(np.int32)
+        else:
+            uvals = np.array([], dtype=object)
+            table = np.zeros(1, np.int32)
+        return (ex.CodeLookup(col=i, table=table, out_type=STRING),
+                Dictionary(uvals.astype(object)))
+
+    def _aggregate(self, sel: P.Select, rel: Rel, resolver=None) -> Rel:
+        # 1. collect aggregate calls across SELECT + HAVING + ORDER BY
+        aggs: dict[P.FuncCall, str] = {}
+
+        def collect(e: P.Node):
+            for x in _walk(e):
+                if isinstance(x, P.FuncCall) and x.name in AGG_FUNCS:
+                    if x not in aggs:
+                        aggs[x] = f"_agg{len(aggs)}"
+
+        for it in sel.items:
+            collect(it.expr)
+        if sel.having is not None:
+            collect(sel.having)
+        for o in sel.order_by:
+            collect(o.expr)
+
+        # 2. group keys: group_by exprs; give names. A bare name that is a
+        # select alias (and not an input column) refers to that expression
+        alias_map = {it.alias: it.expr for it in sel.items if it.alias}
+        group_items: list[tuple[str, P.Node]] = []
+        for g in sel.group_by:
+            if (isinstance(g, P.Ident) and g.table is None
+                    and g.name not in rel.schema.names
+                    and g.name in alias_map):
+                group_items.append((g.name, alias_map[g.name]))
+            elif isinstance(g, P.Ident):
+                group_items.append((g.name, g))
+            else:
+                # find a select alias with the same expression
+                alias = None
+                for it in sel.items:
+                    if it.expr == g and it.alias:
+                        alias = it.alias
+                if alias is None:
+                    alias = f"_g{len(group_items)}"
+                group_items.append((alias, g))
+
+        # 3. pre-projection: group keys + agg inputs
+        lower = ExprLowerer(rel, resolver=resolver)
+        pre: list[tuple[str, ex.Expr]] = []
+        for name, g in group_items:
+            pre.append((name, lower.lower(g)))
+        agg_specs: list[tuple[str, str, str | None]] = []
+        distinct_aggs = [fc for fc in aggs if fc.distinct]
+        if distinct_aggs:
+            # DISTINCT aggregates: dedupe (group keys, arg) first, then
+            # aggregate the deduped rows (the reference plans these as a
+            # distinct stage under the aggregator). All distinct aggs must
+            # share one argument for the single-dedupe rewrite to be sound.
+            args = {fc.args[0] for fc in distinct_aggs}
+            if len(args) > 1 or len(distinct_aggs) != len(aggs):
+                raise BindError(
+                    "DISTINCT aggregates must all share one argument and "
+                    "cannot mix with plain aggregates"
+                )
+            in_name = "_distinct_in"
+            pre.append((in_name, lower.lower(next(iter(args)))))
+            for fc, name in aggs.items():
+                if fc.name not in ("count", "sum", "min", "max", "avg"):
+                    raise BindError(
+                        f"DISTINCT {fc.name} not supported"
+                    )
+                agg_specs.append((name, fc.name, in_name))
+            rel2 = rel.project(pre).distinct()
+        else:
+            for fc, name in aggs.items():
+                func = _AGG_CANON.get(fc.name, fc.name)
+                if func == "count" and (
+                    not fc.args or isinstance(fc.args[0], P.Star)
+                ):
+                    agg_specs.append((name, "count_rows", None))
+                    continue
+                in_name = f"{name}_in"
+                pre.append((in_name, lower.lower(fc.args[0])))
+                if func == "string_agg":
+                    if not group_items:
+                        raise BindError(
+                            "string_agg without GROUP BY is not supported"
+                        )
+                    sep = ","
+                    if len(fc.args) > 1:
+                        a = fc.args[1]
+                        if not isinstance(a, P.StrLit):
+                            raise BindError(
+                                "string_agg separator must be a string "
+                                "literal"
+                            )
+                        sep = a.value
+                    agg_specs.append((name, func, in_name, sep))
+                    continue
+                agg_specs.append((name, func, in_name))
+            rel2 = rel.project(pre)
+        if group_items:
+            g = rel2.groupby([n for n, _ in group_items], agg_specs)
+        else:
+            g = rel2.scalar_agg(agg_specs)
+
+        # 4. HAVING (uncorrelated scalar subqueries fold to literals first)
+        if sel.having is not None:
+            having = self._replace_scalar_subqueries(sel.having)
+            g = g.filter(self._lower_agg_expr(g, having, aggs, group_items))
+
+        # 5. post-projection for the SELECT list
+        post: list[tuple[str, ex.Expr]] = []
+        expr_names: dict[P.Node, str] = {}
+        used: set[str] = set()
+        gnames = {n for n, _ in group_items}
+        for it in sel.items:
+            name = self._uniq(
+                it.alias or self._default_name(it.expr, len(post)), used
+            )
+            if name in gnames:  # aliased group key: already a groupby column
+                post.append((name, ex.ColRef(g.idx(name))))
+            else:
+                post.append((name, self._lower_agg_expr(
+                    g, it.expr, aggs, group_items)))
+            expr_names[it.expr] = name
+        out_names = {n for n, _ in post}
+        hidden: list[tuple[str, ex.Expr]] = []
+        order_keys: list[tuple[str, bool]] = []
+        for o in sel.order_by:
+            if o.expr in expr_names:
+                order_keys.append((expr_names[o.expr], o.desc))
+            elif isinstance(o.expr, P.NumLit):
+                order_keys.append((_positional(post, o.expr), o.desc))
+            elif isinstance(o.expr, P.Ident) and o.expr.name in out_names:
+                order_keys.append((o.expr.name, o.desc))
+            elif (isinstance(o.expr, P.Ident)
+                  and o.expr.name in g.schema.names):
+                hn = self._uniq(o.expr.name, used)
+                hidden.append((hn, ex.ColRef(g.idx(o.expr.name))))
+                order_keys.append((hn, o.desc))
+            elif isinstance(o.expr, P.FuncCall) and o.expr in aggs:
+                # an aggregate ordered by but not selected: hidden column
+                nm = self._uniq(aggs[o.expr], used)
+                hidden.append((nm, ex.ColRef(g.idx(aggs[o.expr]))))
+                order_keys.append((nm, o.desc))
+            else:
+                raise BindError(f"cannot order by {o.expr}")
+        proj = g.project(post + hidden)
+        proj._visible = len(post)
+        proj._order_keys = order_keys
+        return proj
+
+    def _lower_agg_expr(self, g: Rel, e: P.Node, aggs, group_items,
+                        name_ok: bool = False) -> ex.Expr:
+        """Lower an expression over the groupby output: aggregate calls become
+        references to their output columns, and any (sub)expression that IS a
+        group-by expression references its group column (GROUP BY b * 2 with
+        SELECT b * 2 must read the computed key, not re-derive it from
+        columns the groupby output no longer carries)."""
+        e = _fold(e)
+        for gname, gexpr in group_items:
+            if e == gexpr:
+                return ex.ColRef(g.idx(gname))
+        if isinstance(e, P.FuncCall) and e.name in AGG_FUNCS:
+            return ex.ColRef(g.idx(aggs[e]))
+        if isinstance(e, P.Ident):
+            return ex.ColRef(g.idx(e.name))
+        if isinstance(e, P.Bin) and e.op in ("and", "or"):
+            return ex.BoolOp(e.op, (
+                self._lower_agg_expr(g, e.left, aggs, group_items),
+                self._lower_agg_expr(g, e.right, aggs, group_items),
+            ))
+        if isinstance(e, P.Bin):
+            return ex.BinOp(e.op,
+                            self._lower_agg_expr(g, e.left, aggs, group_items),
+                            self._lower_agg_expr(g, e.right, aggs, group_items))
+        if isinstance(e, P.Cmp):
+            return ex.Cmp(e.op,
+                          self._lower_agg_expr(g, e.left, aggs, group_items),
+                          self._lower_agg_expr(g, e.right, aggs, group_items))
+        if isinstance(e, P.NumLit):
+            if isinstance(e.value, int):
+                return ex.lit(int(e.value))
+            return ex.Const(float(e.value), FLOAT64)
+        # fall back to plain lowering over the groupby schema (strings etc.)
+        return ExprLowerer(g).lower(e)
+
+    def _default_name(self, e: P.Node, i: int) -> str:
+        if isinstance(e, P.Ident):
+            return e.name
+        if isinstance(e, P.FuncCall):
+            return e.name
+        if isinstance(e, P.WindowCall):
+            return e.func.name
+        return f"col{i}"
+
+    @staticmethod
+    def _uniq(name: str, used: set[str]) -> str:
+        out = name
+        k = 1
+        while out in used:
+            out = f"{name}_{k}"
+            k += 1
+        used.add(out)
+        return out
+
+    def _order_limit(self, sel: P.Select, rel: Rel) -> Rel:
+        visible = getattr(rel, "_visible", None)
+        order_keys = getattr(rel, "_order_keys", None)
+        if sel.order_by:
+            if order_keys is None:  # e.g. DISTINCT re-wrapped the projection
+                order_keys = []
+                for o in sel.order_by:
+                    if (isinstance(o.expr, P.Ident)
+                            and o.expr.name in rel.schema.names):
+                        order_keys.append((o.expr.name, o.desc))
+                    elif isinstance(o.expr, P.NumLit):
+                        order_keys.append(
+                            (_positional(rel.schema.names, o.expr), o.desc))
+                    else:
+                        raise BindError(f"cannot order by {o.expr}")
+            rel = rel.sort(order_keys)
+        if sel.limit is not None or sel.offset:
+            # OFFSET without LIMIT: a sentinel that stays inside the int32
+            # row-position arithmetic of the limit operator
+            limit = sel.limit if sel.limit is not None else (1 << 30)
+            rel = rel.limit(limit, sel.offset)
+        if visible is not None and visible < len(rel.schema):
+            rel = rel.select(*rel.schema.names[:visible])
+        return rel
+
+
+@dataclass
+class BoundQuery:
+    rel: Rel
+    sources: dict[int, Source]
+    # (source index, column name) -> position in rel's joined schema. The
+    # only sound resolution once self-joins duplicate column names.
+    colmap: dict[tuple[int, str], int] | None = None
+
+
+def sql(catalog: Catalog, text: str) -> Rel:
+    """Parse + bind a SELECT statement into an executable Rel."""
+    return Binder(catalog).bind(P.parse(text))

@@ -1,0 +1,215 @@
+"""crdb_internal virtual tables — the pkg/sql/crdb_internal.go reduction.
+
+Reference: crdb_internal is a schema of virtual tables materialized on
+read (crdb_internal.go:1346 node_statement_statistics, :1588
+cluster_queries/cluster_sessions, :1745 node_metrics, :6090 hot_ranges);
+every read reflects live registries, nothing is stored.
+
+Here the catalog resolves any unknown ``crdb_internal.<name>`` through
+:func:`build`, which materializes a plain :class:`~..catalog.Table` from
+the process registries (sqlstats, activity, metric, tracing, range meta).
+The binder and the plan builder each resolve the table once per
+statement, so materializations are generation-cached: both resolutions
+within one statement see the SAME Table object (string dictionary codes
+must match between bind-time schema inference and build-time scan).
+``begin_statement`` bumps the generation, so every statement gets a fresh
+snapshot.
+
+The plan cache never caches plans over these tables (sql/plancache.py
+treats the prefix as volatile) — a cached snapshot would freeze time.
+
+The port of ``cockroach_tpu.sql.crdb_internal`` over the registries the
+port has: statement statistics, live sessions and queries, the memory
+monitor tree and tenant admission. The reference's other tables read
+modules the port has not got yet; naming one raises ``UnportedError``
+(a ``BindError``) with the module it needs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..catalog import Table
+from ..coldata import types as T
+
+PREFIX = "crdb_internal."
+
+_gen = 0
+# (id(catalog), table name) -> (generation, materialized Table)
+_cache: dict[tuple[int, str], tuple[int, Table]] = {}
+
+
+def bump_generation() -> None:
+    """New statement: drop cached materializations so the next read sees
+    a fresh snapshot (called from binder.begin_statement)."""
+    global _gen
+    _gen += 1
+    _cache.clear()
+
+
+def _table(name: str, cols: list[tuple[str, object, np.ndarray]]) -> Table:
+    names = tuple(c[0] for c in cols)
+    types = tuple(c[1] for c in cols)
+    raw = {c[0]: c[2] for c in cols}
+    return Table.from_strings(name, T.Schema(names, types), raw)
+
+
+def _strs(vals) -> np.ndarray:
+    return np.array([str(v) for v in vals], dtype=object)
+
+
+def _ints(vals) -> np.ndarray:
+    return np.array([int(v) for v in vals], dtype=np.int64)
+
+
+def _floats(vals) -> np.ndarray:
+    return np.array([float(v) for v in vals], dtype=np.float64)
+
+
+def _stmt_statistics(catalog) -> Table:
+    from . import sqlstats
+
+    rows = sqlstats.DEFAULT.all()
+    return _table("crdb_internal.node_statement_statistics", [
+        ("fingerprint", T.STRING, _strs(r.fingerprint for r in rows)),
+        ("count", T.INT64, _ints(r.count for r in rows)),
+        ("mean_ms", T.FLOAT64, _floats(r.mean_s * 1e3 for r in rows)),
+        ("max_ms", T.FLOAT64, _floats(r.max_s * 1e3 for r in rows)),
+        ("p50_ms", T.FLOAT64,
+         _floats(r.percentile(0.50) * 1e3 for r in rows)),
+        ("p99_ms", T.FLOAT64,
+         _floats(r.percentile(0.99) * 1e3 for r in rows)),
+        ("rows_returned", T.INT64, _ints(r.rows for r in rows)),
+        ("errors", T.INT64, _ints(r.errors for r in rows)),
+        ("max_mem_mb", T.FLOAT64,
+         _floats(r.max_mem_bytes / (1 << 20) for r in rows)),
+        ("mem_p50_mb", T.FLOAT64,
+         _floats(r.percentile_mem(0.50) / (1 << 20) for r in rows)),
+        ("mem_p99_mb", T.FLOAT64,
+         _floats(r.percentile_mem(0.99) / (1 << 20) for r in rows)),
+        ("spills", T.INT64, _ints(r.spills for r in rows)),
+    ])
+
+
+def _memory_monitors(catalog) -> Table:
+    """The live mon.BytesMonitor tree, depth-first — the reference's
+    crdb_internal.node_memory_monitors (crdb_internal.go's monitor walk)."""
+    from ..flow import memory
+
+    rows = memory.monitor_rows()
+    return _table("crdb_internal.node_memory_monitors", [
+        ("name", T.STRING, _strs(r["name"] for r in rows)),
+        ("level", T.STRING, _strs(r["level"] for r in rows)),
+        ("depth", T.INT64, _ints(r["depth"] for r in rows)),
+        ("used_bytes", T.INT64, _ints(r["used"] for r in rows)),
+        ("peak_bytes", T.INT64, _ints(r["peak"] for r in rows)),
+        ("budget_bytes", T.INT64, _ints(r["budget"] for r in rows)),
+        ("spills", T.INT64, _ints(r["spills"] for r in rows)),
+    ])
+
+
+def _node_tenant_admission(catalog) -> Table:
+    """Per-tenant admission state (the tenant rate-limiter / fair-share
+    surface): token bucket level + config, stride-scheduler virtual
+    time, and admit/reject counters, one row per tenant the queue has
+    seen. Shed state and per-lane queue depth ride along so one query
+    answers "who is being refused, and why"."""
+    from ..utils import admission
+
+    q = admission.sql_queue()
+    rows = q.tenant_rows()
+    lanes = q.lane_depths()
+    floor = admission.shed_floor()
+    return _table("crdb_internal.node_tenant_admission", [
+        ("tenant_id", T.INT64, _ints(r["tenant_id"] for r in rows)),
+        ("tokens", T.FLOAT64, _floats(r["tokens"] for r in rows)),
+        ("rate", T.FLOAT64, _floats(r["rate"] for r in rows)),
+        ("burst", T.FLOAT64, _floats(r["burst"] for r in rows)),
+        ("vtime", T.FLOAT64, _floats(r["vtime"] for r in rows)),
+        ("weight", T.FLOAT64, _floats(r["weight"] for r in rows)),
+        ("admitted", T.INT64, _ints(r["admitted"] for r in rows)),
+        ("rejected", T.INT64, _ints(r["rejected"] for r in rows)),
+        ("queue_interactive", T.INT64,
+         _ints([lanes.get(admission.LANE_INTERACTIVE, 0)] * len(rows))),
+        ("queue_analytical", T.INT64,
+         _ints([lanes.get(admission.LANE_ANALYTICAL, 0)] * len(rows))),
+        ("shed_floor", T.INT64, _ints([floor] * len(rows))),
+    ])
+
+
+def _cluster_queries(catalog) -> Table:
+    from . import activity
+
+    rows = activity.queries()
+    return _table("crdb_internal.cluster_queries", [
+        ("query_id", T.INT64, _ints(r["id"] for r in rows)),
+        ("session_id", T.INT64, _ints(r["session_id"] for r in rows)),
+        ("query", T.STRING, _strs(r["query"] for r in rows)),
+        ("phase", T.STRING, _strs(r["phase"] for r in rows)),
+        ("elapsed_ms", T.FLOAT64,
+         _floats(r["elapsed_s"] * 1e3 for r in rows)),
+    ])
+
+
+def _cluster_sessions(catalog) -> Table:
+    from . import activity
+
+    rows = activity.sessions()
+    return _table("crdb_internal.cluster_sessions", [
+        ("session_id", T.INT64, _ints(r["id"] for r in rows)),
+        ("application_name", T.STRING,
+         _strs(r["application_name"] for r in rows)),
+        ("active_queries", T.INT64, _ints(r["active"] for r in rows)),
+        ("session_age_s", T.FLOAT64,
+         _floats(r["session_age_s"] for r in rows)),
+    ])
+
+
+
+_BUILDERS = {
+    "crdb_internal.node_statement_statistics": _stmt_statistics,
+    "crdb_internal.cluster_queries": _cluster_queries,
+    "crdb_internal.cluster_sessions": _cluster_sessions,
+    "crdb_internal.node_memory_monitors": _memory_monitors,
+    "crdb_internal.node_tenant_admission": _node_tenant_admission,
+}
+
+# the reference's tables whose registries live in modules not yet ported
+UNPORTED = {
+    "crdb_internal.node_metrics": "utils/metric.py's registry",
+    "crdb_internal.node_inflight_trace_spans": "utils/tracing.py's inflight "
+                                               "registry",
+    "crdb_internal.hot_ranges": "kv/loadstats.py",
+    "crdb_internal.cluster_load": "flow/memory.device_memory_stats",
+    "crdb_internal.node_changefeed_subscribers": "kv/fanout.py",
+    "crdb_internal.node_materialized_views": "sql/matview.py",
+    "crdb_internal.node_warmup_menu": "sql/warmmenu.py",
+}
+
+
+def is_virtual(name: str) -> bool:
+    return name.startswith(PREFIX)
+
+
+def build(catalog, name: str) -> Table:
+    """Materialize (or return this statement's cached materialization of)
+    one virtual table on the catalog's device. Raises KeyError for
+    unknown names (the binder's unknown-table error) and BindError for a
+    table whose module is not ported."""
+    builder = _BUILDERS.get(name)
+    if builder is None:
+        if name in UNPORTED:
+            from .binder import UnportedError
+
+            raise UnportedError(name, UNPORTED[name])
+        raise KeyError(name)
+    key = (id(catalog), name)
+    hit = _cache.get(key)
+    if hit is not None and hit[0] == _gen:
+        return hit[1]
+    t = builder(catalog)
+    t.device = catalog.device
+    _cache[key] = (_gen, t)
+    return t

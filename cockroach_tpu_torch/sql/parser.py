@@ -1,0 +1,1137 @@
+"""SQL parser — the pkg/sql/parser analog (reference grammar: sql.y).
+
+A hand-written recursive-descent parser for the SELECT dialect the engine
+executes (TPC-H coverage: implicit and explicit joins, GROUP BY/HAVING,
+ORDER BY/LIMIT, CASE, EXTRACT, CAST, BETWEEN, IN lists and subqueries,
+EXISTS, LIKE, date/interval literal arithmetic, scalar subqueries). The
+reference uses a goyacc grammar producing sem/tree ASTs; here the AST is a
+small dataclass tree lowered to relational plans by sql/binder.py, the
+optbuilder analog.
+
+A copy of ``cockroach_tpu.sql.parser``: the AST nodes are the same
+dataclasses, so parse trees compare equal field for field.
+"""
+
+from __future__ import annotations
+
+import re
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+# ---------------------------------------------------------------------------
+# Tokens
+
+_TOKEN_RE = re.compile(
+    r"""
+    (?P<ws>\s+)
+  | (?P<comment>--[^\n]*)
+  | (?P<num>\d+\.\d+|\.\d+|\d+)
+  | (?P<str>'(?:[^']|'')*')
+  | (?P<name>[A-Za-z_][A-Za-z0-9_]*)
+  | (?P<op>::|<=|>=|<>|!=|\|\||[-+*/%(),.;<>=@])
+    """,
+    re.VERBOSE,
+)
+
+KEYWORDS = {
+    "select", "from", "where", "group", "by", "having", "order", "limit",
+    "offset", "as", "and", "or", "not", "in", "exists", "between", "like",
+    "ilike", "intersect", "except", "filter",
+    "is", "null", "case", "when", "then", "else", "end", "cast", "extract",
+    "year", "month", "day", "date", "interval", "join", "inner", "left",
+    "right", "outer", "on", "asc", "desc", "distinct", "all", "union",
+    "substring", "for", "true", "false", "any", "some", "with",
+    "create", "table", "primary", "key", "insert", "into", "values",
+    "update", "set", "delete", "default", "alter", "add", "column", "drop",
+    "index",
+    "over", "partition", "rows", "range", "groups", "unbounded",
+    "preceding", "following", "current", "row", "exclude", "no",
+    "others", "ties",
+}
+
+
+@dataclass
+class Token:
+    kind: str  # name | kw | num | str | op | eof
+    value: str
+    pos: int
+
+
+# structural keywords can never START an expression — letting them parse
+# as identifiers turns typos like "select from t" into silent nonsense
+# (important now that FROM itself is optional)
+_STRUCTURAL_KW = {
+    "from", "where", "group", "having", "order", "limit", "offset",
+    "union", "intersect", "except", "on", "join", "inner", "when",
+    "then", "else", "end", "and", "or", "as", "by", "asc", "desc",
+    "into", "values", "set",
+}
+
+
+def tokenize(text: str) -> list[Token]:
+    out = []
+    i = 0
+    while i < len(text):
+        m = _TOKEN_RE.match(text, i)
+        if not m:
+            raise SyntaxError(f"cannot tokenize at {text[i:i+20]!r}")
+        i = m.end()
+        kind = m.lastgroup
+        if kind in ("ws", "comment"):
+            continue
+        v = m.group()
+        if kind == "name":
+            low = v.lower()
+            if low in KEYWORDS:
+                out.append(Token("kw", low, m.start()))
+            else:
+                out.append(Token("name", v.lower(), m.start()))
+        elif kind == "str":
+            out.append(Token("str", v[1:-1].replace("''", "'"), m.start()))
+        else:
+            out.append(Token(kind, v, m.start()))
+    out.append(Token("eof", "", len(text)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# AST
+
+
+class Node:
+    pass
+
+
+@dataclass(frozen=True)
+class Ident(Node):
+    table: Optional[str]  # qualifier or None
+    name: str
+
+
+@dataclass(frozen=True)
+class NumLit(Node):
+    value: float | int
+
+
+@dataclass(frozen=True)
+class StrLit(Node):
+    value: str
+
+
+@dataclass(frozen=True)
+class DateLit(Node):
+    value: str  # YYYY-MM-DD
+
+
+@dataclass(frozen=True)
+class IntervalLit(Node):
+    n: int
+    unit: str  # day | month | year
+
+
+@dataclass(frozen=True)
+class NullLit(Node):
+    pass
+
+
+@dataclass(frozen=True)
+class Star(Node):
+    pass
+
+
+@dataclass(frozen=True)
+class FuncCall(Node):
+    name: str
+    args: tuple[Node, ...]
+    distinct: bool = False
+
+
+@dataclass(frozen=True)
+class WindowCall(Node):
+    """<func>(args) OVER (PARTITION BY ... ORDER BY ... [ROWS BETWEEN
+    <bound> AND <bound>]). frame: (preceding, following) row counts with
+    None meaning UNBOUNDED; frame is None when no ROWS clause was given
+    (the binder applies the SQL default)."""
+
+    func: FuncCall
+    partition_by: tuple[Node, ...] = ()
+    order_by: tuple[tuple[Node, bool], ...] = ()  # (expr, desc)
+    frame: tuple | None = None
+    has_frame_clause: bool = False
+    frame_kind: str = "rows"  # "rows" | "range" | "groups"
+    exclude: str = "no_others"  # EXCLUDE clause
+
+
+@dataclass(frozen=True)
+class Bin(Node):
+    op: str  # + - * / || and or
+    left: Node
+    right: Node
+
+
+@dataclass(frozen=True)
+class Cmp(Node):
+    op: str  # lt le gt ge eq ne
+    left: Node
+    right: Node
+
+
+@dataclass(frozen=True)
+class Not(Node):
+    arg: Node
+
+
+@dataclass(frozen=True)
+class Between(Node):
+    arg: Node
+    lo: Node
+    hi: Node
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class IsDistinct(Node):
+    """a IS [NOT] DISTINCT FROM b — null-safe comparison."""
+
+    left: Node
+    right: Node
+    negated: bool = False  # negated=True is IS NOT DISTINCT FROM
+
+
+@dataclass(frozen=True)
+class Like(Node):
+    arg: Node
+    pattern: str
+    negated: bool = False
+    ci: bool = False  # ILIKE
+
+
+@dataclass(frozen=True)
+class InList(Node):
+    arg: Node
+    items: tuple[Node, ...]
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class InSelect(Node):
+    arg: Node
+    select: "Select"
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class Exists(Node):
+    select: "Select"
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class ScalarSubquery(Node):
+    select: "Select"
+
+
+@dataclass(frozen=True)
+class Case(Node):
+    whens: tuple[tuple[Node, Node], ...]
+    otherwise: Optional[Node]
+
+
+@dataclass(frozen=True)
+class Cast(Node):
+    arg: Node
+    to: str  # type name
+    precision: int | None = None
+    scale: int | None = None
+
+
+@dataclass(frozen=True)
+class Extract(Node):
+    part: str  # year | month | day
+    arg: Node
+
+
+@dataclass(frozen=True)
+class IsNull(Node):
+    arg: Node
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class SelectItem(Node):
+    expr: Node
+    alias: Optional[str]
+
+
+@dataclass(frozen=True)
+class TableRef(Node):
+    name: str
+    alias: Optional[str]
+
+
+@dataclass(frozen=True)
+class SubqueryRef(Node):
+    select: "Select"
+    alias: str
+
+
+@dataclass(frozen=True)
+class Join(Node):
+    left: Node
+    right: Node
+    kind: str  # inner | left
+    on: Optional[Node]
+
+
+@dataclass(frozen=True)
+class OrderItem(Node):
+    expr: Node
+    desc: bool
+
+
+@dataclass(frozen=True)
+class ColumnDef(Node):
+    name: str
+    type_name: str  # normalized lowercase
+    precision: int | None = None
+    scale: int | None = None
+    primary_key: bool = False
+    not_null: bool = False
+
+
+@dataclass(frozen=True)
+class CreateTable(Node):
+    name: str
+    columns: tuple[ColumnDef, ...]
+
+
+@dataclass(frozen=True)
+class AlterTable(Node):
+    """ALTER TABLE <name> ADD COLUMN <def> [DEFAULT <lit>] | DROP COLUMN
+    <col>. Reference grammar: sql.y alter_table_cmd."""
+
+    name: str
+    action: str  # "add" | "drop"
+    column: ColumnDef | None = None  # add
+    default: Node | None = None  # add: DEFAULT expression
+    drop_name: str | None = None  # drop
+
+
+@dataclass(frozen=True)
+class CreateIndex(Node):
+    """CREATE INDEX <name> ON <table> (<col>). Reference grammar: sql.y
+    create_index_stmt (reduced: one column, no STORING/UNIQUE/partial)."""
+
+    name: str
+    table: str
+    col: str
+
+
+@dataclass(frozen=True)
+class DropIndex(Node):
+    """DROP INDEX <table>@<name> | DROP INDEX <name> ON <table>."""
+
+    name: str
+    table: str
+
+
+@dataclass(frozen=True)
+class Insert(Node):
+    table: str
+    columns: tuple[str, ...] | None  # None = all, in schema order
+    rows: tuple[tuple[Node, ...], ...]  # VALUES literal rows
+    select: Optional["Select"] = None  # INSERT INTO ... SELECT
+
+
+@dataclass(frozen=True)
+class Update(Node):
+    table: str
+    sets: tuple[tuple[str, Node], ...]
+    where: Optional[Node]
+
+
+@dataclass(frozen=True)
+class Delete(Node):
+    table: str
+    where: Optional[Node]
+
+
+@dataclass(frozen=True)
+class Select(Node):
+    items: tuple[SelectItem, ...]
+    from_: tuple[Node, ...]  # TableRef | SubqueryRef | Join
+    where: Optional[Node]
+    group_by: tuple[Node, ...]
+    having: Optional[Node]
+    order_by: tuple[OrderItem, ...]
+    limit: Optional[int]
+    offset: int = 0
+    distinct: bool = False
+    ctes: tuple[tuple[str, "Select"], ...] = ()  # WITH name AS (select)
+    # UNION [ALL] arms, left-associative: (is_all, select). ORDER BY /
+    # LIMIT on a Select that has set_ops apply to the WHOLE union (the
+    # parser hoists a trailing arm's order/limit up here).
+    set_ops: tuple[tuple[bool, "Select"], ...] = ()
+
+
+# ---------------------------------------------------------------------------
+# Parser
+
+
+class Parser:
+    def __init__(self, text: str):
+        self.toks = tokenize(text)
+        self.i = 0
+
+    # -- plumbing -----------------------------------------------------------
+
+    def peek(self, k: int = 0) -> Token:
+        return self.toks[min(self.i + k, len(self.toks) - 1)]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def at_kw(self, *kws: str) -> bool:
+        t = self.peek()
+        return t.kind == "kw" and t.value in kws
+
+    def eat_kw(self, *kws: str) -> bool:
+        if self.at_kw(*kws):
+            self.next()
+            return True
+        return False
+
+    def expect_kw(self, kw: str):
+        if not self.eat_kw(kw):
+            t = self.peek()
+            raise SyntaxError(f"expected {kw!r}, got {t.value!r} at {t.pos}")
+
+    def at_op(self, *ops: str) -> bool:
+        t = self.peek()
+        return t.kind == "op" and t.value in ops
+
+    def eat_op(self, *ops: str) -> bool:
+        if self.at_op(*ops):
+            self.next()
+            return True
+        return False
+
+    def expect_op(self, op: str):
+        if not self.eat_op(op):
+            t = self.peek()
+            raise SyntaxError(f"expected {op!r}, got {t.value!r} at {t.pos}")
+
+    # -- entry --------------------------------------------------------------
+
+    def parse_statement(self) -> Node:
+        """Statement entry: SELECT (incl. WITH) | CREATE TABLE | INSERT |
+        UPDATE | DELETE. Reference grammar: pkg/sql/parser/sql.y."""
+        if self.at_kw("create"):
+            if self.peek(1).value.lower() == "index":
+                s = self.parse_create_index()
+            else:
+                s = self.parse_create_table()
+        elif self.at_kw("drop"):
+            s = self.parse_drop_index()
+        elif self.at_kw("alter"):
+            s = self.parse_alter_table()
+        elif self.at_kw("insert"):
+            s = self.parse_insert()
+        elif self.at_kw("update"):
+            s = self.parse_update()
+        elif self.at_kw("delete"):
+            s = self.parse_delete()
+        else:
+            return self.parse()
+        self.eat_op(";")
+        if self.peek().kind != "eof":
+            t = self.peek()
+            raise SyntaxError(f"trailing input at {t.pos}: {t.value!r}")
+        return s
+
+    def parse_create_index(self) -> CreateIndex:
+        self.expect_kw("create")
+        self.expect_kw("index")
+        name = self.next().value
+        self.expect_kw("on")
+        table = self.next().value
+        self.expect_op("(")
+        col = self.next().value
+        self.expect_op(")")
+        return CreateIndex(name, table, col)
+
+    def parse_drop_index(self) -> DropIndex:
+        self.expect_kw("drop")
+        self.expect_kw("index")
+        first = self.next().value
+        if self.eat_op("@"):  # table@index (the CRDB spelling)
+            return DropIndex(self.next().value, first)
+        self.expect_kw("on")
+        return DropIndex(first, self.next().value)
+
+    def parse_create_table(self) -> CreateTable:
+        self.expect_kw("create")
+        self.expect_kw("table")
+        name = self.next().value
+        self.expect_op("(")
+        cols: list[ColumnDef] = []
+        while True:
+            if self.at_kw("primary"):  # table-level PRIMARY KEY (col)
+                self.next()
+                self.expect_kw("key")
+                self.expect_op("(")
+                pk = self.next().value
+                self.expect_op(")")
+                cols = [
+                    dataclasses.replace(c, primary_key=(c.name == pk))
+                    for c in cols
+                ]
+            else:
+                cname = self.next().value
+                tname = self.next().value.lower()
+                prec = scale = None
+                if self.eat_op("("):
+                    prec = int(self.next().value)
+                    if self.eat_op(","):
+                        scale = int(self.next().value)
+                    self.expect_op(")")
+                pkey = nnull = False
+                while True:
+                    if self.eat_kw("primary"):
+                        self.expect_kw("key")
+                        pkey = True
+                    elif self.eat_kw("not"):
+                        self.expect_kw("null")
+                        nnull = True
+                    else:
+                        break
+                cols.append(ColumnDef(cname, tname, prec, scale, pkey, nnull))
+            if not self.eat_op(","):
+                break
+        self.expect_op(")")
+        return CreateTable(name, tuple(cols))
+
+    def parse_alter_table(self) -> AlterTable:
+        self.expect_kw("alter")
+        self.expect_kw("table")
+        name = self.next().value
+        if self.eat_kw("add"):
+            self.eat_kw("column")  # COLUMN is optional, like Postgres
+            cname = self.next().value
+            tname = self.next().value.lower()
+            prec = scale = None
+            if self.eat_op("("):
+                prec = int(self.next().value)
+                if self.eat_op(","):
+                    scale = int(self.next().value)
+                self.expect_op(")")
+            default = None
+            nnull = False
+            while True:
+                if self.eat_kw("default"):
+                    default = self.parse_expr()
+                elif self.eat_kw("not"):
+                    self.expect_kw("null")
+                    nnull = True
+                else:
+                    break
+            col = ColumnDef(cname, tname, prec, scale, False, nnull)
+            return AlterTable(name, "add", column=col, default=default)
+        if self.eat_kw("drop"):
+            self.eat_kw("column")
+            return AlterTable(name, "drop", drop_name=self.next().value)
+        t = self.peek()
+        raise SyntaxError(
+            f"expected ADD or DROP at {t.pos}: {t.value!r}"
+        )
+
+    def parse_insert(self) -> Insert:
+        self.expect_kw("insert")
+        self.expect_kw("into")
+        table = self.next().value
+        columns = None
+        if self.eat_op("("):
+            columns = [self.next().value]
+            while self.eat_op(","):
+                columns.append(self.next().value)
+            self.expect_op(")")
+        if self.at_kw("select", "with"):
+            return Insert(table, tuple(columns) if columns else None, (),
+                          select=self.parse())
+        self.expect_kw("values")
+        rows = []
+        while True:
+            self.expect_op("(")
+            vals = [self.parse_expr()]
+            while self.eat_op(","):
+                vals.append(self.parse_expr())
+            self.expect_op(")")
+            rows.append(tuple(vals))
+            if not self.eat_op(","):
+                break
+        return Insert(table, tuple(columns) if columns else None,
+                      tuple(rows))
+
+    def parse_update(self) -> Update:
+        self.expect_kw("update")
+        table = self.next().value
+        self.expect_kw("set")
+        sets = []
+        while True:
+            col = self.next().value
+            self.expect_op("=")
+            sets.append((col, self.parse_expr()))
+            if not self.eat_op(","):
+                break
+        where = self.parse_expr() if self.eat_kw("where") else None
+        return Update(table, tuple(sets), where)
+
+    def parse_delete(self) -> Delete:
+        self.expect_kw("delete")
+        self.expect_kw("from")
+        table = self.next().value
+        where = self.parse_expr() if self.eat_kw("where") else None
+        return Delete(table, where)
+
+    def parse(self) -> Select:
+        ctes: list[tuple[str, Select]] = []
+        if self.eat_kw("with"):
+            while True:
+                name = self.next().value
+                self.expect_kw("as")
+                self.expect_op("(")
+                ctes.append((name, self.parse_select()))
+                self.expect_op(")")
+                if not self.eat_op(","):
+                    break
+        s = self.parse_select()
+        if ctes:
+            s = dataclasses.replace(s, ctes=tuple(ctes))
+        self.eat_op(";")
+        if self.peek().kind != "eof":
+            t = self.peek()
+            raise SyntaxError(f"trailing input at {t.pos}: {t.value!r}")
+        return s
+
+    def parse_select(self) -> Select:
+        """Set-operation chains with SQL precedence: INTERSECT binds
+        tighter than UNION/EXCEPT (both left-associative). A trailing
+        ORDER BY / LIMIT parsed into the LAST arm is hoisted to the chain
+        level (SQL: they order/limit the whole set operation)."""
+        return self._parse_setop_chain(
+            self._parse_intersect_chain, ("union", "except")
+        )
+
+    def _parse_intersect_chain(self) -> Select:
+        return self._parse_setop_chain(
+            self.parse_select_one, ("intersect",)
+        )
+
+    def _parse_setop_chain(self, sub, ops: tuple[str, ...]) -> Select:
+        s = sub()
+        arms: list[tuple] = []
+        while any(self.at_kw(o) for o in ops):
+            op = self.next().value
+            is_all = bool(self.eat_kw("all"))
+            if op != "union" and is_all:
+                raise SyntaxError(
+                    f"{op.upper()} ALL (bag semantics) is not supported"
+                )
+            arms.append((op, is_all, sub()))
+        if not arms:
+            return s
+        # only the LAST arm's trailing ORDER BY/LIMIT is the chain's;
+        # order/limit on any earlier arm needs parentheses (postgres
+        # rejects the unparenthesized form too — accepting it silently
+        # would truncate the whole chain to the first arm's LIMIT)
+        if s.order_by or s.limit is not None or s.offset:
+            raise SyntaxError(
+                "ORDER BY/LIMIT on a set-operation arm requires "
+                "parentheses; a trailing ORDER BY/LIMIT applies to "
+                "the whole chain"
+            )
+        order_by: tuple = ()
+        limit = None
+        offset = 0
+        last_op, last_all, last = arms[-1]
+        if last.order_by or last.limit is not None or last.offset:
+            order_by, limit, offset = last.order_by, last.limit, last.offset
+            arms[-1] = (last_op, last_all, dataclasses.replace(
+                last, order_by=(), limit=None, offset=0))
+        if s.set_ops:
+            # the first arm is itself a tighter chain (A intersect B
+            # union C): wrap it as a subquery so this level's set_ops
+            # don't clobber the inner ones — the binder recurses into
+            # the FROM subquery before folding this chain
+            s = Select(
+                items=(SelectItem(Star(), None),),
+                from_=(SubqueryRef(s, "__setop"),),
+                where=None, group_by=(), having=None, order_by=(),
+                limit=None,
+            )
+        return dataclasses.replace(
+            s, set_ops=tuple(arms), order_by=order_by, limit=limit,
+            offset=offset,
+        )
+
+    def parse_select_one(self) -> Select:
+        self.expect_kw("select")
+        distinct = bool(self.eat_kw("distinct"))
+        self.eat_kw("all")
+        items = [self.parse_select_item()]
+        while self.eat_op(","):
+            items.append(self.parse_select_item())
+        from_: list = []
+        if self.eat_kw("from"):  # FROM-less SELECT: one synthetic row
+            from_.append(self.parse_table_expr())
+            while self.eat_op(","):
+                from_.append(self.parse_table_expr())
+        where = self.parse_expr() if self.eat_kw("where") else None
+        group_by: list[Node] = []
+        if self.eat_kw("group"):
+            self.expect_kw("by")
+            group_by.append(self.parse_expr())
+            while self.eat_op(","):
+                group_by.append(self.parse_expr())
+        having = self.parse_expr() if self.eat_kw("having") else None
+        order_by: list[OrderItem] = []
+        if self.eat_kw("order"):
+            self.expect_kw("by")
+            order_by.append(self.parse_order_item())
+            while self.eat_op(","):
+                order_by.append(self.parse_order_item())
+        limit = None
+        offset = 0
+        if self.eat_kw("limit"):
+            limit = int(self.next().value)
+        if self.eat_kw("offset"):
+            offset = int(self.next().value)
+        return Select(
+            items=tuple(items), from_=tuple(from_), where=where,
+            group_by=tuple(group_by), having=having, order_by=tuple(order_by),
+            limit=limit, offset=offset, distinct=distinct,
+        )
+
+    def parse_select_item(self) -> SelectItem:
+        if self.at_op("*"):
+            self.next()
+            return SelectItem(Star(), None)
+        e = self.parse_expr()
+        alias = None
+        if self.eat_kw("as"):
+            alias = self.next().value
+        elif self.peek().kind == "name":
+            alias = self.next().value
+        return SelectItem(e, alias)
+
+    def parse_order_item(self) -> OrderItem:
+        e = self.parse_expr()
+        desc = False
+        if self.eat_kw("desc"):
+            desc = True
+        else:
+            self.eat_kw("asc")
+        return OrderItem(e, desc)
+
+    def parse_table_expr(self) -> Node:
+        left = self.parse_table_primary()
+        while True:
+            kind = None
+            if self.at_kw("join", "inner"):
+                self.eat_kw("inner")
+                self.expect_kw("join")
+                kind = "inner"
+            elif self.at_kw("left"):
+                self.next()
+                self.eat_kw("outer")
+                self.expect_kw("join")
+                kind = "left"
+            else:
+                return left
+            right = self.parse_table_primary()
+            on = None
+            if self.eat_kw("on"):
+                on = self.parse_expr()
+            left = Join(left, right, kind, on)
+
+    def parse_table_primary(self) -> Node:
+        if self.eat_op("("):
+            sub = self.parse_select()
+            self.expect_op(")")
+            self.eat_kw("as")
+            alias = self.next().value
+            return SubqueryRef(sub, alias)
+        name = self.next().value
+        # dotted names (crdb_internal.node_metrics): the qualified name is
+        # one catalog key — no schema resolution layer in this build
+        while self.eat_op("."):
+            name += "." + self.next().value
+        alias = None
+        if self.eat_kw("as"):
+            alias = self.next().value
+        elif self.peek().kind == "name":
+            alias = self.next().value
+        return TableRef(name, alias)
+
+    # -- expressions (precedence climbing) ----------------------------------
+
+    def parse_expr(self) -> Node:
+        return self.parse_or()
+
+    def parse_or(self) -> Node:
+        e = self.parse_and()
+        while self.eat_kw("or"):
+            e = Bin("or", e, self.parse_and())
+        return e
+
+    def parse_and(self) -> Node:
+        e = self.parse_not()
+        while self.eat_kw("and"):
+            e = Bin("and", e, self.parse_not())
+        return e
+
+    def parse_not(self) -> Node:
+        if self.eat_kw("not"):
+            return Not(self.parse_not())
+        return self.parse_predicate()
+
+    def parse_predicate(self) -> Node:
+        if self.at_kw("exists"):
+            self.next()
+            self.expect_op("(")
+            sub = self.parse_select()
+            self.expect_op(")")
+            return Exists(sub)
+        e = self.parse_additive()
+        negated = bool(self.eat_kw("not"))
+        if self.eat_kw("between"):
+            lo = self.parse_additive()
+            self.expect_kw("and")
+            hi = self.parse_additive()
+            return Between(e, lo, hi, negated)
+        if self.eat_kw("like") or self.eat_kw("ilike"):
+            ci = self.toks[self.i - 1].value == "ilike"
+            pat = self.next()
+            if pat.kind != "str":
+                raise SyntaxError("LIKE pattern must be a string literal")
+            return Like(e, pat.value, negated, ci)
+        if self.eat_kw("in"):
+            self.expect_op("(")
+            if self.at_kw("select"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                return InSelect(e, sub, negated)
+            items = [self.parse_expr()]
+            while self.eat_op(","):
+                items.append(self.parse_expr())
+            self.expect_op(")")
+            return InList(e, tuple(items), negated)
+        if negated:
+            raise SyntaxError("dangling NOT")
+        if self.eat_kw("is"):
+            neg = bool(self.eat_kw("not"))
+            if self.eat_kw("distinct"):
+                self.expect_kw("from")
+                return IsDistinct(e, self.parse_additive(), negated=neg)
+            self.expect_kw("null")
+            return IsNull(e, neg)
+        ops = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "=": "eq",
+               "<>": "ne", "!=": "ne"}
+        t = self.peek()
+        if t.kind == "op" and t.value in ops:
+            self.next()
+            # quantified comparison: = ANY/SOME (sub) is IN, <> ALL is
+            # NOT IN (the only two shapes with clean IN reductions)
+            if self.at_kw("any") or self.at_kw("some") or self.at_kw("all"):
+                q = self.next().value
+                self.expect_op("(")
+                sub = self.parse_select()
+                self.expect_op(")")
+                if ops[t.value] == "eq" and q in ("any", "some"):
+                    return InSelect(e, sub, False)
+                if ops[t.value] == "ne" and q == "all":
+                    return InSelect(e, sub, True)
+                raise SyntaxError(
+                    f"only = ANY(...) and <> ALL(...) quantified "
+                    f"comparisons are supported (got {t.value} {q})"
+                )
+            rhs = self.parse_additive()
+            return Cmp(ops[t.value], e, rhs)
+        return e
+
+    def parse_additive(self) -> Node:
+        e = self.parse_multiplicative()
+        while True:
+            if self.at_op("+", "-"):
+                op = self.next().value
+                e = Bin(op, e, self.parse_multiplicative())
+            elif self.at_op("||"):
+                self.next()
+                e = Bin("||", e, self.parse_multiplicative())
+            else:
+                return e
+
+    def parse_multiplicative(self) -> Node:
+        e = self.parse_unary()
+        while self.at_op("*", "/", "%"):
+            op = self.next().value
+            e = Bin(op, e, self.parse_unary())
+        return e
+
+    def parse_unary(self) -> Node:
+        if self.eat_op("-"):
+            return Bin("-", NumLit(0), self.parse_unary())
+        if self.eat_op("+"):
+            return self.parse_unary()
+        e = self.parse_primary()
+        while self.eat_op("::"):  # postgres cast: expr::type
+            to = self.next().value
+            prec = scale = None
+            if self.eat_op("("):  # (p[,s]) type parameters
+                prec = int(self.next().value)
+                if self.eat_op(","):
+                    scale = int(self.next().value)
+                self.expect_op(")")
+            e = Cast(e, to, prec, scale)
+        return e
+
+    def parse_primary(self) -> Node:
+        t = self.peek()
+        if t.kind == "num":
+            self.next()
+            v = float(t.value) if "." in t.value else int(t.value)
+            return NumLit(v)
+        if t.kind == "str":
+            self.next()
+            return StrLit(t.value)
+        if self.at_kw("null"):
+            self.next()
+            return NullLit()
+        if self.at_kw("true"):
+            self.next()
+            return NumLit(1)
+        if self.at_kw("false"):
+            self.next()
+            return NumLit(0)
+        if self.at_kw("date"):
+            self.next()
+            lit = self.next()
+            if lit.kind != "str":
+                raise SyntaxError("date literal must be a string")
+            return DateLit(lit.value)
+        if self.at_kw("interval"):
+            self.next()
+            n = self.next()
+            if n.kind == "str":
+                # postgres forms: INTERVAL '1 day' and INTERVAL '3' day
+                parts = n.value.split()
+                if len(parts) == 2:
+                    return IntervalLit(int(parts[0]),
+                                       parts[1].rstrip("s"))
+                if len(parts) == 1:
+                    unit = self.next().value.rstrip("s")
+                    return IntervalLit(int(parts[0]), unit)
+                raise SyntaxError(
+                    f"unsupported interval literal {n.value!r}"
+                )
+            unit = self.next().value.rstrip("s")
+            return IntervalLit(int(n.value), unit)
+        if self.at_kw("case"):
+            return self.parse_case()
+        if self.at_kw("cast"):
+            self.next()
+            self.expect_op("(")
+            arg = self.parse_expr()
+            self.expect_kw("as")
+            to = self.next().value
+            prec = scale = None
+            if self.eat_op("("):  # (p[,s]) type parameters
+                prec = int(self.next().value)
+                if self.eat_op(","):
+                    scale = int(self.next().value)
+                self.expect_op(")")
+            self.expect_op(")")
+            return Cast(arg, to, prec, scale)
+        if self.at_kw("extract"):
+            self.next()
+            self.expect_op("(")
+            part = self.next().value
+            self.expect_kw("from")
+            arg = self.parse_expr()
+            self.expect_op(")")
+            return Extract(part, arg)
+        if self.at_kw("substring"):
+            # both standard forms: substring(s FROM i FOR n) and the
+            # function-call shape substring(s, i, n)
+            self.next()
+            self.expect_op("(")
+            arg = self.parse_expr()
+            if self.eat_kw("from"):
+                start = int(self.next().value)
+                self.expect_kw("for")
+                ln = int(self.next().value)
+            else:
+                self.expect_op(",")
+                start = int(self.next().value)
+                self.expect_op(",")
+                ln = int(self.next().value)
+            self.expect_op(")")
+            return FuncCall("substring", (arg, NumLit(start), NumLit(ln)))
+        if self.eat_op("("):
+            if self.at_kw("select"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                return ScalarSubquery(sub)
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind == "name" or (t.kind == "kw"
+                                and t.value not in _STRUCTURAL_KW):
+            self.next()
+            name = t.value
+            if self.at_op("("):  # function call
+                self.next()
+                distinct = bool(self.eat_kw("distinct"))
+                args: list[Node] = []
+                if self.at_op("*"):
+                    self.next()
+                    args.append(Star())
+                elif not self.at_op(")"):
+                    args.append(self.parse_expr())
+                    while self.eat_op(","):
+                        args.append(self.parse_expr())
+                self.expect_op(")")
+                fc = FuncCall(name, tuple(args), distinct)
+                if self.eat_kw("filter"):
+                    # FILTER (WHERE p) desugars in place: agg(x) ->
+                    # agg(CASE WHEN p THEN x END); count(*) counts a CASE
+                    # over 1 — identical semantics, no new agg machinery
+                    self.expect_op("(")
+                    self.expect_kw("where")
+                    pred = self.parse_expr()
+                    self.expect_op(")")
+                    if distinct:
+                        raise SyntaxError(
+                            "FILTER with DISTINCT aggregates is not "
+                            "supported"
+                        )
+                    src = (NumLit(1) if not args
+                           or isinstance(args[0], Star) else args[0])
+                    guarded = Case(whens=((pred, src),), otherwise=None)
+                    fname = "count" if (not args
+                                        or isinstance(args[0], Star)
+                                        ) and name == "count" else name
+                    fc = FuncCall(fname, (guarded,) + tuple(args[1:]),
+                                  distinct)
+                if self.at_kw("over"):
+                    return self.parse_over(fc)
+                return fc
+            if self.eat_op("."):
+                col = self.next().value
+                return Ident(name, col)
+            return Ident(None, name)
+        raise SyntaxError(f"unexpected token {t.value!r} at {t.pos}")
+
+    def parse_over(self, fc: FuncCall) -> WindowCall:
+        """OVER (PARTITION BY ... ORDER BY ... [ROWS BETWEEN a AND b])."""
+        self.expect_kw("over")
+        self.expect_op("(")
+        parts: list[Node] = []
+        order: list[tuple[Node, bool]] = []
+        frame = None
+        has_frame = False
+        if self.eat_kw("partition"):
+            self.expect_kw("by")
+            parts.append(self.parse_expr())
+            while self.eat_op(","):
+                parts.append(self.parse_expr())
+        if self.eat_kw("order"):
+            self.expect_kw("by")
+            while True:
+                e = self.parse_expr()
+                desc = False
+                if self.eat_kw("desc"):
+                    desc = True
+                elif self.eat_kw("asc"):
+                    pass
+                order.append((e, desc))
+                if not self.eat_op(","):
+                    break
+        frame_kind = "rows"
+        exclude = "no_others"
+        if (self.eat_kw("rows") or self.eat_kw("range")
+                or self.eat_kw("groups")):
+            if self.toks[self.i - 1].value in ("range", "groups"):
+                frame_kind = self.toks[self.i - 1].value
+            has_frame = True
+            self.expect_kw("between")
+            frame = (self._frame_bound(preceding=True, kind=frame_kind),
+                     self._frame_bound(preceding=False, kind=frame_kind))
+            # BETWEEN's middle AND
+            if self.eat_kw("exclude"):
+                if self.eat_kw("no"):
+                    self.expect_kw("others")
+                elif self.eat_kw("current"):
+                    self.expect_kw("row")
+                    exclude = "current"
+                elif self.eat_kw("group"):
+                    exclude = "group"
+                else:
+                    self.expect_kw("ties")
+                    exclude = "ties"
+        self.expect_op(")")
+        return WindowCall(fc, tuple(parts), tuple(order), frame, has_frame,
+                          frame_kind, exclude)
+
+    def _frame_bound(self, preceding: bool, kind: str = "rows"):
+        """One ROWS/RANGE bound -> offset relative to the current row
+        (None = UNBOUNDED; ROWS counts rows, RANGE measures order-key
+        values and admits non-integer offsets). The leading bound consumes
+        the AND separator."""
+        if self.eat_kw("unbounded"):
+            # the start bound must say PRECEDING, the end bound FOLLOWING
+            self.expect_kw("preceding" if preceding else "following")
+            out = None
+        elif self.eat_kw("current"):
+            self.expect_kw("row")
+            out = 0
+        else:
+            t = self.next()
+            if t.kind != "num":
+                raise SyntaxError(
+                    f"expected a frame bound at {t.pos}: {t.value!r}"
+                )
+            n = float(t.value) if kind == "range" else int(t.value)
+            if isinstance(n, float) and n.is_integer():
+                n = int(n)
+            if self.eat_kw("preceding"):
+                out = n if preceding else -n
+            else:
+                self.expect_kw("following")
+                out = -n if preceding else n
+        if preceding:
+            self.expect_kw("and")
+        return out
+
+    def parse_case(self) -> Case:
+        self.expect_kw("case")
+        whens = []
+        while self.eat_kw("when"):
+            cond = self.parse_expr()
+            self.expect_kw("then")
+            val = self.parse_expr()
+            whens.append((cond, val))
+        otherwise = self.parse_expr() if self.eat_kw("else") else None
+        self.expect_kw("end")
+        return Case(tuple(whens), otherwise)
+
+
+def parse(text: str) -> Select:
+    return Parser(text).parse()
+
+
+def parse_statement(text: str) -> Node:
+    return Parser(text).parse_statement()

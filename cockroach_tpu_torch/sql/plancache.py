@@ -1,0 +1,735 @@
+"""Prepared-plan cache — the zero-recapture serving path (the level of the
+cache hierarchy above flow/dispatch.py's per-signature CUDA graphs).
+
+Reference shape: pkg/sql's query cache (plan_opt.go / querycache) keys
+memoized plans on statement + placeholder types + catalog descriptor
+versions, so the conn executor skips optbuild on repeat statements. Here
+the expensive phase is not optimization but the build->fuse->capture
+pipeline, so the cache holds the BUILT operator tree:
+
+- ``parameterize`` rewrites numeric literals in Filter predicates into
+  ``ex.Param`` slots, so a repeat statement with different literals maps
+  to the same structural plan; the values are rebound per execution as
+  function ARGUMENTS (ops/expr.param_scope), never captured anew.
+- ``plan_key`` derives a stable structural key from the parameterized
+  plan (frozen dataclasses all the way down). Anything it cannot key
+  byte-stably (runtime-filled dictionaries, unknown objects) raises
+  ``_Unkeyable`` and the statement simply is not cached — conservative
+  misses, never wrong hits.
+- Entries are LRU-bounded, by count (``sql.plan_cache.size``) and by
+  the device bytes they hold (``MAX_DEVICE_FRACTION`` of the card's
+  memory), and keyed on the catalog schema version + the settings
+  signature, so DDL (CREATE/DROP INDEX, ALTER) and tuning changes can
+  never serve a stale plan; the session's DDL handlers additionally
+  sweep dead-version entries out eagerly (``invalidate``). A dropped
+  entry's graphs leave the shared wrappers with it.
+- A per-entry lock serializes concurrent sessions through one entry:
+  operator trees hold mutable pull state, so two sessions never drive
+  the same tree at once (they queue; distinct statements run in
+  parallel).
+
+Execution-stats collection (EXPLAIN ANALYZE / the cluster setting)
+bypasses the cache: stats need a fresh per-operator tree, and cached
+trees deliberately skip the instrumented path.
+
+The port of ``cockroach_tpu.sql.plancache``. On the card a built tree's
+per-tile functions replay CUDA graphs (flow/dispatch.py), so the
+parameter values are 0-d tensors on the catalog's device, passed to
+those functions as arguments: each replay copies them into the graph's
+input buffers, and a rebind captures nothing new. The reference's
+on-disk compilation cache (``maybe_enable_compile_cache``, the
+``sql.compile_cache.*`` settings) has no counterpart: a CUDA graph has
+no persistent form. The reference's warm-menu accounting
+(``sql/warmmenu.py``) is not ported; serving-path hits are counted on
+the cache (``serving_hits``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import gc
+import threading
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..coldata.batch import Dictionary
+from ..coldata.types import Family
+from ..ops import expr as ex
+from ..plan import builder as plan_builder
+from ..plan import spec as S
+from ..utils import metric, settings, tracing
+
+# literal families rewritten into Param slots: everything whose device
+# representation is a plain numeric scalar. STRING stays literal (string
+# predicates lower to host-built CodeLookup tables — content-keyed), BOOL
+# stays literal (structural TRUE/FALSE branches), NULL stays literal (its
+# valid-mask shape differs from any bound value)
+_PARAM_FAMILIES = (Family.INT, Family.FLOAT, Family.DECIMAL, Family.DATE,
+                   Family.TIMESTAMP, Family.INTERVAL)
+
+
+class _Unkeyable(Exception):
+    """The plan holds an object with no stable structural key; the
+    statement runs uncached (conservative — a miss is always correct)."""
+
+
+class ParamStore:
+    """Positional parameter values for one cached plan, shared by every
+    operator the plan's builder created with ``params=``.
+
+    ``args()`` is re-read at each run's ``stream_parts`` fetch, so
+    rebinding values between runs flows into the replayed functions as
+    fresh arguments: 0-d tensors on `device`, whose dtypes are pinned per
+    slot at parameterize time, so no value change can make a new
+    signature (a new capture)."""
+
+    def __init__(self, types, device="cpu"):
+        self._types = tuple(types)
+        self._device = torch.device(device)
+        self._values: tuple | None = None
+
+    def set_values(self, values) -> None:
+        if len(values) != len(self._types):
+            raise ValueError(
+                f"expected {len(self._types)} parameter values, "
+                f"got {len(values)}")
+        out = []
+        for v, t in zip(values, self._types):
+            if t.family is Family.DECIMAL:
+                # the same host-side fixed-point scaling Const evaluation
+                # applies (ops/expr.py) — device kernels see scaled ints
+                v = int(round(float(v) * 10 ** t.scale))
+            v = np.asarray(v, dtype=t.dtype).item()
+            # a fill on the device, not a host-to-device copy
+            out.append(torch.full((), v, dtype=t.torch_dtype,
+                                  device=self._device))
+        self._values = tuple(out)
+
+    def args(self) -> tuple:
+        if self._values is None:
+            raise RuntimeError("ParamStore.args() before set_values()")
+        return self._values
+
+
+def parameterize(plan):
+    """Rewrite numeric Filter-predicate literals into Param slots.
+
+    Returns ``(pplan, values, types)``: the parameterized plan (shared
+    across every statement with the same shape), the extracted literal
+    values in slot order, and their SQL types. Runs AFTER index
+    selection (plan/indexopt.py), so IndexScan lo/hi bounds stay
+    literal — different index bounds are different plans by design."""
+    values: list = []
+    types: list = []
+
+    def walk_expr(e):
+        if isinstance(e, ex.Const):
+            if (e.value is not None
+                    and e.type.family in _PARAM_FAMILIES
+                    and not isinstance(e.value, (tuple, list, np.ndarray))):
+                p = ex.Param(len(values), e.type)
+                values.append(e.value)
+                types.append(e.type)
+                return p
+            return e
+        if isinstance(e, ex.CodeLookup) or not isinstance(e, ex.Expr):
+            return e
+        if isinstance(e, ex.Func2) and e.func == "round2":
+            # round2's digit count is read with .value at build time
+            # ("binder guarantees a literal") — it must stay a Const
+            left = walk_expr(e.left)
+            return (e if left is e.left
+                    else dataclasses.replace(e, left=left))
+        changes = {}
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            nv = walk_field(v)
+            if nv is not v:
+                changes[f.name] = nv
+        return dataclasses.replace(e, **changes) if changes else e
+
+    def walk_field(v):
+        if isinstance(v, ex.Expr):
+            return walk_expr(v)
+        if isinstance(v, tuple):
+            nv = tuple(walk_field(i) for i in v)
+            return nv if any(a is not b for a, b in zip(nv, v)) else v
+        return v
+
+    def walk_plan(n):
+        if not dataclasses.is_dataclass(n):
+            return n
+        changes = {}
+        for f in dataclasses.fields(n):
+            v = getattr(n, f.name)
+            if isinstance(n, S.Filter) and f.name == "predicate":
+                nv = walk_expr(v)
+            elif isinstance(v, S.PlanNode):
+                nv = walk_plan(v)
+            elif (isinstance(v, tuple) and v
+                    and isinstance(v[0], S.PlanNode)):
+                nv = tuple(walk_plan(i) for i in v)
+                if not any(a is not b for a, b in zip(nv, v)):
+                    nv = v
+            else:
+                nv = v
+            if nv is not v:
+                changes[f.name] = nv
+        return dataclasses.replace(n, **changes) if changes else n
+
+    return walk_plan(plan), tuple(values), tuple(types)
+
+
+def plan_key(pplan):
+    """Stable structural key of a (parameterized) plan tree. Raises
+    ``_Unkeyable`` for objects without byte-stable content."""
+    return _key_of(pplan)
+
+
+def _key_of(x):
+    if x is None or isinstance(x, (bool, int, float, str, bytes)):
+        return x
+    if isinstance(x, enum.Enum):
+        return ("enum", type(x).__name__, x.name)
+    if isinstance(x, np.generic):
+        return ("np", str(x.dtype), x.item())
+    if isinstance(x, np.ndarray):
+        return ("nd", str(x.dtype), x.shape, x.tobytes())
+    if isinstance(x, ex.CodeLookup):
+        # eq=False dataclass (identity semantics for kernel keys); the plan
+        # key compares the host table's CONTENT so two binds of the same
+        # string predicate share an entry
+        t = np.asarray(x.table)
+        return ("codelookup", x.col, _key_of(x.out_type), str(t.dtype),
+                t.shape, t.tobytes())
+    if isinstance(x, Dictionary):
+        if getattr(x, "_runtime", False):
+            raise _Unkeyable("runtime-filled dictionary")
+        return ("dict", tuple(str(v) for v in x.values))
+    if isinstance(x, (tuple, list)):
+        return ("seq", tuple(_key_of(i) for i in x))
+    if dataclasses.is_dataclass(x):
+        return ((type(x).__name__,)
+                + tuple(_key_of(getattr(x, f.name))
+                        for f in dataclasses.fields(x)))
+    raise _Unkeyable(type(x).__name__)
+
+
+def _table_names(plan) -> list[str]:
+    names: set[str] = set()
+
+    def walk(n):
+        if isinstance(n, (S.TableScan, S.IndexScan)):
+            names.add(n.table)
+        for f in ("input", "probe", "build"):
+            c = getattr(n, f, None)
+            if c is not None:
+                walk(c)
+        for c in getattr(n, "inputs", ()) or ():
+            walk(c)
+
+    walk(plan)
+    return sorted(names)
+
+
+def _dict_gen(catalog, plan) -> tuple:
+    """Per-table string-dictionary generations (column -> value count).
+    Built operators capture dictionary SNAPSHOTS (flow/operators.py
+    _wire_source_metadata), so an INSERT that mints a new string value
+    must re-key the plan — decoding through the stale snapshot would
+    mislabel the new codes. Row-count changes alone keep hitting."""
+    return _dict_gen_for(catalog, _table_names(plan))
+
+
+def _dict_gen_for(catalog, names) -> tuple:
+    out = []
+    for name in names:
+        t = catalog.tables.get(name)
+        if t is None:
+            continue
+        d = t.dictionaries  # KVTable property returns fresh snapshots
+        out.append((name, tuple(sorted(
+            (c, len(dd.values)) for c, dd in d.items()))))
+    return tuple(out)
+
+
+def _settings_sig() -> tuple:
+    """Current values of every registered setting. Conservative: ANY
+    settings change re-keys the cache (a stale tile size or fusion mode
+    must never serve), at the cost of misses on unrelated toggles."""
+    reg = settings.all_settings()
+    return tuple((n, str(reg[n].get())) for n in sorted(reg))
+
+
+# the share of the card's memory the cached plans may hold (each entry's
+# spools, graph buffers and build-side tables, as its runs left them
+# allocated): the rest is the working memory of the query that runs
+MAX_DEVICE_FRACTION = 0.5
+
+
+def _device_bytes(device) -> int:
+    """Bytes the caching allocator has handed out on `device` (0 off the
+    card, where a plan's buffers live in host memory)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory_allocated(device)
+
+
+def _device_capacity(device) -> int | None:
+    """The card's memory in bytes; None off the card (no byte bound)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+class _Entry:
+    __slots__ = ("root", "store", "version", "fingerprint", "lock", "hits",
+                 "bytes", "key", "graphs")
+
+    # the lock serializes the sessions that run this entry's tree, whose
+    # operators hold pull state; runs of different trees on one device
+    # are serialized below it, by flow/dispatch.exec_lock
+
+    def __init__(self, root, store, version, fingerprint, key=None):
+        self.root = root
+        self.store = store
+        self.version = version
+        self.fingerprint = fingerprint
+        self.key = key
+        self.lock = threading.Lock()
+        self.hits = 0
+        # device bytes the tree holds between runs: what its build and
+        # its runs left allocated, each measured under
+        # flow/dispatch.exec_lock (no other query runs meanwhile;
+        # concurrent KV writes may add their own allocations)
+        self.bytes = 0
+        # the graphs its runs captured (dispatch.recording_graphs):
+        # released with the entry, since shared wrappers keep them
+        self.graphs: list = []
+
+
+class PlanCache:
+    """Size-capped LRU of built plans, one per Catalog (``cache_for``).
+    ``hits``/``misses`` counters are per-cache (tests); the process
+    metrics (sql_plan_cache_*) aggregate across catalogs."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self._entries: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+        self._texts: OrderedDict = OrderedDict()  # fingerprint -> last text
+        self._memo: OrderedDict = OrderedDict()   # exact text -> (key, values)
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        # the entries' device bytes (``_Entry.bytes``), summed
+        self.bytes = 0
+        # hits on entries built from a statement text (the serving path)
+        self.serving_hits = 0
+
+    def note_serving_hit(self) -> None:
+        with self._lock:
+            self.serving_hits += 1
+
+    def lookup(self, key):
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                self.misses += 1
+                metric.PLAN_CACHE_MISSES.inc()
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            e.hits += 1
+            metric.PLAN_CACHE_HITS.inc()
+            return e
+
+    def peek(self, key):
+        with self._lock:
+            return self._entries.get(key)
+
+    def budget(self) -> int | None:
+        """Device bytes the entries may hold; None off the card."""
+        cap = _device_capacity(self.device)
+        if cap is None:
+            return None
+        return int(cap * MAX_DEVICE_FRACTION)
+
+    def insert(self, key, entry) -> "_Entry":
+        """Publish `entry`, then drop least recently used entries while the
+        cache is over its count or its byte budget (an entry over the
+        budget alone is dropped too: it ran, but is not kept). A session
+        that lost the race to publish has its own entry released."""
+        with self._lock:
+            cur = self._entries.get(key)
+            if cur is not None:
+                dropped = [entry]  # concurrent first executions: first wins
+            else:
+                entry.key = key
+                self._entries[key] = entry
+                self.bytes += entry.bytes
+                dropped = self._trim()
+                cur = entry
+        _release(dropped)
+        return cur
+
+    def account(self, entry, delta: int) -> None:
+        """A run of `entry` changed what it holds by `delta` bytes. An
+        entry dropped while it was looked up and run is released again
+        (its run may have captured graphs)."""
+        with self._lock:
+            new = max(0, entry.bytes + delta)
+            if self._entries.get(entry.key) is entry:
+                self.bytes += new - entry.bytes
+                self._entries.move_to_end(entry.key)
+                entry.bytes = new
+                dropped = self._trim()
+            else:
+                entry.bytes = new
+                dropped = [entry]
+        _release(dropped)
+
+    def _trim(self) -> list:
+        """Drop least recently used entries past the count or the byte
+        budget (caller holds the lock); returns them for ``_release``."""
+        cap = int(settings.get("sql.plan_cache.size"))
+        budget = self.budget()
+        out = []
+        while self._entries and (
+                len(self._entries) > cap
+                or (budget is not None and self.bytes > budget)):
+            out.append(self._drop(next(iter(self._entries))))
+        return out
+
+    def _drop(self, key) -> "_Entry":
+        e = self._entries.pop(key)
+        self.bytes -= e.bytes
+        self.evictions += 1
+        metric.PLAN_CACHE_EVICTIONS.inc()
+        return e
+
+    def invalidate(self, version: int) -> int:
+        """Eagerly drop entries built against a dead catalog version
+        (DDL). Version is part of the key, so stale entries could never
+        HIT again — this sweep just frees them immediately."""
+        with self._lock:
+            dead = [self._drop(k) for k, e in list(self._entries.items())
+                    if e.version != version]
+            self._memo.clear()
+        _release(dead)
+        return len(dead)
+
+    def clear(self) -> None:
+        with self._lock:
+            dropped = list(self._entries.values())
+            self._entries.clear()
+            self._memo.clear()
+            self.bytes = 0
+        _release(dropped)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    # -- exact-text memo (skips parse/bind/optimize on verbatim repeats) --
+
+    _MEMO_CAP = 512
+
+    def memo_get(self, text):
+        with self._lock:
+            v = self._memo.get(text)
+            if v is not None:
+                self._memo.move_to_end(text)
+            return v
+
+    def memo_put(self, text, key, values, tables) -> None:
+        with self._lock:
+            self._memo[text] = (key, values, tables)
+            self._memo.move_to_end(text)
+            while len(self._memo) > self._MEMO_CAP:
+                self._memo.popitem(last=False)
+
+    # -- warmup bookkeeping ----------------------------------------------
+
+    _TEXT_CAP = 256
+
+    def note_text(self, fingerprint: str, text: str) -> None:
+        with self._lock:
+            self._texts[fingerprint] = text
+            self._texts.move_to_end(fingerprint)
+            while len(self._texts) > self._TEXT_CAP:
+                self._texts.popitem(last=False)
+
+    def hot_texts(self, limit: int = 32) -> list[str]:
+        """Recorded statement texts for the hottest fingerprints, by the
+        sqlstats execution counts (sql/sqlstats.py)."""
+        from . import sqlstats
+
+        with self._lock:
+            texts = dict(self._texts)
+        counts = {s.fingerprint: s.count for s in sqlstats.DEFAULT.all()}
+        order = sorted(texts, key=lambda fp: -counts.get(fp, 0))
+        return [texts[fp] for fp in order[:limit]]
+
+
+def cache_for(catalog) -> PlanCache:
+    pc = getattr(catalog, "_plan_cache", None)
+    if pc is None:
+        pc = catalog._plan_cache = PlanCache(catalog.device)
+    return pc
+
+
+def _release(entries) -> None:
+    """Free what dropped entries hold on the device: their graphs leave
+    the shared wrappers, and a collection frees their trees (operator
+    trees hold reference cycles), both while no query runs."""
+    entries = [e for e in entries if e.graphs or e.bytes]
+    if not entries:
+        return
+    from ..flow import dispatch
+
+    with dispatch.exec_lock():
+        for e in entries:
+            dispatch.release_graphs(e.graphs)
+        gc.collect()
+
+
+def _run_entry(cache, entry, values, label: str):
+    """Run a built entry with `values` bound: its lock, then the device
+    (flow/dispatch.exec_lock) for the run and the count of the bytes it
+    left allocated, which the entry (and `cache`, if it holds the entry)
+    is charged."""
+    from ..flow import dispatch, runtime
+
+    dev = entry.store._device
+    with entry.lock, dispatch.exec_lock(), \
+            dispatch.recording_graphs(entry.graphs):
+        b0 = _device_bytes(dev)
+        entry.store.set_values(values)
+        with tracing.leaf_span("query", cache=label):
+            res = runtime.run_operator(entry.root)
+        delta = _device_bytes(dev) - b0
+    if cache is None:
+        entry.bytes = max(0, entry.bytes + delta)
+    else:
+        cache.account(entry, delta)
+    return res
+
+
+# -- the serving path --------------------------------------------------------
+
+
+def _cacheable() -> bool:
+    return settings.get("sql.plan_cache.enabled")
+
+
+_VOLATILE = ("now(", "current_date", "current_timestamp")
+
+
+def _is_virtual_plan(plan) -> bool:
+    from . import crdb_internal
+
+    return any(crdb_internal.is_virtual(n) for n in _table_names(plan))
+
+
+def run_cached_ex(rel, text: str | None = None):
+    """Execute a bound Rel through the plan cache.
+
+    Returns ``(results, status, fingerprint)`` with status one of ``hit``
+    (literals rebound into a cached tree, zero new builds), ``miss``
+    (built fresh and cached), ``uncacheable`` (no stable key), ``bypass``
+    (cache off, stats collection on, or crdb_internal virtual tables —
+    those materialize fresh per statement, so a cached plan would freeze
+    a snapshot). ``fingerprint`` is the serving entry's structural
+    fingerprint (the first text that built it — sqlstats uses it so
+    literal variants collapse to one row), or '' when no entry served."""
+    from ..flow import dispatch, runtime
+
+    if not _cacheable():
+        return rel.run(), "bypass", ""
+    cache = cache_for(rel.catalog)
+    plan = rel.optimized_plan()
+    if _is_virtual_plan(plan):
+        return runtime.run_plan(plan, rel.catalog), "bypass", ""
+    try:
+        with tracing.leaf_span("sql.plancache.lookup"):
+            pplan, values, types = parameterize(plan)
+            key = (plan_key(pplan), rel.catalog.version, _settings_sig(),
+                   _dict_gen(rel.catalog, pplan))
+            entry = cache.lookup(key)
+    except _Unkeyable:
+        return runtime.run_plan(plan, rel.catalog), "uncacheable", ""
+    status = "hit"
+    if entry is None:
+        status = "miss"
+        dev = rel.catalog.device
+        # run BEFORE publishing: a plan whose first execution fails never
+        # enters the cache (concurrent first executions may both build;
+        # insert keeps whichever published first). The build holds the
+        # device too, so what it leaves allocated is the entry's
+        with dispatch.exec_lock():
+            b0 = _device_bytes(dev)
+            store = ParamStore(types, dev)
+            root = plan_builder.build(pplan, rel.catalog, params=store)
+            entry = _Entry(root, store, rel.catalog.version,
+                           _fingerprint(text))
+            entry.bytes = max(0, _device_bytes(dev) - b0)
+            try:
+                res = _run_entry(None, entry, values, "miss")
+            except BaseException:
+                _release([entry])
+                raise
+        entry = cache.insert(key, entry)
+    else:
+        res = _run_entry(cache, entry, values, "hit")
+        if entry.fingerprint:
+            cache.note_serving_hit()
+    if text is not None:
+        if entry.fingerprint:
+            cache.note_text(entry.fingerprint, text)
+        low = text.lower()
+        if not any(tok in low for tok in _VOLATILE):
+            # verbatim repeats can skip parse/bind next time; statements
+            # with per-bind folded volatiles (now()) must re-bind
+            cache.memo_put(text, key, values, tuple(_table_names(pplan)))
+    return res, status, entry.fingerprint
+
+
+def run_memoized_ex(catalog, text: str):
+    """Exact-text fast path: if this verbatim statement ran before and
+    its entry is still live (same catalog version + settings), execute it
+    without parsing or binding. Returns (results, entry fingerprint) or
+    None (fall through to the normal path)."""
+    if not _cacheable():
+        return None
+    cache = cache_for(catalog)
+    m = cache.memo_get(text)
+    if m is None:
+        return None
+    key, values, tables = m
+    # key embeds (version, settings sig, dict gens); ALL must still hold
+    # — the entry itself may still live under the old key, so a stale
+    # dictionary generation has to be rejected here, not left to lookup
+    if (key[1] != catalog.version or key[2] != _settings_sig()
+            or key[3] != _dict_gen_for(catalog, tables)):
+        return None
+    entry = cache.lookup(key)
+    if entry is None:
+        return None
+    if entry.fingerprint:
+        # the memo path is a plan-cache hit too
+        cache.note_serving_hit()
+    return _run_entry(cache, entry, values, "memo"), entry.fingerprint
+
+
+def probe(rel) -> str:
+    """Cache status a statement WOULD see, without executing — the
+    EXPLAIN ANALYZE "plan cache:" line (stats collection itself always
+    runs the instrumented fresh tree)."""
+    if not settings.get("sql.plan_cache.enabled"):
+        return "disabled"
+    if _is_virtual_plan(rel.optimized_plan()):
+        return "uncacheable"
+    try:
+        pplan, _, _ = parameterize(rel.optimized_plan())
+        key = (plan_key(pplan), rel.catalog.version, _settings_sig(),
+               _dict_gen(rel.catalog, pplan))
+    except _Unkeyable:
+        return "uncacheable"
+    hit = cache_for(rel.catalog).peek(key) is not None
+    return "hit" if hit else "miss"
+
+
+def _fingerprint(text: str | None) -> str:
+    if text is None:
+        return ""
+    from . import sqlstats
+
+    return sqlstats.fingerprint(text)
+
+
+# -- background pre-warming --------------------------------------------------
+
+
+def start_warmup(session, statements=None) -> threading.Thread | None:
+    """Re-execute hot statements on a background session so their plans
+    and kernel specializations are compiled OFF the serving path (after
+    process start or a DDL invalidation). Gated on
+    ``sql.plan_cache.warmup.enabled``; returns the daemon thread (join it
+    in tests) or None when disabled / nothing to warm.
+
+    Replaying the hottest recorded statement texts warms every level at
+    once: the plan cache entry and each function's CUDA graph at its
+    current canonical tile shape (catalog.SHAPE_BUCKETS keeps that menu
+    small). On the card the warmup's runs take flow/dispatch.exec_lock
+    like any session's, so they never share a graph's buffers.
+
+    Lifecycle: the thread checks a stop event between statements and the
+    owning session joins it in ``close()`` (via :func:`stop_warmup`), so
+    a warmup racing server shutdown stops at the next statement boundary
+    instead of executing against a torn-down store — the no-leak census
+    asserts no ``plan-warmup`` thread survives teardown. Re-invalidation
+    (back-to-back DDL) stops the previous warmup before starting the
+    next, so at most one warmup thread exists per session."""
+    if not settings.get("sql.plan_cache.warmup.enabled"):
+        return None
+    texts = (list(statements) if statements is not None
+             else cache_for(session.catalog).hot_texts())
+    if not texts:
+        return None
+    from .session import Session
+
+    # one warmup per session: a DDL burst must not stack threads
+    stop_warmup(session)
+    # a PRIVATE session over the shared catalog/store: the warmup thread
+    # must never touch the serving session's transaction state
+    bg = Session(catalog=session.catalog, db=session.db, bootstrap=False,
+                 device=session.catalog.device)
+    stop = threading.Event()
+
+    def _run():
+        try:
+            for t in texts:
+                if stop.is_set():
+                    return
+                try:
+                    # twice: the first execution compiles; the second
+                    # settles adaptive capacities (join emission caps learn
+                    # from run 1 and re-specialize once), so the SERVING
+                    # repeat is pure dispatch — scripts/check_recompiles.py
+                    # holds it to zero
+                    bg.execute(t)
+                    if stop.is_set():
+                        return
+                    bg.execute(t)
+                except Exception:  # noqa: BLE001 — warmup is best-effort
+                    continue
+        finally:
+            bg.close()
+
+    th = threading.Thread(target=_run, name="plan-warmup", daemon=True)
+    session._warmup_stop = stop
+    session._warmup_thread = th
+    th.start()
+    return th
+
+
+def stop_warmup(session, timeout: float = 5.0) -> None:
+    """Signal and join the session's warmup thread (idempotent; no-op
+    when none is running). Called from Session.close() and before a new
+    warmup replaces a running one."""
+    th = getattr(session, "_warmup_thread", None)
+    if th is None:
+        return
+    stop = getattr(session, "_warmup_stop", None)
+    if stop is not None:
+        stop.set()
+    if th is not threading.current_thread():
+        th.join(timeout=timeout)
+    session._warmup_thread = None
+    session._warmup_stop = None

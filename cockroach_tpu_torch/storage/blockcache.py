@@ -257,6 +257,16 @@ class BlockCache:
                 "entries": len(self._entries),
             }
 
+    def describe(self) -> str:
+        """One-line summary for EXPLAIN ANALYZE."""
+        s = self.stats()
+        total = s["hits"] + s["misses"]
+        if total == 0:
+            return "cold (no lookups)"
+        return (f"{100.0 * s['hits'] / total:.1f}% hit rate "
+                f"({s['hits']}/{total} lookups), {s['entries']} windows, "
+                f"{s['bytes']} bytes")
+
 
 _NODE_CACHE: BlockCache | None = None
 _NODE_LOCK = threading.Lock()

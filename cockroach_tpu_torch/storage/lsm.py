@@ -596,7 +596,11 @@ class Engine:
 
     # -- flush / compaction -------------------------------------------------
 
+    @_locked
     def _mem_block(self) -> mvcc.KVBlock | None:
+        # under the mutex: a scan on another thread must not cache a block
+        # of a memtable that a flush is replacing, which the next flush
+        # would then land in place of the new memtable's writes
         if not len(self.mem):
             return None
         if self._mem_cache is not None and self._mem_cache[0] == len(self.mem):
@@ -801,6 +805,7 @@ class Engine:
 
     # -- read views ---------------------------------------------------------
 
+    @_locked
     def _runs_view(self) -> mvcc.KVBlock | None:
         """One sorted view over all runs, cached per generation."""
         if not self.runs:
@@ -817,9 +822,12 @@ class Engine:
         self._runs_view_cache = (self._gen, view)
         return view
 
+    @_locked
     def _merged_view(self) -> mvcc.KVBlock | None:
         """Sorted view over memtable + runs, cached per (generation,
-        memtable length)."""
+        memtable length). Held under the engine mutex, as the columnar
+        scans of concurrent sessions call it (the reference's is not;
+        ROADMAP Queue 3)."""
         rv = self._runs_view()
         mb = self._mem_block()
         if mb is None:

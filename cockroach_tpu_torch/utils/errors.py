@@ -1,5 +1,6 @@
 """Query error boundary — the colexecerror analog; the port of the part of
-``cockroach_tpu.utils.errors`` that the distributed runner needs.
+``cockroach_tpu.utils.errors`` that the distributed runner and SQL
+admission need.
 
 Reference: pkg/sql/colexecerror/error.go:45 CatchVectorizedRuntimeError
 converts engine panics into SQL errors at the flow boundary. Here the
@@ -53,3 +54,21 @@ def query_boundary(stage: str):
         return wrapped
 
     return deco
+
+
+class AdmissionRejectedError(Exception):
+    """A statement was refused admission: the wait queue at
+    admission.sql.max_queue_depth, the tenant's token bucket empty, the
+    node shedding this priority lane, or the queue-wait deadline run out.
+    SQLSTATE 53300 at the pgwire boundary; ``retry_after_s`` is the hint
+    clients back off by."""
+
+    def __init__(self, reason: str, retry_after_s: float = 0.0,
+                 tenant_id: int | None = None):
+        self.reason = reason
+        self.retry_after_s = retry_after_s
+        self.tenant_id = tenant_id
+        msg = f"admission rejected: {reason}"
+        if retry_after_s > 0:
+            msg += f" (retry after {retry_after_s:.3f}s)"
+        super().__init__(msg)

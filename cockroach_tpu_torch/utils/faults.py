@@ -1,5 +1,5 @@
-"""Fault-injection hooks at the storage engine's and the external
-operators' sites, with the reference's site names. Every hook is a no-op
+"""Fault-injection hooks at the storage engine's, the external
+operators' and SQL admission's sites, with the reference's site names. Every hook is a no-op
 until ``arm`` is called."""
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ SITES: dict[str, str] = {
     "storage.bloom.build": "bloom build crash or silent bit corruption",
     "flow.spill.partition_write": "host spill-partition write failure",
     "flow.spill.merge_probe": "oversized-partition merge-probe run failure",
+    "admission.bucket.refill": "tenant token-bucket refill failure",
+    "admission.grant.stall": "a queued admission grant stalls or is lost",
 }
 
 

@@ -1,5 +1,5 @@
 """Metrics — the counters, gauges and histograms the storage engine, the
-memory monitors and the external operators bump (names as in
+memory monitors, the external operators and the SQL front door bump (names as in
 ``cockroach_tpu.utils.metric``)."""
 
 from __future__ import annotations
@@ -58,6 +58,64 @@ class Histogram:
             self.sum += v
 
 
+class LabeledCounter:
+    """Counter family keyed by one label: a child Counter per observed
+    label value."""
+
+    def __init__(self, name: str, label: str):
+        self.name = name
+        self.label = label
+        self._children: dict[str, Counter] = {}
+        self._lock = threading.Lock()
+
+    def child(self, label_value) -> Counter:
+        key = str(label_value)
+        with self._lock:
+            c = self._children.get(key)
+            if c is None:
+                c = self._children[key] = Counter(self.name)
+            return c
+
+    def inc(self, label_value, delta: float = 1.0) -> None:
+        self.child(label_value).inc(delta)
+
+    def value(self, label_value) -> float:
+        return self.child(label_value).value
+
+    def items(self) -> list[tuple[str, float]]:
+        with self._lock:
+            return sorted((k, c.value) for k, c in self._children.items())
+
+
+class LabeledGauge:
+    """Gauge family keyed by one label: a child Gauge per observed label
+    value."""
+
+    def __init__(self, name: str, label: str):
+        self.name = name
+        self.label = label
+        self._children: dict[str, Gauge] = {}
+        self._lock = threading.Lock()
+
+    def child(self, label_value) -> Gauge:
+        key = str(label_value)
+        with self._lock:
+            g = self._children.get(key)
+            if g is None:
+                g = self._children[key] = Gauge(self.name)
+            return g
+
+    def set(self, label_value, v: float) -> None:
+        self.child(label_value).set(v)
+
+    def value(self, label_value) -> float:
+        return self.child(label_value).value
+
+    def items(self) -> list[tuple[str, float]]:
+        with self._lock:
+            return sorted((k, g.value) for k, g in self._children.items())
+
+
 ENGINE_FLUSHES = Counter("storage_flushes")
 ENGINE_COMPACTIONS = Counter("storage_compactions")
 ENGINE_INGESTS = Counter("storage_ingests")
@@ -100,3 +158,25 @@ CONTENTION_RECORD_ERRORS = Counter("contention_record_errors")
 DISK_WRITE_P99 = Gauge("storage_disk_write_p99_ms")
 DISK_SLOW = Gauge("storage_disk_slow")
 DISK_PROBES = Counter("storage_disk_probes")
+# the SQL front door: pgwire, the plan cache and admission
+PG_CONNS = Counter("pgwire_conns")
+PLAN_CACHE_HITS = Counter("sql_plan_cache_hits")
+PLAN_CACHE_MISSES = Counter("sql_plan_cache_misses")
+PLAN_CACHE_EVICTIONS = Counter("sql_plan_cache_evictions")
+ADMISSION_SQL_SLOTS = Gauge("admission_sql_slots")
+ADMISSION_SQL_SLOTS_IN_USE = Gauge("admission_sql_slots_in_use")
+ADMISSION_SQL_QUEUE_DEPTH = Gauge("admission_sql_queue_depth")
+ADMISSION_WAIT_SECONDS = Histogram(
+    "admission_wait_seconds",
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5,
+             10, 60))
+ADMISSION_SQL_TIMEOUTS = Counter("admission_sql_timeouts")
+# the wait of each query for the device (flow/dispatch.exec_lock)
+EXEC_LOCK_WAIT_SECONDS = Histogram(
+    "sql_exec_lock_wait_seconds",
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5,
+             10, 60))
+ADMISSION_LANE_QUEUE_DEPTH = LabeledGauge("admission_lane_queue_depth",
+                                          "lane")
+ADMISSION_TENANT_TOKENS = LabeledGauge("admission_tenant_tokens", "tenant")
+ADMISSION_REJECTIONS = LabeledCounter("admission_rejections", "tenant")

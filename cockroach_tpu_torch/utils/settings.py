@@ -67,6 +67,37 @@ _DEFAULTS: dict[str, Any] = {
     "sql.distsql.join_compact_emit": True,
     # the root pull loop reads tile k back while tile k+1 is issued
     "sql.distsql.readback_overlap": True,
+    # multi-way join ordering of the binder: 'heuristic' (largest source
+    # first, then the smallest connected build) or 'cost' (left-deep DP)
+    "sql.opt.join_order": "heuristic",
+    # the prepared-plan cache (sql/plancache.py): repeat statements (same
+    # structure, any numeric literals) rebind into a cached operator tree
+    "sql.plan_cache.enabled": True,
+    "sql.plan_cache.size": 128,
+    # background re-execution of hot statements after DDL
+    "sql.plan_cache.warmup.enabled": False,
+    # node-level logical-byte budget of the root memory monitor (0 =
+    # unlimited; admission sheds by its pressure)
+    "sql.mem.root_budget_bytes": 0,
+    # SQL admission (utils/admission.py): every statement takes a slot of
+    # the shared WorkQueue; past max_queue_depth queued statements admit
+    # fails fast (SQLSTATE 53300), and queue_timeout_s bounds a wait
+    "admission.sql.enabled": True,
+    "admission.sql.slots": 64,
+    "admission.sql.max_queue_depth": 512,
+    "admission.sql.queue_timeout_s": 30.0,
+    # per-tenant token buckets (statements/s; 0 = unlimited) and capacity
+    "admission.tenant.rate": 0.0,
+    "admission.tenant.burst": 64,
+    # memory-pressure fractions past which the analytical lane, then
+    # NORMAL priority too, are shed
+    "admission.shed.mem_low": 0.90,
+    "admission.shed.mem_high": 0.97,
+}
+
+# enumerated string settings: the values each accepts
+_CHOICES: dict[str, tuple[str, ...]] = {
+    "sql.opt.join_order": ("heuristic", "cost"),
 }
 
 # the reference's bounds, (lo, hi), None = unbounded
@@ -85,6 +116,15 @@ _BOUNDS: dict[str, tuple] = {
     "sql.distsql.dense_lut_bits": (0, 30),
     "sql.distsql.dense_agg_states": (64, 1 << 28),
     "sql.distsql.max_fused_joins": (0, 64),
+    "sql.plan_cache.size": (1, 1 << 16),
+    "sql.mem.root_budget_bytes": (0, None),
+    "admission.sql.slots": (1, 1 << 16),
+    "admission.sql.max_queue_depth": (1, 1 << 20),
+    "admission.sql.queue_timeout_s": (0.001, 3600.0),
+    "admission.tenant.rate": (0.0, None),
+    "admission.tenant.burst": (1, None),
+    "admission.shed.mem_low": (0.0, 1.0),
+    "admission.shed.mem_high": (0.0, 1.0),
 }
 
 _values: dict[str, Any] = {}
@@ -99,6 +139,10 @@ def set(name: str, value) -> None:  # noqa: A001 - SQL SET semantics
     if isinstance(default, bool):
         if not isinstance(value, bool):
             raise TypeError(f"{name} wants bool, got {value!r}")
+    elif isinstance(default, str):
+        value = str(value)
+        if name in _CHOICES and value not in _CHOICES[name]:
+            raise ValueError(f"{name}: {value!r} not in {_CHOICES[name]}")
     else:
         value = type(default)(value)
         lo, hi = _BOUNDS.get(name, (None, None))
@@ -117,3 +161,24 @@ def reset(name: str | None = None) -> None:
         if name not in _DEFAULTS:
             raise KeyError(name)
         _values.pop(name, None)
+
+
+class Setting:
+    """One registered setting as ``SET CLUSTER SETTING`` sees it: its
+    name, kind (``bool``, ``int``, ``float`` or ``string``) and current
+    value."""
+
+    def __init__(self, name: str):
+        self.name = name
+        d = _DEFAULTS[name]
+        self.kind = ("bool" if isinstance(d, bool) else "int"
+                     if isinstance(d, int) else "float"
+                     if isinstance(d, float) else "string")
+
+    def get(self):
+        return get(self.name)
+
+
+def all_settings() -> dict[str, Setting]:
+    """Every registered setting by name."""
+    return {n: Setting(n) for n in _DEFAULTS}

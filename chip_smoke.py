@@ -2,7 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (``cockroach_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,tpch,...] [--verbose]
+        [--detail PATH]
+
+``--phases`` picks phases from PHASES (default all, in that order); the
+kernel builds, both kernels against their plain versions, the kernel
+table and the last line always run, and a phase makes what an unselected
+earlier one would have handed it (the SF1 catalog, the SF1 distributed
+runs). Each phase prints one summary line; ``--verbose``, or one
+selected phase, prints its full line, and ``--detail`` writes every full
+line to a file. The ``{"phases": ...}`` line gives each phase's seconds.
+The default run is held to TIME_BUDGET_S seconds and to OUTPUT_BUDGET
+bytes before the kernel table; it prints both figures.
 
 Builds both CUDA kernels from ``cockroach_tpu_torch/csrc`` at first use,
 holds each kernel against its plain PyTorch version on the card (exact
@@ -55,9 +66,29 @@ hand-built median; the 22 plans stay cached within the plan cache's
 byte budget (``plancache.MAX_DEVICE_FRACTION`` of the card); q6
 rebound with three literal sets captures no graph and equals the
 cache-off results; 4 connections at once run q1, q3, q18 and q6 (three
-literal sets) five times, each equal to one connection; ``run_mixed_load`` with 8 sessions for 10 s at SF1 reads
+literal sets) twice, each equal to one connection; ``run_mixed_load`` with 8 sessions for 3 s at SF1 reads
 back every acknowledged insert; the ``{"sql": ...}`` line
 (``sql_launches`` in the kernel table).
+
+The warm menu (``sql/warmmenu.py``), statement diagnostics
+(``sql/diagnostics.py``) and the rest of crdb_internal, after the SQL
+phase: a ``PgServer`` over a fresh copy of the SF1 host catalog warms its
+menu (the 22 TPC-H texts, q5 under the cost-based join order in a
+second build, and the ladder course) before it accepts a connection;
+each item's status, runs and captures and the plan cache's bytes within
+its budget, nothing evicted and no entry at 0 bytes; three serving runs
+of each text over the wire, none of a compiled item capturing a graph,
+each equal to the hand-built plan (q1, q3, q9, q18 to the oracle);
+EXPLAIN ANALYZE (DEBUG) of q3 naming its bundle; the four new
+crdb_internal tables; ``bench/warmup.run_warmup_ab`` at sf=0.05 (menu
+off and on, each in a process of its own: equal checksums, no serving
+compile with the menu); the ``{"menu": ...}`` line. TPC-C
+(``bench/tpcc.py``) after it: the load at the spec's cardinalities
+(TPCC_W warehouses), ``run_mix(txns=TPCC_TXNS)``, ``check_consistency``,
+tpmC, new-order p50/p99, retries, give-ups and the device lock's p99
+wait; a small run on the card and on the CPU with equal final tables;
+the ``{"tpcc": ...}`` line (``menu_launches`` and ``tpcc_launches`` in
+the kernel table).
 
 The SPMD plane (``plan/distribute.py``, ``parallel/``,
 ``Rel.run_distributed``): right after the SF1 phase, q3, q9 and q18 at
@@ -98,7 +129,7 @@ carries the SF1 phase's lineitem x orders merge join against the hash
 join (equal results, both timed). Result
 lines are compact JSON with floats to 4 significant digits, and the
 script prints its byte count before the kernel table: all of it has to
-fit in 24 KB, the output a remote run returns.
+fit in the 24 KB a remote run returns.
 
 The line before the last is ``{"kernels": [...]}``, the line before that
 the card's name and power limit; the last line is
@@ -125,17 +156,28 @@ from cockroach_tpu_torch.storage import cuda_merge, cuda_scan, mvcc
 from cockroach_tpu_torch.storage.keys import flip, key_words
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+# timed repeats after the cold and warm runs in the SF1, SF10, fusion,
+# KV and TPC-DS phases: cut from 5 to keep the default run within
+# TIME_BUDGET_S beside the menu and TPC-C phases (PERF.md lists the cuts)
+DEPTH_RUNS = 1
 K1_BYTES_PER_ROW = 16 + 8 + 8 + 1 + 1 + 2  # key, ts, txn, tomb, mask; 2 out
 K2_BYTES_PER_ROW = 16 + 8 + 8 + 1  # key, ts, seq, mask in
 K2_PERM_BYTES = 4
 
 
 _written = 0  # bytes of standard output so far
+OUTPUT_BUDGET = 20_000  # bytes before the kernel table, default run
+TIME_BUDGET_S = 1000.0  # seconds of the default run
+
+# set by main: print each phase's full result line (else its summary),
+# and a file that takes every full result line
+VERBOSE = False
+_detail = None
 
 
 def write_line(line: str) -> None:
     """One line of standard output, counted: everything the script prints
-    has to fit in 24 KB, the output a remote run returns."""
+    has to fit in the output a remote run returns."""
     global _written
     print(line, flush=True)
     _written += len(line.encode()) + 1
@@ -156,9 +198,15 @@ def _sig4(x):
     return x
 
 
-def emit(obj: dict) -> None:
-    """A compact JSON result line, floats to 4 significant digits."""
-    write_line(json.dumps(_sig4(obj), separators=(",", ":")))
+def emit(obj: dict, summary: dict | None = None) -> None:
+    """A compact JSON result line, floats to 4 significant digits: `obj`
+    under --verbose or when one phase runs, else its `summary`. `obj`
+    also goes to the --detail file, when one is named."""
+    if _detail is not None:
+        _detail.write(json.dumps(_sig4(obj), separators=(",", ":")) + "\n")
+        _detail.flush()
+    shown = obj if VERBOSE or summary is None else summary
+    write_line(json.dumps(_sig4(shown), separators=(",", ":")))
 
 
 # ---------------------------------------------------------------------------
@@ -520,41 +568,11 @@ def run_ycsb(card: str) -> dict:
     if checked < 128:
         raise AssertionError(f"only {checked} scans held against the oracle")
     log(f"YCSB-E: {checked} scans match the host oracle; launches {launches}")
-    emit({"ycsb_e": y, "wall_s": wall, "card": card, "launches": launches})
+    emit({"ycsb_e": y, "wall_s": wall, "card": card, "launches": launches},
+         {"ycsb_e": {k: y[k] for k in ("ops_per_sec", "rows_per_sec",
+                                       "load_s", "point_ops_per_sec")},
+          "wall_s": wall, "launches": launches})
     return launches
-
-
-def profile_ycsb() -> dict:
-    """A second YCSB-E run at the same configuration under torch.profiler:
-    the device's busy time (sum of kernel and copy durations on the card)
-    against the run's wall time, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from cockroach_tpu_torch.bench.ycsb import run_ycsb_e
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_ycsb_e(n_keys=1 << 20, ops=512, scan_len=64, concurrency=128,
-                   seed=0, device="cuda")
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us())
-    busy_us = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"wall_s": wall_us / 1e6,
-           "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
-           "device_idle_share": (1 - busy_us / wall_us) if busy_us
-           else "not measured",
-           "top_device_ms": {n[:40]: us / 1e3 for n, us in top[:4]}}
-    emit({"ycsb_e_profile": out})
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -987,7 +1005,7 @@ def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0):
     torch.cuda.reset_peak_memory_stats()
     cuda_scan.scan_filter.launches = 0
     cuda_merge.merge_perm.launches = 0
-    res = run_tpch(LADDER, sf=sf, seed=TPCH_SEED, runs=5,
+    res = run_tpch(LADDER, sf=sf, seed=TPCH_SEED, runs=DEPTH_RUNS,
                    device="cuda", catalog=cat)
     profiles = {}
     syncs = {}
@@ -1015,13 +1033,17 @@ def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0):
            "card_vs_cpu_sf0.01": True,
            "card_vs_cpu_sf0.05_22_rows": rows_sf005, "card": card}
     log(f"SF{sf:g} ladder equal to the oracle")
-    emit({"tpch": out})
+    emit({"tpch": out},
+         {"tpch": {"sf": sf, "gen_s": gen_s,
+                   "median_s": {q: res[q]["median_s"] for q in LADDER},
+                   "peak_device_bytes": out["peak_device_bytes"]}})
     tpch22 = {q: [rest[q]["cold_s"], rest[q]["warm_s"], rest[q]["rows"],
                   sum(rest[q]["host_syncs"].values())] for q in others}
     log(f"SF{sf:g} other {len(others)}: warm equal to cold")
     emit({"tpch22": {"columns": ["cold_s", "warm_s", "rows", "host_syncs"],
-                     **tpch22}, "card": card})
-    fusion[f"sf{sf:g}"] = fusion_compare(cat)
+                     **tpch22}, "card": card},
+         {"tpch22_warm_s": {q: v[1] for q, v in tpch22.items()}})
+    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     out["merge_join"] = merge_vs_hash(cat)
     out["ladder"] = res
@@ -1254,7 +1276,7 @@ def kv_index_phase(host, dev) -> dict:
 
 
 def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
-                 runs: int = 5, dev="cuda") -> tuple[dict, dict]:
+                 runs: int = DEPTH_RUNS, dev="cuda") -> tuple[dict, dict]:
     """SQL over the MVCC store on the card: the sf=0.01 parity run, then
     `host` (TPC-H at `sf`) bulk-loaded into one engine, bench.py's ladder over
     KV, RF1 and RF2 in transactions, the ladder again (held to the oracle
@@ -1310,13 +1332,17 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
                        "resident_bytes"],
            "k2_checked": [k2.pairs, k2.max_rows],
            "host_median_s": {q: host_ladder[q]["median_s"]
-                             for q in before},
+                             for q in before if q in host_ladder},
            "before": before, "ops_ms": ops_ms, "rf1": rf1, "rf2": rf2,
            "after": after,
            "index": index, "launches": launches, "card": card}
     log("TPC-H SF1 over KV: ladder == oracle before and after RF1/RF2; "
         "index lookups == full scan; checkpoint + WAL reopened")
-    emit({"tpch_kv": out})
+    emit({"tpch_kv": out},
+         {"tpch_kv": {"load_s": load["load_s"],
+                      "median_s_before": {q: v[0] for q, v in before.items()},
+                      "median_s_after": {q: v[0] for q, v in after.items()},
+                      "launches": launches}})
     return out, launches
 
 
@@ -1447,7 +1473,8 @@ def wire_ms(conn, text: str) -> tuple[float, dict]:
 
 
 def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
-                  duration_s: float = 10.0, sf: float = 1.0) -> dict:
+                  duration_s: float = 3.0, sf: float = 1.0,
+                  hand: dict | None = None) -> dict:
     """The SQL front door on the card over the SF1 host catalog: a
     PgServer on `dev`; one connection sends all 22 TPC-H texts (q5 under
     the cost-based join order, ``SQL_JOIN_ORDER``), each cold,
@@ -1457,7 +1484,7 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
     process, each plan's device bytes counted, all 22 kept within the
     plan cache's byte budget; q6 rebound with three literal sets captures no new graph and
     equals the cache-off result; 4 connections at once run q1, q3, q6
-    (three literal sets) and q18 five times each, equal to one
+    (three literal sets) and q18 twice each, equal to one
     connection; then the mixed serving load (bench/load.py) with
     `sessions` sessions for `duration_s` seconds, every acknowledged
     insert read back. Prints the ``{"sql": ...}`` line and returns it."""
@@ -1470,7 +1497,7 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
     from cockroach_tpu_torch.flow import dispatch
     from cockroach_tpu_torch.server.pgwire import PgServer
     from cockroach_tpu_torch.sql import parser as P
-    from cockroach_tpu_torch.sql import plancache
+    from cockroach_tpu_torch.sql import plancache, sqlstats
     from cockroach_tpu_torch.sql.binder import Binder
 
     t_phase = time.perf_counter()
@@ -1478,7 +1505,8 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
     srv = PgServer(catalog=cat, device=dev).serve_background()
     conn = PgClient(srv.addr)
     per_q = {}
-    hand = {}
+    hand = {} if hand is None else hand  # the hand-built results, by query
+    held = {}
     cache = plancache.cache_for(cat)
     entries0, evictions0 = len(cache), cache.evictions
     try:
@@ -1506,7 +1534,6 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
                     pb.append((time.perf_counter() - t0) * 1e3)
                 row = [statistics.median(pb)]
                 caps = []
-                b0 = cache.bytes
                 for variant in (text, text + " ", text + " "):
                     c0 = dispatch.captures()
                     ms, got = wire_ms(conn, variant)
@@ -1530,22 +1557,36 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
                 raise AssertionError(f"SQL {q}: the memo run captured "
                                      f"{caps[2]} graphs")
             row += caps[:2]
-            row.append(round((cache.bytes - b0) / 1e6))  # its entry's MB
+            fp = sqlstats.fingerprint(text)
+            held[q] = next((e.storages for e in cache.entries()
+                            if e.fingerprint == fp), {})
+            # what its entry holds, MB
+            row.append(round(sum(held[q].values()) / 1e6))
             if torch.device(dev).type == "cuda":
                 row.append(round(torch.cuda.memory_reserved() / 1e9))
             per_q[q] = row
         log("SQL: 22 texts over the wire == hand-built (cold, hit, memo), "
             "ladder == oracle, memo captured nothing")
-        # the 22 plans stay cached, within the cache's byte budget
+        # each of the 22 plans was cached, and the cache stays within its
+        # byte budget, evicting only when the plans' distinct bytes pass
+        # it: each storage once, as the cache counts it, from each entry
+        # as its query left it, before a later query evicted it (an
+        # address freed by an eviction and reused keys apart by its size)
+        distinct = {(p, n) for d in held.values() for p, n in d.items()}
         plans = {"entries": len(cache) - entries0,
                  "evictions": cache.evictions - evictions0,
-                 "bytes": cache.bytes, "budget": cache.budget()}
-        if (plans["entries"] != len(queries) or plans["evictions"]
-                or cache.bytes > (plans["budget"] or 0)):
+                 "bytes": cache.bytes, "budget": cache.budget(),
+                 "held_by_22": sum(n for _, n in distinct)}
+        budget = plans["budget"]  # None off the card: no byte bound
+        if (plans["entries"] + plans["evictions"] != len(queries)
+                or (budget is not None and cache.bytes > budget)
+                or (plans["evictions"] and (
+                    budget is None or plans["held_by_22"] <= budget))):
             raise AssertionError(f"the 22 plans not cached within the "
                                  f"budget: {plans}")
-        log(f"SQL: the 22 plans cached in {cache.bytes} device bytes, "
-            f"budget {plans['budget']}")
+        log(f"SQL: the 22 plans hold {plans['held_by_22']} device bytes, "
+            f"{cache.bytes} cached, budget {plans['budget']}, "
+            f"{plans['evictions']} evicted")
         # q6 rebound: one cache entry, no new capture after the first run
         entries0 = len(cache)
         q6 = {}
@@ -1574,7 +1615,7 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
         # 4 connections at once against one
         texts = [TPCH_SQL["q1"], TPCH_SQL["q3"], TPCH_SQL["q18"]] + [
             q6_text(TPCH_SQL["q6"], d, n) for d, n in Q6_LITERALS]
-        reps = 5
+        reps = 2
         single = [conn.query(t) for t in texts]
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1638,7 +1679,375 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
                "p99_point_ms", "p99_analytic_ms", "peak_bytes",
                "device_peak_bytes", "inserted_keys", "missing_inserts")},
            "phase_s": time.perf_counter() - t_phase, "card": card}
-    emit({"sql": out})
+    emit({"sql": out},
+         {"sql": {"warm_ms": {q: r[2] for q, r in per_q.items()},
+                  "plan_cache_gb": plans["bytes"] / 1e9,
+                  "q6_rebind_captures": out["q6_rebind_captures"],
+                  "load_ops_per_sec": load.get("ops_per_sec"),
+                  "p99_stmt_ms": load.get("p99_stmt_ms"),
+                  "phase_s": out["phase_s"]}})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The warm menu (sql/warmmenu.py), statement diagnostics (sql/diagnostics.py)
+# and the rest of crdb_internal, behind a PgServer
+
+MENU_BUDGET_S = 600.0  # the menu's wall budget here (the setting's default
+# is 30 s, less than the 22 texts' cold runs at SF1 take)
+NEW_VTABLES = ("crdb_internal.node_metrics",
+               "crdb_internal.node_inflight_trace_spans",
+               "crdb_internal.cluster_load",
+               "crdb_internal.node_warmup_menu")
+
+
+def _join_order(conn, q: str, reset: bool = False) -> None:
+    """q's join order (SQL_JOIN_ORDER) set over `conn`, or reset."""
+    order = SQL_JOIN_ORDER.get(q)
+    if order is not None:
+        conn.query("SET CLUSTER SETTING sql.opt.join_order = "
+                   f"'{'heuristic' if reset else order}'")
+
+
+def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
+                   hand: dict | None = None) -> dict:
+    """The warm menu on the card over a fresh copy of the SF1 host catalog
+    (no device columns, no cached plan, no shared graph: a server's cold
+    start): a PgServer with ``sql.warmup.menu.enabled`` builds its menu,
+    the 22 TPC-H texts as the explicit course, before it accepts a
+    connection; every item's status, runs and captures, and the cache's
+    bytes (what each entry holds) against its budget, none evicted and
+    none at 0 bytes; then over the wire three serving runs of each text,
+    each run's ms and new captures (0 for every compiled item) and its
+    result equal to the hand-built plan (q1, q3, q9, q18 also to the
+    oracle); EXPLAIN ANALYZE (DEBUG) of q3 and its bundle's sections; the
+    four new crdb_internal tables' row counts; then bench/warmup's cold
+    A/B at `warmup_sf` in two processes. q5 runs under the cost-based
+    join order (SQL_JOIN_ORDER; its default order cannot run at SF1,
+    ROADMAP Queue 3 item 17): its menu item carries that setting, and
+    it is first on the menu (its capture needs the most memory). Prints
+    the ``{"menu": ...}`` line."""
+    import gc
+
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench import tpch_oracle
+    from cockroach_tpu_torch.bench.tpch_sql import TPCH_SQL
+    from cockroach_tpu_torch.bench.warmup import run_warmup_ab
+    from cockroach_tpu_torch.flow import dispatch
+    from cockroach_tpu_torch.server.pgwire import PgServer
+    from cockroach_tpu_torch.sql import (diagnostics, plancache, sqlstats,
+                                         warmmenu)
+    from cockroach_tpu_torch.sql.session import Session
+    from cockroach_tpu_torch.utils import settings
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    # the earlier phases' plans and graphs go first
+    plancache.cache_for(cat).clear()
+    dispatch.clear_kernel_cache()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    fresh = host_twin(cat)
+    queries = sorted(TPCH_SQL, key=lambda q: int(q[1:]))
+    cache = plancache.cache_for(fresh)
+    warmmenu.reset()
+    settings.set("sql.warmup.menu.enabled", True)
+    settings.set("sql.warmup.menu.budget_s", MENU_BUDGET_S)
+    served: dict = {}
+    try:
+        t0 = time.perf_counter()
+        boot = Session(catalog=fresh, device=dev)
+        boot.close()
+        menu = [(TPCH_SQL[q], {"sql.opt.join_order": order})
+                for q, order in SQL_JOIN_ORDER.items()]
+        menu += [TPCH_SQL[q] for q in queries if q not in SQL_JOIN_ORDER]
+        srv = PgServer(catalog=fresh, db=boot.db, device=dev, menu=menu)
+        build_s = time.perf_counter() - t0
+        srv.serve_background()
+        rows = {r["fingerprint"]: r for r in warmmenu.menu_rows()}
+        item = {q: rows[sqlstats.fingerprint(TPCH_SQL[q])] for q in queries}
+        held = {e.fingerprint: e.bytes for e in cache.entries()}
+        log("menu items (status, runs, captures, MB held): " + json.dumps(
+            {q: [item[q]["status"][:4], item[q]["runs"],
+                 item[q]["captures"],
+                 round(held.get(item[q]["fingerprint"], 0) / 1e6)]
+             for q in queries}, separators=(",", ":")))
+        plans = {"entries": len(cache), "bytes": cache.bytes,
+                 "budget": cache.budget(), "evictions": cache.evictions,
+                 "entry_gb_max": max((e.bytes for e in cache.entries()),
+                                     default=0) / 1e9,
+                 "zero_byte_entries": sum(1 for e in cache.entries()
+                                          if e.bytes == 0)}
+        courses: dict = {}
+        for r in rows.values():
+            k = f"{r['source']}_{r['status']}"
+            courses[k] = courses.get(k, 0) + 1
+        log(f"menu: built in {build_s:.1f}s, items {courses}, cache "
+            f"{cache.bytes / 1e9:.2f} of {(plans['budget'] or 0) / 1e9:.2f}"
+            f" GB, {plans['zero_byte_entries']} entries at 0 bytes")
+        conn = PgClient(srv.addr)
+        try:
+            for q in queries:
+                runs = []
+                _join_order(conn, q)
+                try:
+                    for _ in range(3):
+                        c0 = (dispatch.captures() if on_card
+                              else dispatch.compiles())
+                        ms, got = wire_ms(conn, TPCH_SQL[q])
+                        c1 = (dispatch.captures() if on_card
+                              else dispatch.compiles())
+                        runs.append((ms, c1 - c0, got))
+                finally:
+                    _join_order(conn, q, reset=True)
+                served[q] = runs
+            explain = conn.query("EXPLAIN ANALYZE (DEBUG) " + TPCH_SQL["q3"])
+            last = explain["info"][-1]
+            if not last.startswith("diagnostics bundle: "):
+                raise AssertionError(f"EXPLAIN ANALYZE (DEBUG): {last}")
+            bundle_id = int(last.split(": ")[1])
+            bundle = diagnostics.get(bundle_id)
+            if bundle is None or bundle["trace"] is None:
+                raise AssertionError(f"bundle {bundle_id} missing its trace")
+            vtables = {}
+            for name in NEW_VTABLES:
+                got = conn.query(f"select * from {name}")
+                vtables[name.split(".")[1]] = len(next(iter(got.values())))
+        finally:
+            conn.close()
+            srv.close()
+        per_q = {}
+        bad = []
+        for q in queries:
+            # the SQL phase's hand-built results over the same tables, or
+            # made here after serving (cold wrappers while it served)
+            want = (hand[q] if hand and q in hand
+                    else Q.QUERIES[q](fresh).run())
+            oracle = tpch_oracle.ORACLES.get(q)
+            owant = oracle(fresh) if oracle is not None else None
+            eq = []
+            for _, _, got in served[q]:
+                ok = wire_mismatch(q, got, want) is None
+                if owant is not None:
+                    ok = ok and wire_mismatch(q, got, owant) is None
+                eq.append(ok)
+            r = item[q]
+            per_q[q] = [r["status"], r["runs"], r["captures"],
+                        round(r["seconds"], 3)] + [
+                x for ms, caps, _ in served[q] for x in (ms, caps)] + [
+                all(eq)]
+            if not all(eq):
+                bad.append(f"{q} != hand-built or oracle")
+            if r["status"] == "compiled" and any(
+                    caps for _, caps, _ in served[q]):
+                bad.append(f"{q} captured "
+                           f"{[c for _, c, _ in served[q]]} after the menu")
+        if plans["evictions"] or plans["zero_byte_entries"] or (
+                plans["budget"] is not None
+                and plans["bytes"] > plans["budget"]):
+            bad.append(f"plan cache after the menu: {plans}")
+        if bad:
+            raise AssertionError("menu: " + "; ".join(bad))
+    finally:
+        for name in ("sql.warmup.menu.enabled", "sql.warmup.menu.budget_s"):
+            settings.reset(name)
+    log("menu: 22 texts x 3 serving runs == hand-built (ladder == oracle), "
+        "no compiled item captured a graph while serving; EXPLAIN ANALYZE "
+        f"(DEBUG) bundle {bundle_id}; vtables {vtables}")
+    cache.clear()
+    del fresh
+    warm = run_warmup_ab(sf=warmup_sf, device=dev)
+    if not warm["menu_oracle_ok"] or warm["on"]["serving_compiles"]:
+        raise AssertionError(f"warmup A/B: checksums equal "
+                             f"{warm['menu_oracle_ok']}, on-mode serving "
+                             f"compiles {warm['on']['serving_compiles']}")
+    cold = {m: {k: warm[m].get(k) for k in (
+        "statements", "cold_s", "serving_compiles", "serving_captures",
+        "menu_build_s", "menu_kernels", "menu_hits")} for m in ("off", "on")}
+    log(f"warmup A/B sf={warmup_sf:g}: checksums equal, cold "
+        f"{cold['off']['cold_s']}s -> {cold['on']['cold_s']}s")
+    out = {"columns": ["status", "runs", "menu_captures", "menu_s",
+                       "ms1", "caps1", "ms2", "caps2", "ms3", "caps3",
+                       "equal"],
+           **per_q,
+           "join_order": SQL_JOIN_ORDER, "build_s": build_s,
+           "items": courses, "plan_cache": plans,
+           "warmup_cold": {**cold, "sf": warmup_sf,
+                           "cold_menu_speedup": warm["cold_menu_speedup"]},
+           "explain_debug": {"bundle": bundle_id,
+                             "sections": sorted(bundle)},
+           "vtables": vtables,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit({"menu": out},
+         {"menu": {"build_s": build_s, "items": courses,
+                   "cache_gb": plans["bytes"] / 1e9,
+                   "budget_gb": (plans["budget"] or 0) / 1e9,
+                   "serving_ms": {q: statistics.median(
+                       [ms for ms, _, _ in served[q]]) for q in queries},
+                   "serving_captures": sum(c for q in queries
+                                           for _, c, _ in served[q]),
+                   "cold_menu_speedup": warm["cold_menu_speedup"],
+                   "bundle": bundle_id, "vtables": vtables,
+                   "phase_s": out["phase_s"]}})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TPC-C (bench/tpcc.py) over the session's KV engine
+
+# roachtest's local repro configuration (pkg/cmd/roachtest/tests/
+# tpcc.go:1107-1157, BASELINE.md) runs 12 warehouses at the spec's
+# cardinalities. The load parses and encodes every row's SQL text on the
+# host, about 16 s a warehouse on the card's machine (96 s for 6), and
+# each transaction's time grows with the tables, so the default run's
+# time budget, not the load, sets W and the transaction count (PERF.md §4)
+TPCC_W = 5
+TPCC_SPEC = {"districts": 10, "customers": 3000, "items": 100_000}
+TPCC_TXNS = 100
+TPCC_SMALL = {"warehouses": 2, "districts": 4, "customers": 30,
+              "items": 1000}
+TPCC_SMALL_TXNS = 60
+TPCC_TABLES = {"warehouse": "w_id", "district": "d_pk", "customer": "c_pk",
+               "orders": "o_pk", "new_order": "no_pk",
+               "order_line": "ol_pk", "item": "i_id", "stock": "s_pk"}
+
+
+def tpcc_state(sess) -> dict:
+    """Every TPC-C table, ordered by its primary key."""
+    return {t: sess.execute(f"select * from {t} order by {pk}")
+            for t, pk in TPCC_TABLES.items()}
+
+
+def same_tables(a: dict, b: dict) -> str | None:
+    """None when two tpcc_state snapshots are equal row for row."""
+    for t in TPCC_TABLES:
+        if list(a[t]) != list(b[t]):
+            return f"{t}: columns {list(a[t])} != {list(b[t])}"
+        for c in a[t]:
+            if not np.array_equal(np.asarray(a[t][c]), np.asarray(b[t][c])):
+                return f"{t}.{c} differs"
+    return None
+
+
+def tpcc_load(sess, **sizes) -> tuple[float, float]:
+    """bench/tpcc.load with IO pacing off, as for a bulk import, then a
+    flush and a full compaction; returns the two parts' seconds."""
+    from cockroach_tpu_torch.bench import tpcc
+    from cockroach_tpu_torch.utils import settings
+
+    settings.set("admission.io_pacing.enabled", False)
+    try:
+        t0 = time.perf_counter()
+        tpcc.load(sess, **sizes)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sess.db.engine.flush()
+        sess.db.engine.compact(bottom=True)
+    finally:
+        settings.reset("admission.io_pacing.enabled")
+    return load_s, time.perf_counter() - t0
+
+
+def tpcc_small_state(device: str, threads: int | None = None) -> dict:
+    """The small TPC-C run on `device` (TPCC_SMALL loaded, TPCC_SMALL_TXNS
+    transactions at seed 0, the consistency checks); its final tables."""
+    from cockroach_tpu_torch.bench import tpcc
+    from cockroach_tpu_torch.sql import Session
+
+    if threads is not None:
+        torch.set_num_threads(threads)
+    s = Session(val_width=256, device=device)
+    try:
+        tpcc_load(s, **TPCC_SMALL)
+        tpcc.run_mix(s, txns=TPCC_SMALL_TXNS, seed=0, **TPCC_SMALL)
+        tpcc.check_consistency(s, warehouses=TPCC_SMALL["warehouses"],
+                               districts=TPCC_SMALL["districts"])
+        return tpcc_state(s)
+    finally:
+        s.close()
+
+
+def run_tpcc_phase(card: str, dev="cuda", warehouses: int = TPCC_W,
+                   txns: int = TPCC_TXNS) -> dict:
+    """TPC-C on the card through bench/tpcc.py: the load at the spec's
+    cardinalities with `warehouses` warehouses into one session's KV
+    engine (IO pacing off for the load, as for a bulk import; a flush
+    and a full compaction after it), ``run_mix(txns, seed=0)`` at the
+    spec's mix with each NewOrder call timed here, ``check_consistency``;
+    then a small run (TPCC_SMALL, TPCC_SMALL_TXNS transactions) on the
+    card and on the CPU, their final states equal row for row. The CPU's
+    small run goes in a process of its own on one thread, beside the
+    load. Prints the ``{"tpcc": ...}`` line."""
+    import concurrent.futures
+    import multiprocessing
+
+    from cockroach_tpu_torch.bench import tpcc
+    from cockroach_tpu_torch.bench.load import (_hist_snapshot,
+                                                hist_quantile_from_deltas)
+    from cockroach_tpu_torch.sql import Session
+    from cockroach_tpu_torch.utils import metric
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    on_cpu = pool.submit(tpcc_small_state, "cpu", 1)
+    sess = Session(val_width=256, device=dev)
+    load_s, compact_s = tpcc_load(sess, warehouses=warehouses, **TPCC_SPEC)
+    log(f"TPC-C W={warehouses}: loaded in {load_s:.1f}s, compacted in "
+        f"{compact_s:.1f}s")
+    no_ms: list = []
+    new_order = tpcc.new_order
+
+    def timed_new_order(*a, **k):
+        t = time.perf_counter()
+        try:
+            return new_order(*a, **k)
+        finally:
+            no_ms.append((time.perf_counter() - t) * 1e3)
+
+    hist = metric.EXEC_LOCK_WAIT_SECONDS
+    ex0, _ = _hist_snapshot(hist)
+    tpcc.new_order = timed_new_order
+    try:
+        mix = tpcc.run_mix(sess, txns=txns, warehouses=warehouses,
+                           seed=0, **TPCC_SPEC)
+    finally:
+        tpcc.new_order = new_order
+    ex1, _ = _hist_snapshot(hist)
+    t0 = time.perf_counter()
+    tpcc.check_consistency(sess, warehouses=warehouses,
+                           districts=TPCC_SPEC["districts"])
+    check_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    sess.close()
+    del sess
+    log(f"TPC-C W={warehouses}: {txns} transactions, consistency holds")
+    try:
+        card_state = tpcc_small_state(dev)
+        cpu_state = on_cpu.result(timeout=900)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    bad = same_tables(card_state, cpu_state)
+    if bad is not None:
+        raise AssertionError(f"TPC-C small run, card != CPU: {bad}")
+    log(f"TPC-C small run ({TPCC_SMALL_TXNS} txns): card == CPU, "
+        "row for row")
+    out = {"warehouses": warehouses, **TPCC_SPEC, "load_s": load_s,
+           "compact_s": compact_s, "txns": txns, "counts": mix["counts"],
+           "tpmC": mix["tpmC"], "mix_s": mix["elapsed_s"],
+           "new_order_p50_ms": float(np.percentile(no_ms, 50)),
+           "new_order_p99_ms": float(np.percentile(no_ms, 99)),
+           "retries": mix["retries"], "give_ups": mix["give_ups"],
+           "exec_lock_p99_ms": 1e3 * hist_quantile_from_deltas(
+               hist.buckets, ex0, ex1, 0.99),
+           "check_s": check_s, "device_peak_bytes": peak,
+           "small_card_eq_cpu": True,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit({"tpcc": out})
     return out
 
 
@@ -1747,7 +2156,7 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
     gen_rss = peak_rss_bytes()
     log(f"SF{sf:g} generated {gen_s:.1f}s")
     ladder = ("q3", "q9", "q18")
-    res = run_tpch(ladder, sf=sf, seed=TPCH_SEED, runs=5, device=dev,
+    res = run_tpch(ladder, sf=sf, seed=TPCH_SEED, runs=DEPTH_RUNS, device=dev,
                    catalog=cat)
     profiles = {}
     for q in ladder:
@@ -1789,8 +2198,11 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
            "phase_s": time.perf_counter() - t_phase, "card": card}
     log(f"SF{sf:g}: ladder equal to the oracle, forced spills equal the "
         f"default runs, {out['phase_s']:.0f}s")
-    emit({"tpch_sf10": out})
-    fusion[f"sf{sf:g}"] = fusion_compare(cat)
+    emit({"tpch_sf10": out},
+         {"tpch_sf10": {**{q: res[q]["median_s"] for q in ladder},
+                        **{q: ext[q]["warm_s"] for q in ("q7", "q21")},
+                        "gen_s": gen_s, "phase_s": out["phase_s"]}})
+    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS)
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     return out, cat
 
@@ -1883,7 +2295,7 @@ def check_distsql_parity(dev, sf: float = 0.01) -> dict:
 
 
 def dist_runs(cat, shards: int, single: dict, queries=DIST_QUERIES,
-              runs: int = 3, dev="cuda") -> dict:
+              runs: int = 1, dev="cuda") -> dict:
     """`queries` over `shards` shards (bench/tpch_dist.run_dist, every
     run held to the oracle), one more run of each profiled; compact rows
     of DIST_COLUMNS, the single-device median beside them."""
@@ -1904,21 +2316,26 @@ def dist_runs(cat, shards: int, single: dict, queries=DIST_QUERIES,
 
 
 def host_twin(cat):
-    """The catalog's host tables on a fresh catalog with no device columns:
-    the distributed path uploads its own shards from the host columns."""
+    """The catalog's host tables (not its KV tables) on a fresh catalog
+    with no device columns: the distributed path uploads its own shards
+    from the host columns, and the menu phase starts cold."""
     from cockroach_tpu_torch.catalog import Catalog, Table
 
     twin = Catalog(cat.device)
     for t in cat.tables.values():
+        if not isinstance(t, Table):
+            continue
         twin.add(Table(name=t.name, schema=t.schema, columns=t.columns,
                        valids=t.valids, dictionaries=t.dictionaries,
                        ordering=t.ordering))
     return twin
 
 
-def run_distsql_sf1(sf1, ladder: dict, dev="cuda") -> dict:
-    """At SF1, beside the ladder: q3, q9, q18 over 3 and 8 shards."""
-    single = {q: ladder[q]["median_s"] for q in DIST_QUERIES}
+def run_distsql_sf1(sf1, ladder: dict | None, dev="cuda") -> dict:
+    """At SF1, beside the ladder (when the tpch phase ran): q3, q9, q18
+    over 3 and 8 shards."""
+    single = ({} if ladder is None
+              else {q: ladder[q]["median_s"] for q in DIST_QUERIES})
     out = {f"{d}_shards": dist_runs(sf1, d, single, dev=dev)
            for d in (3, 8)}
     log("distsql SF1: q3 q9 q18 over 3 and 8 shards equal to the oracle")
@@ -1985,7 +2402,11 @@ def run_distsql_phase(card: str, parity: dict, sf1: dict, cat10,
            "phase_s": time.perf_counter() - t0, "card": card}
     log(f"distsql config #3: q3 q9 q18 over 3 shards at {scale} equal to "
         f"the oracle")
-    emit({"distsql": out})
+    col = DIST_COLUMNS.index("median_s")
+    emit({"distsql": out},
+         {"distsql": {"scale": scale,
+                      "median_s": {q: r[col] for q, r in rows.items()},
+                      "phase_s": out["phase_s"]}})
 
 
 # ---------------------------------------------------------------------------
@@ -2235,7 +2656,7 @@ def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
     CPU and unfused checks; the TPC-H catalogs freed and the host's RAM
     printed; SF10 generated (seed 19980401); the nine queries and the
     full-size sales_window timed through run_tpcds (cold, warm, median
-    of 5, every run equal to the numpy oracle) and profiled once; the
+    of DEPTH_RUNS, every run equal to the numpy oracle) and profiled once; the
     {"tpcds": ...} line, with `merge_join` (the SF1 merge join against
     the hash join)."""
     import gc
@@ -2264,7 +2685,7 @@ def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
     gen_s = time.perf_counter() - t0
     gen_rss = peak_rss_bytes()
     log(f"TPC-DS SF{sf:g} generated in {gen_s:.1f}s")
-    res = run_tpcds("all", sf=sf, runs=5, device=dev, catalog=cat,
+    res = run_tpcds("all", sf=sf, runs=DEPTH_RUNS, device=dev, catalog=cat,
                     window=True)
     table = {}
     for q in tuple(tpcds.QUERIES) + ("sales_window",):
@@ -2293,7 +2714,10 @@ def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
            "phase_s": time.perf_counter() - t_phase, "card": card}
     log(f"TPC-DS SF{sf:g}: 9 queries and sales_window equal to the oracle "
         f"in every run, {out['phase_s']:.0f}s")
-    emit({"tpcds": out})
+    col = TPCDS_COLUMNS.index("median_s")
+    emit({"tpcds": out},
+         {"tpcds": {"median_s": {q: r[col] for q, r in table.items()},
+                    "gen_s": gen_s, "phase_s": out["phase_s"]}})
     return out
 
 
@@ -2504,15 +2928,65 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def main() -> int:
+PHASES = ("kernels", "tpch", "distsql_sf1", "kv", "sql", "menu", "tpcc",
+          "sf10", "distsql", "tpcds", "ycsb", "parity")
+# phases whose storage-kernel launches the kernel table reports
+LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "sf10", "distsql",
+                 "tpcds")
+
+
+def parse_args(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma list of phases to run, in the script's order "
+             f"(default all: {','.join(PHASES)}); the kernel builds and "
+             "checks, the kernel table and the last line always run")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print each phase's full result line (the "
+                         "default when one phase is selected)")
+    ap.add_argument("--detail", metavar="PATH",
+                    help="also write every phase's full result line to "
+                         "PATH")
+    a = ap.parse_args(argv)
+    chosen = [p.strip() for p in a.phases.split(",") if p.strip()]
+    unknown = sorted(set(chosen) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
+    a.phases = set(chosen) | {"kernels"}
+    return a
+
+
+def _zero_launches() -> None:
+    cuda_scan.scan_filter.launches = 0
+    cuda_merge.merge_perm.launches = 0
+
+
+def _launches() -> dict:
+    return {"scan_filter": cuda_scan.scan_filter.launches,
+            "merge_path": cuda_merge.merge_perm.launches}
+
+
+def main(argv=None) -> int:
+    global VERBOSE, _detail
     faulthandler.enable()  # a crash in native code prints the Python stack
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    import gc
+
+    phases = args.phases
+    VERBOSE = args.verbose or len(phases) <= 2
+    if args.detail:
+        _detail = open(args.detail, "w", encoding="utf-8")
     dev = torch.device("cuda")
     card = card_line()
-    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda};"
+        f" phases {[p for p in PHASES if p in phases]}")
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"built {list(_build.SOURCES)} in {secs:.1f}s")
@@ -2527,64 +3001,108 @@ def main() -> int:
     # timed and profiled before the YCSB phases: a torch.profiler session
     # after the long profiled run records no device events on the card
     kernels = time_kernels(dev, errs)
+    seconds = {"kernels": time.perf_counter() - t0}
+    st: dict = {}
+    launches: dict = {}
     fusion: dict = {}
-    tpch, sf1 = run_tpch_phase(card, fusion)
-    cuda_scan.scan_filter.launches = 0
-    cuda_merge.merge_perm.launches = 0
-    dist_sf1 = run_distsql_sf1(sf1, tpch["ladder"])
-    dist_launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                     "merge_path": cuda_merge.merge_perm.launches}
-    _, kv_launches = run_kv_phase(card, sf1, tpch.pop("ladder"))
-    cuda_scan.scan_filter.launches = 0
-    cuda_merge.merge_perm.launches = 0
-    run_sql_phase(card, sf1)
-    sql_launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                    "merge_path": cuda_merge.merge_perm.launches}
-    del sf1
-    cuda_scan.scan_filter.launches = 0
-    cuda_merge.merge_perm.launches = 0
-    sf10, cat10 = run_sf10_phase(card, fusion)
-    emit({"fusion": fusion, "card": card})
-    sf10_launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                     "merge_path": cuda_merge.merge_perm.launches}
-    # the SPMD plane: parity at sf=0.01, then config #3's three shards
-    # over the SF10 host tables (their device columns freed first)
-    twin = host_twin(cat10)
-    del cat10
-    cuda_scan.scan_filter.launches = 0
-    cuda_merge.merge_perm.launches = 0
-    parity = check_distsql_parity(dev)
-    run_distsql_phase(card, parity, dist_sf1, twin,
-                      {q: sf10[q]["median_s"] for q in DIST_QUERIES},
-                      tpch["lineitem_rows"])
-    del twin
-    dist_launches["scan_filter"] += cuda_scan.scan_filter.launches
-    dist_launches["merge_path"] += cuda_merge.merge_perm.launches
-    cuda_scan.scan_filter.launches = 0
-    cuda_merge.merge_perm.launches = 0
-    run_tpcds_phase(card, tpch["merge_join"])
-    tpcds_launches = {"scan_filter": cuda_scan.scan_filter.launches,
-                      "merge_path": cuda_merge.merge_perm.launches}
-    launches = run_ycsb(card)
-    profile_ycsb()
-    check_parity()
+
+    def sf1():
+        """The SF1 host catalog: the tpch phase's, or made here."""
+        if "sf1" not in st:
+            from cockroach_tpu_torch.bench.tpch import gen_tpch
+
+            st["sf1"] = gen_tpch(sf=1.0, seed=TPCH_SEED, device=dev)
+        return st["sf1"]
+
+    def run(name, fn):
+        """Phase `name` when selected: its seconds, and the storage
+        kernels' launches from zero."""
+        if name not in phases:
+            return None
+        t = time.perf_counter()
+        _zero_launches()
+        out = fn()
+        launches[name] = _launches()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    def tpch_phase():
+        st["tpch"], st["sf1"] = run_tpch_phase(card, fusion)
+        return st["tpch"]
+
+    def ladder():
+        return st["tpch"]["ladder"] if "tpch" in st else None
+
+    run("tpch", tpch_phase)
+    if "tpch" in st:  # the SF1 runs alone, not the parity checks
+        launches["tpch"] = st["tpch"]["storage_kernel_launches"]
+    run("distsql_sf1", lambda: st.__setitem__(
+        "dist_sf1", run_distsql_sf1(sf1(), ladder())))
+    kv = run("kv", lambda: run_kv_phase(card, sf1(), ladder() or {}))
+    if kv is not None:  # the witnessed path alone, not the index lookups
+        launches["kv"] = kv[1]
+    hand: dict = {}  # the SQL phase's hand-built TPC-H results at SF1
+    run("sql", lambda: run_sql_phase(card, sf1(), hand=hand))
+    run("menu", lambda: run_menu_phase(card, sf1(), hand=hand))
+    run("tpcc", lambda: run_tpcc_phase(card))
+    rows1 = (st["tpch"]["lineitem_rows"] if "tpch" in st
+             else sf1().get("lineitem").num_rows if "distsql" in phases
+             else None)
+    if "distsql" in phases and "dist_sf1" not in st:
+        st["dist_sf1"] = run_distsql_sf1(sf1(), ladder())
+    st.pop("sf1", None)
+    gc.collect()
+
+    def sf10_phase():
+        sf10, cat10 = run_sf10_phase(card, fusion)
+        st["sf10"] = sf10
+        # the SPMD plane reads the SF10 host tables (device columns freed)
+        st["twin"] = host_twin(cat10)
+
+    run("sf10", sf10_phase)
+    if fusion:
+        emit({"fusion": fusion, "card": card},
+             {"fusion_median_ms": {
+                 f"{sf}_{q}": [v["unfused"]["median_ms"],
+                               v["fused"]["median_ms"]]
+                 for sf, qs in fusion.items() if sf in ("sf1", "sf10")
+                 for q, v in qs.items()}})
+
+    def distsql_phase():
+        parity = check_distsql_parity(dev)
+        single10 = ({q: st["sf10"][q]["median_s"] for q in DIST_QUERIES}
+                    if "sf10" in st else {})
+        run_distsql_phase(card, parity, st["dist_sf1"], st.pop("twin", None),
+                          single10, rows1)
+
+    run("distsql", distsql_phase)
+    st.pop("twin", None)
+    if "distsql_sf1" in launches:  # one path: the SPMD plane's
+        sf1_n = launches.pop("distsql_sf1")
+        launches["distsql"] = {k: n + launches.get("distsql", {}).get(k, 0)
+                               for k, n in sf1_n.items()}
+    run("tpcds", lambda: run_tpcds_phase(
+        card, st["tpch"]["merge_join"] if "tpch" in st else None))
+    ycsb = run("ycsb", lambda: run_ycsb(card))
+    run("parity", check_parity)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["tpch_launches"] = tpch["storage_kernel_launches"][k["name"]]
-        k["sf10_launches"] = sf10_launches[k["name"]]
-        k["tpcds_launches"] = tpcds_launches[k["name"]]
-        k["kv_launches"] = kv_launches[k["name"]]
-        k["distsql_launches"] = dist_launches[k["name"]]
-        k["sql_launches"] = sql_launches[k["name"]]
-        k["on_tpch_path"] = k["tpch_launches"] + k["sf10_launches"] > 0
-        k["on_tpcds_path"] = k["tpcds_launches"] > 0
-        k["on_kv_path"] = k["kv_launches"] > 0
-        k["on_distsql_path"] = k["distsql_launches"] > 0
-        k["on_sql_path"] = k["sql_launches"] > 0
+        name = k["name"]
+        # the main path's launches: YCSB-E, the one path of both kernels
+        k["launches"] = ycsb[name] if ycsb is not None else None
+        for p in LAUNCH_PHASES:
+            n = launches.get(p, {}).get(name)
+            k[f"{p}_launches"] = n
+            if n is not None:
+                k[f"on_{p}_path"] = n > 0
     torch.cuda.synchronize()
-    log(f"total {time.perf_counter() - t0:.1f}s")
+    total = time.perf_counter() - t0
+    emit({"phases": {**seconds, "total": total}})
+    log(f"total {total:.1f}s (default-run budget {TIME_BUDGET_S:.0f}s)")
     write_line(card)
-    log(f"{_written} bytes written before the kernel table")
+    log(f"{_written} bytes written before the kernel table (default-run "
+        f"budget {OUTPUT_BUDGET})")
+    if _detail is not None:
+        _detail.close()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -131,11 +131,27 @@ def total() -> int:
     return _total
 
 
+# this thread's share of the counts (the warm menu's per-item figures,
+# while another worker runs beside it)
+_mine = threading.local()
+
+
 def note_compile(n: int = 1) -> None:
     """Record n new signatures (a CUDA graph capture on the card)."""
     global _compiles
     with _lock:
         _compiles += n
+    _mine.compiles = getattr(_mine, "compiles", 0) + n
+
+
+def thread_compiles() -> int:
+    """New signatures this thread made (``compiles``' share)."""
+    return getattr(_mine, "compiles", 0)
+
+
+def thread_captures() -> int:
+    """CUDA graph captures this thread made (``captures``' share)."""
+    return getattr(_mine, "captures", 0)
 
 
 def compiles() -> int:
@@ -590,6 +606,7 @@ class _Kernel:
         note_compile()
         with _lock:
             _captures += 1
+        _mine.captures = getattr(_mine, "captures", 0) + 1
         return g.run(leaves)
 
 

@@ -301,6 +301,28 @@ def note_spill(kind: str) -> None:
         metric.GRACE_JOIN_SPILLS.inc()
 
 
+def device_memory_stats() -> dict:
+    """Physical-side cross-check of the logical accounting: the caching
+    allocator's bytes in use and peak, summed over the process's CUDA
+    devices, and what it has reserved from the card. Empty dict when no
+    card is in use (the CPU), as the reference's is when its backend
+    reports nothing."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return {}
+    n = torch.cuda.device_count()
+    return {
+        "bytes_in_use": sum(torch.cuda.memory_allocated(d)
+                            for d in range(n)),
+        "peak_bytes_in_use": sum(torch.cuda.max_memory_allocated(d)
+                                 for d in range(n)),
+        "reserved_bytes": sum(torch.cuda.memory_reserved(d)
+                              for d in range(n)),
+        "devices": n,
+    }
+
+
 class Allocator:
     """Byte account for one operator (colmem.Allocator): a leaf monitor
     under the current query monitor, budgeted by

@@ -539,8 +539,13 @@ class FilterOp(OneInputOperator):
 
 
 class ProjectOp(OneInputOperator):
+    """Computed columns. With ``params`` (a plancache.ParamStore), ex.Param
+    leaves read their values from function arguments, as in FilterOp (a
+    DML statement's SET literals, sql/session.py)."""
+
     def __init__(self, child: Operator, exprs: tuple[ex.Expr, ...],
-                 names: tuple[str, ...], dict_overrides: tuple = ()):
+                 names: tuple[str, ...], dict_overrides: tuple = (),
+                 params=None):
         super().__init__(child)
         self.exprs = exprs  # HashJoinOp's dense-build walk maps keys through these
         schema = child.output_schema
@@ -562,23 +567,38 @@ class ProjectOp(OneInputOperator):
             if b is not None:
                 self.col_stats[i] = b
 
-        def raw(b: Batch) -> Batch:
+        def project(b: Batch) -> Batch:
             cols = []
             for e in exprs:
                 d, v = ex.eval_expr(e, b.cols, schema)
                 cols.append(Column(data=d, valid=v))
             return Batch(cols=tuple(cols), mask=b.mask)
 
-        self._key = dispatch.kernel_key("project", schema, exprs)
+        self._params = params
+        if params is None:
+            raw = project
+        else:
+            def raw(b: Batch, *pv) -> Batch:
+                with ex.param_scope(pv):
+                    return project(b)
+
+        self._key = dispatch.kernel_key("project", schema, exprs,
+                                        params is not None)
         self._raw = raw
         self._fn = dispatch.jit(raw, key=self._key)
 
     def stream_parts(self):
-        return _compose_parts(self, self.child, self._raw, key=self._key)
+        extra = () if self._params is None else self._params.args()
+        return _compose_parts(self, self.child, self._raw, key=self._key,
+                              extra=extra)
 
     def _next(self):
         b = self.child.next_batch()
-        return None if b is None else self._fn(b)
+        if b is None:
+            return None
+        if self._params is None:
+            return self._fn(b)
+        return self._fn(b, *self._params.args())
 
 
 class LimitOp(OneInputOperator):

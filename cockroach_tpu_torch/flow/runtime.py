@@ -27,6 +27,8 @@ root operator: EXPLAIN ANALYZE (plan/explain.py) renders all of it.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -34,7 +36,7 @@ from ..catalog import Catalog
 from ..coldata.batch import Batch, Column, compact, to_host
 from ..plan import builder as plan_builder
 from ..plan.spec import PlanNode
-from ..utils import settings
+from ..utils import metric, settings
 from . import dispatch
 from .memory import query_scope
 from .operator import Operator
@@ -154,6 +156,7 @@ def run_operator(root: Operator) -> dict[str, np.ndarray]:
     signatures and memory peak land on the root (EXPLAIN ANALYZE). Holds
     ``dispatch.exec_lock()`` throughout: concurrent sessions' queries
     run on the device one at a time."""
+    metric.QUERIES.inc()
     with dispatch.exec_lock():
         return _run_operator(root)
 
@@ -269,7 +272,18 @@ def run_plan_with_stats(plan: PlanNode, catalog: Catalog):
         sp.record(root.stats)
         _fold_operator_spans(sp, root)
     root._trace_span = sp  # EXPLAIN ANALYZE renders the tree from here
+    _LAST_TRACE.span = sp
     return res, root
+
+
+_LAST_TRACE = threading.local()
+
+
+def last_trace_span():
+    """This thread's most recent run_plan_with_stats root span: EXPLAIN
+    ANALYZE (DEBUG) reads it for its bundle after the rel API has
+    discarded the root operator."""
+    return getattr(_LAST_TRACE, "span", None)
 
 
 def run_plan(plan: PlanNode, catalog: Catalog) -> dict[str, np.ndarray]:

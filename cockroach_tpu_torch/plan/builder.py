@@ -9,6 +9,8 @@ per-tile chains.
 
 from __future__ import annotations
 
+import dataclasses
+
 from ..catalog import Catalog
 from ..coldata.types import Family
 from ..flow import operators as ops
@@ -109,6 +111,18 @@ def build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     return op
 
 
+def _has_param(x) -> bool:
+    """Whether an expression (or a tuple of them) holds an ex.Param."""
+    if isinstance(x, ex.Param):
+        return True
+    if isinstance(x, tuple):
+        return any(_has_param(v) for v in x)
+    if isinstance(x, ex.Expr) and dataclasses.is_dataclass(x):
+        return any(_has_param(getattr(x, f.name))
+                   for f in dataclasses.fields(x))
+    return False
+
+
 def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     if isinstance(plan, S.TableScan):
         if plan.shard is not None:
@@ -124,8 +138,10 @@ def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
         return ops.FilterOp(_build(plan.input, catalog, params),
                             plan.predicate, params=params)
     if isinstance(plan, S.Project):
-        return ops.ProjectOp(_build(plan.input, catalog, params), plan.exprs,
-                             plan.names, plan.dict_overrides)
+        return ops.ProjectOp(
+            _build(plan.input, catalog, params), plan.exprs, plan.names,
+            plan.dict_overrides,
+            params=params if _has_param(plan.exprs) else None)
     if isinstance(plan, S.Aggregate):
         child = _build(plan.input, catalog, params)
         if plan.key_sizes is not None and plan.mode == "complete":

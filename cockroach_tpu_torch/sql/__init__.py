@@ -8,15 +8,19 @@ from .rel import Rel
 from .session import Session, UnportedError
 
 
-def explain(catalog, text: str) -> str:
-    """EXPLAIN / EXPLAIN ANALYZE / EXPLAIN (DISTSQL) over SQL text, with
-    or without the leading EXPLAIN keywords. EXPLAIN ANALYZE (DEBUG),
-    which captures a statement diagnostics bundle in the reference,
-    raises UnportedError: sql/diagnostics.py is not ported."""
+def explain(catalog, text: str, session=None) -> str:
+    """EXPLAIN / EXPLAIN ANALYZE [(DEBUG)] / EXPLAIN (DISTSQL) over SQL
+    text, with or without the leading EXPLAIN keywords. ANALYZE (DEBUG)
+    also captures a statement diagnostics bundle (sql/diagnostics.py)
+    and names it on the last line; `session`, when given, lends the
+    bundle its fingerprint and memory monitor."""
+    import time as _time
+
     t = text.strip()
     low = t.lower()
     analyze = False
     distsql = False
+    debug = False
     if low.startswith("explain"):
         t = t[len("explain"):].lstrip()
         if t.lower().startswith("(distsql)"):
@@ -26,8 +30,8 @@ def explain(catalog, text: str) -> str:
             analyze = True
             t = t[len("analyze"):].lstrip()
             if t.lower().startswith("(debug)"):
-                raise UnportedError("EXPLAIN ANALYZE (DEBUG)",
-                                    "sql/diagnostics.py")
+                debug = True
+                t = t[len("(debug)"):].lstrip()
     rel = sql(catalog, t)
     if distsql:
         return rel.explain_distributed()
@@ -36,7 +40,9 @@ def explain(catalog, text: str) -> str:
         from ..storage import blockcache
         from ..utils import admission
 
+        t0 = _time.perf_counter()
         rendered, _ = rel.explain_analyze()
+        elapsed = _time.perf_counter() - t0
         # status a normal execution of this statement would see
         # (analyze itself always runs a fresh instrumented tree)
         out = rendered + f"\nplan cache: {plancache.probe(rel)}"
@@ -50,6 +56,17 @@ def explain(catalog, text: str) -> str:
                 f"+{lanes[admission.LANE_ANALYTICAL]}a "
                 f"shed_floor={admission.shed_floor()} "
                 f"rejected={aq.rejected}")
+        if debug:
+            from types import SimpleNamespace
+
+            from . import diagnostics
+            from ..flow.runtime import last_trace_span
+
+            bundle = diagnostics.capture(
+                session or SimpleNamespace(catalog=catalog), t,
+                elapsed_s=elapsed, span=last_trace_span(),
+                trigger="explain_analyze_debug")
+            out += f"\ndiagnostics bundle: {bundle['id']}"
         return out
     return rel.explain()
 

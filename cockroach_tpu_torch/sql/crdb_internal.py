@@ -20,9 +20,11 @@ treats the prefix as volatile) — a cached snapshot would freeze time.
 
 The port of ``cockroach_tpu.sql.crdb_internal`` over the registries the
 port has: statement statistics, live sessions and queries, the memory
-monitor tree and tenant admission. The reference's other tables read
-modules the port has not got yet; naming one raises ``UnportedError``
-(a ``BindError``) with the module it needs.
+monitor tree, tenant admission, the metric registry, the open trace
+spans, the serving load (device figures from ``torch.cuda``) and the
+warm menu. The reference's other tables read modules the port has not
+got yet; naming one raises ``UnportedError`` (a ``BindError``) with the
+module it needs.
 """
 
 from __future__ import annotations
@@ -110,6 +112,48 @@ def _memory_monitors(catalog) -> Table:
     ])
 
 
+def _cluster_load(catalog) -> Table:
+    """One-row serving-load snapshot: sessions and queries in flight, the
+    node's SQL memory figures, admission queue state, and the card's
+    allocator figures (``flow/memory.device_memory_stats``; 0 off the
+    card)."""
+    from . import activity
+    from ..flow import memory
+    from ..storage import blockcache
+    from ..utils import admission, metric
+
+    q = admission.sql_queue()
+    dev = memory.device_memory_stats()
+    cols = {
+        "active_sessions": len(activity.sessions()),
+        "active_queries": len(activity.queries()),
+        "sql_mem_current_bytes": memory.ROOT.used,
+        "sql_mem_peak_bytes": memory.ROOT.high_water,
+        "sql_mem_budget_bytes": memory.root_budget(),
+        "admission_slots": q.slots,
+        "admission_slots_in_use": q.in_use,
+        "admission_queue_depth": q.queue_depth,
+        "admission_admitted": q.admitted,
+        "admission_waited": q.waited,
+        "admission_timeouts": q.timeouts,
+        "device_bytes_in_use": dev.get("bytes_in_use", 0),
+        "device_peak_bytes": dev.get("peak_bytes_in_use", 0),
+        "queries_total": int(metric.QUERIES.value),
+    }
+    bc = blockcache.node_cache().stats()
+    cols.update({
+        "block_cache_hits": bc["hits"],
+        "block_cache_misses": bc["misses"],
+        "block_cache_evictions": bc["evictions"],
+        "block_cache_bytes": bc["bytes"],
+        "bloom_skipped_runs": int(metric.BLOOM_SKIPS.value),
+        "bulk_ingest_rows": int(metric.INGEST_ROWS.value),
+    })
+    return _table("crdb_internal.cluster_load", [
+        (k, T.INT64, _ints([v])) for k, v in cols.items()
+    ])
+
+
 def _node_tenant_admission(catalog) -> Table:
     """Per-tenant admission state (the tenant rate-limiter / fair-share
     surface): token bucket level + config, stride-scheduler virtual
@@ -167,25 +211,79 @@ def _cluster_sessions(catalog) -> Table:
     ])
 
 
+def _node_metrics(catalog) -> Table:
+    from ..utils import metric
+
+    names: list[str] = []
+    values: list[float] = []
+    for name, m in list(metric.DEFAULT._metrics.items()):
+        if isinstance(m, (metric.Counter, metric.Gauge)):
+            names.append(name)
+            values.append(m.value)
+        elif isinstance(m, metric.Histogram):
+            names.append(name + "_sum")
+            values.append(m.sum)
+            names.append(name + "_count")
+            values.append(float(m.n))
+        elif isinstance(m, metric.LabeledCounter):
+            for k, v in m.items():
+                names.append(f'{name}{{{m.label}="{k}"}}')
+                values.append(v)
+    return _table("crdb_internal.node_metrics", [
+        ("name", T.STRING, _strs(names)),
+        ("value", T.FLOAT64, _floats(values)),
+    ])
+
+
+def _inflight_trace_spans(catalog) -> Table:
+    from ..utils import tracing
+
+    spans = tracing.inflight()
+    now = time.perf_counter()
+    return _table("crdb_internal.node_inflight_trace_spans", [
+        ("trace_id", T.INT64, _ints(s.trace_id for s in spans)),
+        ("span_id", T.INT64, _ints(s.span_id for s in spans)),
+        ("parent_span_id", T.INT64, _ints(s.parent_id for s in spans)),
+        ("operation", T.STRING, _strs(s.name for s in spans)),
+        ("elapsed_ms", T.FLOAT64,
+         _floats((now - s.start) * 1e3 for s in spans)),
+    ])
+
+
+def _node_warmup_menu(catalog) -> Table:
+    """The warm menu's state (sql/warmmenu.py): one row per item with its
+    course (explicit/hot/ladder), outcome (compiled/failed/skipped), new
+    signatures, seconds, and serving-path hits."""
+    from . import warmmenu
+
+    rows = warmmenu.menu_rows()
+    return _table("crdb_internal.node_warmup_menu", [
+        ("fingerprint", T.STRING, _strs(r["fingerprint"] for r in rows)),
+        ("source", T.STRING, _strs(r["source"] for r in rows)),
+        ("status", T.STRING, _strs(r["status"] for r in rows)),
+        ("kernels", T.INT64, _ints(r["kernels"] for r in rows)),
+        ("seconds", T.FLOAT64, _floats(r["seconds"] for r in rows)),
+        ("hits", T.INT64, _ints(r["hits"] for r in rows)),
+    ])
+
 
 _BUILDERS = {
     "crdb_internal.node_statement_statistics": _stmt_statistics,
     "crdb_internal.cluster_queries": _cluster_queries,
     "crdb_internal.cluster_sessions": _cluster_sessions,
+    "crdb_internal.node_metrics": _node_metrics,
+    "crdb_internal.node_inflight_trace_spans": _inflight_trace_spans,
     "crdb_internal.node_memory_monitors": _memory_monitors,
+    "crdb_internal.cluster_load": _cluster_load,
     "crdb_internal.node_tenant_admission": _node_tenant_admission,
+    "crdb_internal.node_warmup_menu": _node_warmup_menu,
 }
 
 # the reference's tables whose registries live in modules not yet ported
 UNPORTED = {
-    "crdb_internal.node_metrics": "utils/metric.py's registry",
-    "crdb_internal.node_inflight_trace_spans": "utils/tracing.py's inflight "
-                                               "registry",
     "crdb_internal.hot_ranges": "kv/loadstats.py",
-    "crdb_internal.cluster_load": "flow/memory.device_memory_stats",
     "crdb_internal.node_changefeed_subscribers": "kv/fanout.py",
     "crdb_internal.node_materialized_views": "sql/matview.py",
-    "crdb_internal.node_warmup_menu": "sql/warmmenu.py",
 }
 
 

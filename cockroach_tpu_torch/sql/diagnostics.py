@@ -1,0 +1,177 @@
+"""Statement diagnostics bundles — the stmtdiagnostics analog; the port
+of ``cockroach_tpu.sql.diagnostics``.
+
+Reference: ``EXPLAIN ANALYZE (DEBUG)`` and the slow-query log both produce a
+*statement bundle* (pkg/sql/stmtdiagnostics): a self-contained snapshot —
+statement text, plan, full trace, and execution counters — that can be
+inspected later without reproducing the workload.
+
+Bundles live in a bounded on-disk ring (``sql.diagnostics.ring_size`` JSON
+files under ``sql.diagnostics.dir``, default a per-process temporary
+directory); an in-memory index serves listings without touching disk.
+``capture`` is called from ``Session.execute`` after the statement, possibly
+with its exception in flight, so it never raises.
+
+The bundle's sections are the reference's. Its counters are
+flow/dispatch.py's (dispatches, and new signatures: CUDA graph captures on
+the card), and its memory section reads ``flow/memory.device_memory_stats``
+(the caching allocator's figures) where the reference reads XLA's.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import OrderedDict
+
+from ..utils import log, settings
+
+_lock = threading.Lock()
+_ids = itertools.count(1)
+# bundle id -> summary (insertion-ordered: oldest first, for ring eviction)
+_index: OrderedDict[int, dict] = OrderedDict()
+_tmpdir: str | None = None
+
+MAX_STMT = 2048
+
+
+def _bundle_dir() -> str:
+    global _tmpdir
+    configured = settings.get("sql.diagnostics.dir")
+    if configured:
+        os.makedirs(configured, exist_ok=True)
+        return configured
+    if _tmpdir is None:
+        # per-process scratch under TMPDIR; bundles are diagnostic
+        # artifacts, left behind on purpose
+        _tmpdir = tempfile.mkdtemp(prefix="crdb_tpu_diag_")
+    return _tmpdir
+
+
+def _plan_sections(session, text: str) -> dict:
+    """Re-bind the statement to render its plan and cache status.
+    Best-effort: the statement may not plan (DDL, a bind error)."""
+    from . import parser, plancache
+    from .binder import Binder
+    from ..plan.explain import explain_plan
+
+    out: dict = {}
+    try:
+        stmt = parser.parse_statement(text)
+        rel = Binder(session.catalog).bind(stmt)
+        out["plan"] = explain_plan(rel.optimized_plan())
+        out["planCacheStatus"] = plancache.probe(rel)
+    except Exception:  # noqa: BLE001 - bundle capture is best-effort; the statement may not plan
+        out["plan"] = None
+        out["planCacheStatus"] = "unavailable"
+    return out
+
+
+def capture(session, text: str, *, elapsed_s: float, span=None,
+            trigger: str = "manual", error: bool = False) -> dict:
+    """Capture a statement bundle; returns its summary (always has "id").
+
+    Never raises: this runs after the statement in Session.execute, where
+    a second exception would mask the statement's own failure.
+    """
+    try:
+        return _capture(session, text, elapsed_s=elapsed_s, span=span,
+                        trigger=trigger, error=error)
+    except Exception as e:  # noqa: BLE001 - diagnostics must never mask the statement's own outcome
+        log.warning(log.SQL_EXEC, "diagnostics capture failed", error=str(e))
+        return {"id": 0, "error": str(e)}
+
+
+def _capture(session, text: str, *, elapsed_s: float, span,
+             trigger: str, error: bool) -> dict:
+    from ..flow import dispatch, memory
+
+    bid = next(_ids)
+    mon = getattr(session, "_mem_mon", None)
+    bundle = {
+        "id": bid,
+        "stmt": text.strip()[:MAX_STMT],
+        "trigger": trigger,
+        "error": bool(error),
+        "elapsedMs": round(elapsed_s * 1e3, 3),
+        "capturedAtMs": int(time.time() * 1e3),
+        "fingerprint": getattr(session, "_last_fp", None),
+        "counters": {
+            "kernelDispatches": dispatch.total(),
+            "kernelCompiles": dispatch.compiles(),
+            "kernelCacheHits": dispatch.kernel_cache_hits(),
+            "graphCaptures": dispatch.captures(),
+            "graphReplays": dispatch.replays(),
+        },
+        "memory": {
+            # node-level figures plus the capturing session's monitor
+            # (the statement's own query monitor has closed by now)
+            "sqlMemCurrentBytes": memory.ROOT.used,
+            "sqlMemPeakBytes": memory.ROOT.high_water,
+            "sessionPeakBytes": getattr(mon, "high_water", 0),
+            "sessionSpills": getattr(mon, "spills", 0),
+            "device": memory.device_memory_stats(),
+        },
+        # only overrides: defaults are in code
+        "settings": settings.overrides(),
+        "trace": span.to_dict() if span is not None else None,
+    }
+    bundle.update(_plan_sections(session, text))
+
+    path = os.path.join(_bundle_dir(), f"bundle_{bid:06d}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(bundle, f, indent=1, default=str)
+
+    summary = {
+        "id": bid,
+        "stmt": bundle["stmt"][:120],
+        "trigger": trigger,
+        "error": bundle["error"],
+        "elapsedMs": bundle["elapsedMs"],
+        "capturedAtMs": bundle["capturedAtMs"],
+        "path": path,
+    }
+    ring = settings.get("sql.diagnostics.ring_size")
+    with _lock:
+        _index[bid] = summary
+        while len(_index) > ring:
+            _, old = _index.popitem(last=False)
+            try:
+                os.unlink(old["path"])
+            except OSError:
+                pass  # already gone; the index drop is what bounds the ring
+    return summary
+
+
+def bundles() -> list[dict]:
+    """Ring listing, newest first."""
+    with _lock:
+        return [dict(s) for s in reversed(_index.values())]
+
+
+def get(bundle_id: int) -> dict | None:
+    """Full bundle by id (read back off disk); None if evicted."""
+    with _lock:
+        summary = _index.get(bundle_id)
+    if summary is None:
+        return None
+    try:
+        with open(summary["path"], encoding="utf-8") as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def reset() -> None:
+    """Drop the in-memory index and delete ring files (tests)."""
+    with _lock:
+        for s in _index.values():
+            try:
+                os.unlink(s["path"])
+            except OSError:
+                pass  # best-effort cleanup
+        _index.clear()

@@ -51,7 +51,7 @@ KEYWORDS = {
 }
 
 
-@dataclass
+@dataclass(slots=True)
 class Token:
     kind: str  # name | kw | num | str | op | eof
     value: str
@@ -71,27 +71,28 @@ _STRUCTURAL_KW = {
 
 def tokenize(text: str) -> list[Token]:
     out = []
+    append = out.append
     i = 0
-    while i < len(text):
-        m = _TOKEN_RE.match(text, i)
-        if not m:
-            raise SyntaxError(f"cannot tokenize at {text[i:i+20]!r}")
+    # consecutive matches: a gap is text no token matches
+    for m in _TOKEN_RE.finditer(text):
+        start = m.start()
+        if start != i:
+            break
         i = m.end()
         kind = m.lastgroup
-        if kind in ("ws", "comment"):
+        if kind == "ws" or kind == "comment":
             continue
         v = m.group()
         if kind == "name":
             low = v.lower()
-            if low in KEYWORDS:
-                out.append(Token("kw", low, m.start()))
-            else:
-                out.append(Token("name", v.lower(), m.start()))
+            append(Token("kw" if low in KEYWORDS else "name", low, start))
         elif kind == "str":
-            out.append(Token("str", v[1:-1].replace("''", "'"), m.start()))
+            append(Token("str", v[1:-1].replace("''", "'"), start))
         else:
-            out.append(Token(kind, v, m.start()))
-    out.append(Token("eof", "", len(text)))
+            append(Token(kind, v, start))
+    if i != len(text):
+        raise SyntaxError(f"cannot tokenize at {text[i:i+20]!r}")
+    append(Token("eof", "", len(text)))
     return out
 
 
@@ -565,15 +566,37 @@ class Parser:
         rows = []
         while True:
             self.expect_op("(")
-            vals = [self.parse_expr()]
+            vals = [self.parse_value()]
             while self.eat_op(","):
-                vals.append(self.parse_expr())
+                vals.append(self.parse_value())
             self.expect_op(")")
             rows.append(tuple(vals))
             if not self.eat_op(","):
                 break
         return Insert(table, tuple(columns) if columns else None,
                       tuple(rows))
+
+    def parse_value(self) -> Node:
+        """One VALUES item. A bare literal (a number, a negated number or
+        a string) that ends the item is read directly, as ``parse_expr``
+        would read it; anything else goes through ``parse_expr``. A bulk
+        INSERT's rows are almost all such literals."""
+        toks, i = self.toks, self.i
+        neg = toks[i].kind == "op" and toks[i].value == "-"
+        t = toks[i + neg]
+        if t.kind in ("num", "str"):
+            end = toks[i + neg + 1]
+            if end.kind == "op" and end.value in (",", ")"):
+                self.i = i + neg + 1
+                if t.kind == "str":
+                    if not neg:
+                        return StrLit(t.value)
+                    self.i = i
+                    return self.parse_expr()
+                v = NumLit(float(t.value) if "." in t.value
+                           else int(t.value))
+                return Bin("-", NumLit(0), v) if neg else v
+        return self.parse_expr()
 
     def parse_update(self) -> Update:
         self.expect_kw("update")

@@ -22,7 +22,9 @@ pipeline, so the cache holds the BUILT operator tree:
   signature, so DDL (CREATE/DROP INDEX, ALTER) and tuning changes can
   never serve a stale plan; the session's DDL handlers additionally
   sweep dead-version entries out eagerly (``invalidate``). A dropped
-  entry's graphs leave the shared wrappers with it.
+  entry's graphs leave the shared wrappers with it. Entries the warm
+  menu (sql/warmmenu.py) kept are evicted after every other one: a
+  serving miss that does not fit beside them runs but is not kept.
 - A per-entry lock serializes concurrent sessions through one entry:
   operator trees hold mutable pull state, so two sessions never drive
   the same tree at once (they queue; distinct statements run in
@@ -39,18 +41,29 @@ those functions as arguments: each replay copies them into the graph's
 input buffers, and a rebind captures nothing new. The reference's
 on-disk compilation cache (``maybe_enable_compile_cache``, the
 ``sql.compile_cache.*`` settings) has no counterpart: a CUDA graph has
-no persistent form. The reference's warm-menu accounting
-(``sql/warmmenu.py``) is not ported; serving-path hits are counted on
-the cache (``serving_hits``).
+no persistent form. Serving-path hits are counted by the warm menu
+(``sql/warmmenu.note_serving_hit``), as in the reference.
+
+An entry's bytes are what it holds, not what the allocator handed out
+while it ran: the distinct storages its operator tree keeps between
+runs (spools, ``ParamStore`` tensors, persisted state) and the static
+inputs and outputs of the graphs its runs captured, less what the
+catalog's tables own. A storage two entries share is counted once in the
+cache's total. So an allocation another thread makes meanwhile is never
+charged, and the count is the same on the CPU, where the allocator says
+nothing. The temporaries of the shared graph pool are not counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import gc
 import threading
-from collections import OrderedDict
+import types
+import weakref
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -114,8 +127,11 @@ class ParamStore:
         return self._values
 
 
-def parameterize(plan):
-    """Rewrite numeric Filter-predicate literals into Param slots.
+def parameterize(plan, projections: bool = False):
+    """Rewrite numeric Filter-predicate literals into Param slots, and
+    with `projections` those of Project expressions too (a DML
+    statement's SET literals, whose scan-and-project plan sql/session.py
+    runs through the cache).
 
     Returns ``(pplan, values, types)``: the parameterized plan (shared
     across every statement with the same shape), the extracted literal
@@ -167,6 +183,9 @@ def parameterize(plan):
             v = getattr(n, f.name)
             if isinstance(n, S.Filter) and f.name == "predicate":
                 nv = walk_expr(v)
+            elif (projections and isinstance(n, S.Project)
+                    and f.name == "exprs"):
+                nv = walk_field(v)
             elif isinstance(v, S.PlanNode):
                 nv = walk_plan(v)
             elif (isinstance(v, tuple) and v
@@ -265,18 +284,88 @@ def _settings_sig() -> tuple:
 
 
 # the share of the card's memory the cached plans may hold (each entry's
-# spools, graph buffers and build-side tables, as its runs left them
-# allocated): the rest is the working memory of the query that runs
+# spools, graph buffers and build-side tables): the rest is the working
+# memory of the query that runs
 MAX_DEVICE_FRACTION = 0.5
 
 
-def _device_bytes(device) -> int:
-    """Bytes the caching allocator has handed out on `device` (0 off the
-    card, where a plan's buffers live in host memory)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return 0
-    return torch.cuda.memory_allocated(device)
+_PKG = __name__.split(".")[0]
+
+
+def _boundary_types() -> tuple:
+    """Objects an entry's walk does not enter: what the catalog, the
+    store, the memory monitors and the shared kernel wrappers own (a
+    wrapper keeps the graphs of every entry that shares it; an entry's
+    own graphs are counted from ``_Entry.graphs``)."""
+    from ..catalog import Catalog, Table
+    from ..flow import dispatch
+    from ..flow.memory import BytesMonitor
+    from ..kv import DB
+    from ..kv.table import KVTable
+    from ..storage.lsm import Engine
+
+    return (Catalog, Table, KVTable, Engine, DB, BytesMonitor,
+            dispatch._Kernel, PlanCache, _Entry)
+
+
+def _storages(roots, boundary: tuple, out: dict) -> dict:
+    """Add to `out` (storage address -> bytes) every tensor reachable from
+    `roots` through containers and the port's own objects, not entering
+    `boundary` instances below the roots; functions, modules and foreign
+    objects are not entered either."""
+    seen: set[int] = set()
+    stack = list(roots)
+    top = {id(r) for r in roots}
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            n = st.nbytes()
+            if n:
+                out[st.data_ptr()] = n
+            continue
+        if isinstance(x, (list, tuple, set, frozenset, deque)):
+            stack.extend(x)
+            continue
+        if isinstance(x, dict):
+            stack.extend(x.values())
+            continue
+        if (isinstance(x, (type, types.ModuleType, types.FunctionType,
+                           types.MethodType, weakref.ReferenceType))
+                or not type(x).__module__.startswith(_PKG)
+                or (isinstance(x, boundary) and id(x) not in top)):
+            continue
+        d = getattr(x, "__dict__", None)
+        if d is not None:
+            stack.extend(d.values())
+        for cls in type(x).__mro__:
+            for name in getattr(cls, "__slots__", ()):
+                v = getattr(x, name, None)
+                if v is not None:
+                    stack.append(v)
+    return out
+
+
+def _held_storages(entry, catalog) -> dict:
+    """Storage address -> bytes of what `entry` keeps between runs: its
+    tree and parameters, and its graphs' static inputs and outputs, less
+    the storages of the catalog's tables."""
+    boundary = _boundary_types()
+    held: dict = {}
+    roots = [entry.root, entry.store]
+    for _, _, gref in entry.graphs:
+        g = gref()
+        if g is not None:
+            roots += [g.static_in, g.outs]
+    _storages(roots, boundary, held)
+    if catalog is not None and held:
+        owned = _storages(list(catalog.tables.values()), boundary, {})
+        for ptr in owned:
+            held.pop(ptr, None)
+    return held
 
 
 def _device_capacity(device) -> int | None:
@@ -289,7 +378,7 @@ def _device_capacity(device) -> int | None:
 
 class _Entry:
     __slots__ = ("root", "store", "version", "fingerprint", "lock", "hits",
-                 "bytes", "key", "graphs")
+                 "bytes", "storages", "key", "graphs", "pinned")
 
     # the lock serializes the sessions that run this entry's tree, whose
     # operators hold pull state; runs of different trees on one device
@@ -303,14 +392,17 @@ class _Entry:
         self.key = key
         self.lock = threading.Lock()
         self.hits = 0
-        # device bytes the tree holds between runs: what its build and
-        # its runs left allocated, each measured under
-        # flow/dispatch.exec_lock (no other query runs meanwhile;
-        # concurrent KV writes may add their own allocations)
+        # what the tree holds between runs (``_held_storages``, counted
+        # under flow/dispatch.exec_lock after its first run and after any
+        # run that made a new signature): storage address -> bytes, and
+        # their sum
+        self.storages: dict = {}
         self.bytes = 0
         # the graphs its runs captured (dispatch.recording_graphs):
         # released with the entry, since shared wrappers keep them
         self.graphs: list = []
+        # kept by the warm menu (``keep_cached``): evicted last
+        self.pinned = False
 
 
 class PlanCache:
@@ -318,8 +410,10 @@ class PlanCache:
     ``hits``/``misses`` counters are per-cache (tests); the process
     metrics (sql_plan_cache_*) aggregate across catalogs."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", catalog=None):
         self.device = torch.device(device)
+        self._catalog = (None if catalog is None
+                         else weakref.ref(catalog))
         self._entries: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
         self._texts: OrderedDict = OrderedDict()  # fingerprint -> last text
@@ -327,14 +421,13 @@ class PlanCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
-        # the entries' device bytes (``_Entry.bytes``), summed
+        # storage address -> [bytes, entries holding it], over the cached
+        # entries; ``bytes`` sums each storage once
+        self._refs: dict = {}
         self.bytes = 0
-        # hits on entries built from a statement text (the serving path)
-        self.serving_hits = 0
 
-    def note_serving_hit(self) -> None:
-        with self._lock:
-            self.serving_hits += 1
+    def catalog(self):
+        return None if self._catalog is None else self._catalog()
 
     def lookup(self, key):
         with self._lock:
@@ -364,51 +457,109 @@ class PlanCache:
         """Publish `entry`, then drop least recently used entries while the
         cache is over its count or its byte budget (an entry over the
         budget alone is dropped too: it ran, but is not kept). A session
-        that lost the race to publish has its own entry released."""
+        that lost the race to publish has its own entry released. Under
+        ``keep_cached`` no other entry is dropped: an entry that does not
+        fit is not kept."""
         with self._lock:
             cur = self._entries.get(key)
             if cur is not None:
                 dropped = [entry]  # concurrent first executions: first wins
+            elif _keeping.active and not self._fits(entry, 1):
+                _keeping.refused = True
+                dropped = [entry]
+                cur = entry
             else:
                 entry.key = key
+                entry.pinned = _keeping.active
                 self._entries[key] = entry
-                self.bytes += entry.bytes
+                self._hold(entry.storages)
                 dropped = self._trim()
                 cur = entry
         _release(dropped)
         return cur
 
-    def account(self, entry, delta: int) -> None:
-        """A run of `entry` changed what it holds by `delta` bytes. An
-        entry dropped while it was looked up and run is released again
-        (its run may have captured graphs)."""
+    def account(self, entry, held: dict) -> None:
+        """A run of `entry` left it holding the storages `held` (address
+        -> bytes). An entry dropped while it was looked up and run is
+        released again (its run may have captured graphs); one not yet
+        published only takes the count."""
         with self._lock:
-            new = max(0, entry.bytes + delta)
-            if self._entries.get(entry.key) is entry:
-                self.bytes += new - entry.bytes
+            cached = (entry.key is not None
+                      and self._entries.get(entry.key) is entry)
+            if cached:
+                self._unhold(entry.storages)
+            entry.storages = held
+            entry.bytes = sum(held.values())
+            if cached:
+                self._hold(held)
                 self._entries.move_to_end(entry.key)
-                entry.bytes = new
-                dropped = self._trim()
+                if _keeping.active and not self._fits(None, 0):
+                    _keeping.refused = True
+                    dropped = [self._drop(entry.key)]
+                else:
+                    dropped = self._trim()
+            elif entry.key is None:
+                dropped = []
             else:
-                entry.bytes = new
                 dropped = [entry]
         _release(dropped)
 
+    def _hold(self, storages: dict) -> None:
+        for ptr, n in storages.items():
+            r = self._refs.get(ptr)
+            if r is None:
+                self._refs[ptr] = [n, 1]
+                self.bytes += n
+            else:
+                r[1] += 1
+
+    def _unhold(self, storages: dict) -> None:
+        for ptr in storages:
+            r = self._refs.get(ptr)
+            if r is None:
+                continue
+            r[1] -= 1
+            if r[1] == 0:
+                del self._refs[ptr]
+                self.bytes -= r[0]
+
+    def _fits(self, entry, extra: int) -> bool:
+        """Whether the cache, with `entry` added (its storages not yet
+        held) and `extra` more entries, stays within its count and byte
+        budget (caller holds the lock)."""
+        if len(self._entries) + extra > int(
+                settings.get("sql.plan_cache.size")):
+            return False
+        budget = self.budget()
+        if budget is None:
+            return True
+        new = 0 if entry is None else sum(
+            n for p, n in entry.storages.items() if p not in self._refs)
+        return self.bytes + new <= budget
+
     def _trim(self) -> list:
         """Drop least recently used entries past the count or the byte
-        budget (caller holds the lock); returns them for ``_release``."""
+        budget, the warm menu's last (caller holds the lock); returns
+        them for ``_release``."""
         cap = int(settings.get("sql.plan_cache.size"))
         budget = self.budget()
+
+        def over() -> bool:
+            return len(self._entries) > cap or (
+                budget is not None and self.bytes > budget)
+
         out = []
-        while self._entries and (
-                len(self._entries) > cap
-                or (budget is not None and self.bytes > budget)):
+        for key in [k for k, e in self._entries.items() if not e.pinned]:
+            if not over():
+                break
+            out.append(self._drop(key))
+        while self._entries and over():
             out.append(self._drop(next(iter(self._entries))))
         return out
 
     def _drop(self, key) -> "_Entry":
         e = self._entries.pop(key)
-        self.bytes -= e.bytes
+        self._unhold(e.storages)
         self.evictions += 1
         metric.PLAN_CACHE_EVICTIONS.inc()
         return e
@@ -429,8 +580,14 @@ class PlanCache:
             dropped = list(self._entries.values())
             self._entries.clear()
             self._memo.clear()
+            self._refs.clear()
             self.bytes = 0
         _release(dropped)
+
+    def entries(self) -> list:
+        """The cached entries, least recently used first."""
+        with self._lock:
+            return list(self._entries.values())
 
     def __len__(self) -> int:
         with self._lock:
@@ -480,8 +637,31 @@ class PlanCache:
 def cache_for(catalog) -> PlanCache:
     pc = getattr(catalog, "_plan_cache", None)
     if pc is None:
-        pc = catalog._plan_cache = PlanCache(catalog.device)
+        pc = catalog._plan_cache = PlanCache(catalog.device, catalog)
     return pc
+
+
+class _Keeping(threading.local):
+    active = False
+    refused = False
+
+
+_keeping = _Keeping()
+
+
+@contextlib.contextmanager
+def keep_cached():
+    """Within the block, this thread's statements evict no cached entry:
+    an entry that would push the cache past its count or byte budget is
+    not kept (the warm menu's bound: it never evicts what it warmed).
+    Yields the thread's record; ``refused`` is set when an entry was not
+    kept."""
+    saved = (_keeping.active, _keeping.refused)
+    _keeping.active, _keeping.refused = True, False
+    try:
+        yield _keeping
+    finally:
+        _keeping.active, _keeping.refused = saved
 
 
 def _release(entries) -> None:
@@ -501,23 +681,22 @@ def _release(entries) -> None:
 
 def _run_entry(cache, entry, values, label: str):
     """Run a built entry with `values` bound: its lock, then the device
-    (flow/dispatch.exec_lock) for the run and the count of the bytes it
-    left allocated, which the entry (and `cache`, if it holds the entry)
-    is charged."""
+    (flow/dispatch.exec_lock) for the run and the count of what the entry
+    holds after it (``_held_storages``), which `cache` is charged. A run
+    that made no new signature left its tree's buffers as they were, so
+    its entry keeps its count."""
     from ..flow import dispatch, runtime
 
-    dev = entry.store._device
     with entry.lock, dispatch.exec_lock(), \
             dispatch.recording_graphs(entry.graphs):
-        b0 = _device_bytes(dev)
+        c0 = dispatch.thread_compiles()
         entry.store.set_values(values)
         with tracing.leaf_span("query", cache=label):
             res = runtime.run_operator(entry.root)
-        delta = _device_bytes(dev) - b0
-    if cache is None:
-        entry.bytes = max(0, entry.bytes + delta)
-    else:
-        cache.account(entry, delta)
+        if entry.storages and dispatch.thread_compiles() == c0:
+            return res
+        held = _held_storages(entry, cache.catalog())
+    cache.account(entry, held)
     return res
 
 
@@ -537,8 +716,9 @@ def _is_virtual_plan(plan) -> bool:
     return any(crdb_internal.is_virtual(n) for n in _table_names(plan))
 
 
-def run_cached_ex(rel, text: str | None = None):
-    """Execute a bound Rel through the plan cache.
+def run_cached_ex(rel, text: str | None = None, projections: bool = False):
+    """Execute a bound Rel through the plan cache (with `projections`,
+    Project literals become parameters too: see ``parameterize``).
 
     Returns ``(results, status, fingerprint)`` with status one of ``hit``
     (literals rebound into a cached tree, zero new builds), ``miss``
@@ -558,7 +738,7 @@ def run_cached_ex(rel, text: str | None = None):
         return runtime.run_plan(plan, rel.catalog), "bypass", ""
     try:
         with tracing.leaf_span("sql.plancache.lookup"):
-            pplan, values, types = parameterize(plan)
+            pplan, values, types = parameterize(plan, projections)
             key = (plan_key(pplan), rel.catalog.version, _settings_sig(),
                    _dict_gen(rel.catalog, pplan))
             entry = cache.lookup(key)
@@ -567,20 +747,16 @@ def run_cached_ex(rel, text: str | None = None):
     status = "hit"
     if entry is None:
         status = "miss"
-        dev = rel.catalog.device
         # run BEFORE publishing: a plan whose first execution fails never
         # enters the cache (concurrent first executions may both build;
-        # insert keeps whichever published first). The build holds the
-        # device too, so what it leaves allocated is the entry's
+        # insert keeps whichever published first)
         with dispatch.exec_lock():
-            b0 = _device_bytes(dev)
-            store = ParamStore(types, dev)
+            store = ParamStore(types, rel.catalog.device)
             root = plan_builder.build(pplan, rel.catalog, params=store)
             entry = _Entry(root, store, rel.catalog.version,
                            _fingerprint(text))
-            entry.bytes = max(0, _device_bytes(dev) - b0)
             try:
-                res = _run_entry(None, entry, values, "miss")
+                res = _run_entry(cache, entry, values, "miss")
             except BaseException:
                 _release([entry])
                 raise
@@ -588,7 +764,9 @@ def run_cached_ex(rel, text: str | None = None):
     else:
         res = _run_entry(cache, entry, values, "hit")
         if entry.fingerprint:
-            cache.note_serving_hit()
+            from . import warmmenu
+
+            warmmenu.note_serving_hit(entry.fingerprint)
     if text is not None:
         if entry.fingerprint:
             cache.note_text(entry.fingerprint, text)
@@ -623,7 +801,9 @@ def run_memoized_ex(catalog, text: str):
         return None
     if entry.fingerprint:
         # the memo path is a plan-cache hit too
-        cache.note_serving_hit()
+        from . import warmmenu
+
+        warmmenu.note_serving_hit(entry.fingerprint)
     return _run_entry(cache, entry, values, "memo"), entry.fingerprint
 
 

@@ -27,8 +27,16 @@ a module the port has not got raise ``BindError`` naming it
 (sql/schemachange.py), tenants (kv/tenant.py), BACKUP and RESTORE (the
 backup job of kv/jobs.py and utils/external_storage.py). With no view
 defined, the reference's matview hooks change no result, so the port
-has none; the slow-query log and its diagnostics bundles wait for
-sql/diagnostics.py.
+has none. The slow-query log leaves a diagnostics bundle
+(sql/diagnostics.py) as the reference's does.
+
+Additions over the reference: ``execute`` answers EXPLAIN statements
+(``sql.explain``'s forms, EXPLAIN ANALYZE (DEBUG) included) as one
+``info`` column of text lines, so they answer over pgwire; and a SELECT
+inside a transaction and the affected-row scan of an UPDATE or DELETE
+(its WHERE and SET literals as parameters) run through the plan cache,
+where the reference builds a fresh tree each time: on the card, a fresh
+tree captures its graphs anew.
 """
 
 from __future__ import annotations
@@ -205,6 +213,7 @@ class Session:
         self._active_qid = activity.begin_query(self._session_id, text)
         self._last_fp = None
         err = False
+        sp = None
         qmon = None
         try:
             # admission first (queue-wait is NOT query memory or trace
@@ -220,7 +229,8 @@ class Session:
                     admission.classify_statement(text),
                     deadline=self._statement_deadline()), \
                     flowmem.query_scope(self._mem_mon) as qmon, \
-                    tracing.span("sql.execute", stmt=text.strip()[:120]):
+                    tracing.span("sql.execute",
+                                 stmt=text.strip()[:120]) as sp:
                 out = self._dispatch(text)
         except BaseException:
             # ANY failure inside an explicit block aborts it (postgres /
@@ -242,6 +252,7 @@ class Session:
                                         fp=self._last_fp,
                                         mem_bytes=mem_peak,
                                         spills=mem_spills)
+                self._maybe_slow_query(text, elapsed, sp, error=True)
         nrows = 0
         if isinstance(out, dict) and out:
             if "rows_affected" in out:  # DML verbs report affected rows
@@ -252,7 +263,28 @@ class Session:
                     nrows = len(first)
         sqlstats.DEFAULT.record(text, elapsed, nrows, fp=self._last_fp,
                                 mem_bytes=mem_peak, spills=mem_spills)
+        self._maybe_slow_query(text, elapsed, sp)
         return out
+
+    def _maybe_slow_query(self, text: str, elapsed_s: float, span,
+                          error: bool = False) -> None:
+        """The slow-query log (sql.log.slow_query.latency_threshold, 0 =
+        off): past the threshold, log AND capture a diagnostics bundle so
+        the slow execution's trace is inspectable after the fact."""
+        from ..utils import settings
+
+        thresh = settings.get("sql.log.slow_query.latency_threshold")
+        if not thresh or elapsed_s < float(thresh):
+            return
+        from ..utils import log
+        from . import diagnostics
+
+        bundle = diagnostics.capture(
+            self, text, elapsed_s=elapsed_s, span=span,
+            trigger="slow_query", error=error)
+        log.warning(log.SQL_EXEC, "slow query",
+                    elapsed_ms=round(elapsed_s * 1e3, 1),
+                    bundle=bundle.get("id"), stmt=text.strip()[:120])
 
     def _statement_deadline(self) -> float | None:
         """time.monotonic() deadline from the statement_timeout session
@@ -284,6 +316,11 @@ class Session:
             handled = self._maybe_session_var_stmt(text)
         if handled is not None:
             return handled
+        if text.lstrip()[:7].lower() == "explain":
+            from . import explain
+
+            lines = explain(self.catalog, text, session=self).splitlines()
+            return {"info": np.array(lines, dtype=object)}
         if self._txn is None:
             # exact-text fast path: a verbatim repeat SELECT skips even
             # parse/bind and runs its cached prepared plan directly
@@ -460,7 +497,11 @@ class Session:
             self._last_fp = fp or None
             return res
         # in-txn SELECT: scans read at the txn snapshot, and every scanned
-        # table's span lands in the txn's read set for commit-time refresh
+        # table's span lands in the txn's read set for commit-time refresh.
+        # The plan runs through the plan cache too (the reference runs a
+        # fresh tree: a new signature, a capture on the card, each time)
+        from . import plancache
+
         txn = self._txn
         with self._read_as(txn):
             rel = Binder(self.catalog).bind(stmt)
@@ -470,7 +511,9 @@ class Session:
                 start, end = _rc.table_span(t.table_id)
                 txn.note_read_span(start, end)
             try:
-                return rel.run()
+                res, _, fp = plancache.run_cached_ex(rel, text=text)
+                self._last_fp = fp or None
+                return res
             except WriteIntentError as e:
                 self._txn_aborted = True
                 raise TransactionRetryError(
@@ -913,7 +956,13 @@ class Session:
     def _affected(self, t: KVTable, where: P.Node | None,
                   extra_cols: list[tuple[str, P.Node]] = ()):
         """Plan WHERE + SET expressions through the columnar engine; returns
-        host rows of (pk, full current row, computed extras)."""
+        host rows of (pk, full current row, computed extras). The plan runs
+        through the plan cache with its WHERE and SET literals as
+        parameters, so a repeat of the statement with other literals
+        rebinds one cached tree (the reference builds a fresh one: a new
+        signature, a CUDA graph capture on the card, each time)."""
+        from . import plancache
+
         rel = Rel.scan(self.catalog, t.name)
         if where is not None:
             binder = Binder(self.catalog)
@@ -924,7 +973,8 @@ class Session:
         for name, e in extra_cols:
             items.append((f"__set_{name}", ExprLowerer(rel).lower(e)))
         rel = rel.project(items)
-        return rel.run()
+        res, _, _ = plancache.run_cached_ex(rel, projections=True)
+        return res
 
     def _update(self, stmt: P.Update):
         t = self._kv_table(stmt.table)

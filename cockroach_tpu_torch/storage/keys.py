@@ -68,15 +68,15 @@ def key_words(key: torch.Tensor) -> torch.Tensor:
 
 def words_cmp_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lexicographic unsigned a < b over trailing [..., W] word lanes
-    (broadcasting) -> [...] bool."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)[:-1]
-    lt = torch.zeros(shape, dtype=torch.bool, device=a.device)
-    eq = torch.ones(shape, dtype=torch.bool, device=a.device)
-    for i in range(a.shape[-1]):
-        ai, bi = flip(a[..., i]), flip(b[..., i])
-        lt = lt | (eq & (ai < bi))
-        eq = eq & (ai == bi)
-    return lt
+    (broadcasting) -> [...] bool. Each lane votes +1 (a's word below b's),
+    -1 (above) or 0, weighted 2^(W-1-i): the first differing lane
+    outweighs all later ones, so the sum's sign is the comparison (a few
+    whole-tensor operations rather than several per lane)."""
+    fa, fb = flip(a), flip(b)
+    vote = (fa < fb).to(torch.int64) - (fa > fb).to(torch.int64)
+    w = a.shape[-1]
+    weight = 2 ** torch.arange(w - 1, -1, -1, device=a.device)
+    return (vote * weight).sum(-1) > 0
 
 
 def words_cmp_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Fault-injection hooks at the storage engine's, the external
-operators' and SQL admission's sites, with the reference's site names. Every hook is a no-op
-until ``arm`` is called."""
+operators', SQL admission's and the warm menu's sites, with the
+reference's site names. Every hook is a no-op until ``arm`` is
+called."""
 
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ SITES: dict[str, str] = {
     "flow.spill.merge_probe": "oversized-partition merge-probe run failure",
     "admission.bucket.refill": "tenant token-bucket refill failure",
     "admission.grant.stall": "a queued admission grant stalls or is lost",
+    "sql.warmup.compile": "ahead-of-time menu compile failure at server "
+                          "start",
 }
 
 

@@ -180,3 +180,29 @@ ADMISSION_LANE_QUEUE_DEPTH = LabeledGauge("admission_lane_queue_depth",
                                           "lane")
 ADMISSION_TENANT_TOKENS = LabeledGauge("admission_tenant_tokens", "tenant")
 ADMISSION_REJECTIONS = LabeledCounter("admission_rejections", "tenant")
+# queries executed by flow/runtime.run_operator
+QUERIES = Counter("sql_queries")
+# the warm menu (sql/warmmenu.py): signatures its items made (CUDA graph
+# captures on the card), and serving-path plan-cache hits on its items
+SQL_WARMUP_KERNELS_COMPILED = Counter("sql_warmup_kernels_compiled")
+SQL_WARMUP_MENU_HITS = Counter("sql_warmup_menu_hits")
+
+
+class Registry:
+    """The named metrics of the process (the reference's metric.Registry,
+    reduced to what crdb_internal.node_metrics reads)."""
+
+    def __init__(self):
+        self._metrics: dict[str, object] = {}
+
+    def add(self, m):
+        self._metrics[m.name] = m
+        return m
+
+
+DEFAULT = Registry()
+for _m in list(globals().values()):
+    if isinstance(_m, (Counter, Gauge, Histogram, LabeledCounter,
+                       LabeledGauge)):
+        DEFAULT.add(_m)
+del _m

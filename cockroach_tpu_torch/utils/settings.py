@@ -12,6 +12,8 @@ aggregation by one budget on every device.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any
 
 _DEFAULTS: dict[str, Any] = {
@@ -76,6 +78,19 @@ _DEFAULTS: dict[str, Any] = {
     "sql.plan_cache.size": 128,
     # background re-execution of hot statements after DDL
     "sql.plan_cache.warmup.enabled": False,
+    # the warm menu (sql/warmmenu.py): statements run two to four times
+    # each before a server accepts its first connection, within a wall
+    # budget and a cap on new signatures (CUDA graph captures on the card)
+    "sql.warmup.menu.enabled": False,
+    "sql.warmup.menu.budget_s": 30.0,
+    "sql.warmup.menu.max_kernels": 512,
+    # statements slower than this many seconds are logged and leave a
+    # diagnostics bundle (sql/diagnostics.py); 0 disables
+    "sql.log.slow_query.latency_threshold": 0.0,
+    # the bundles' on-disk ring: its size, and its directory (empty: a
+    # per-process temporary directory)
+    "sql.diagnostics.ring_size": 16,
+    "sql.diagnostics.dir": "",
     # node-level logical-byte budget of the root memory monitor (0 =
     # unlimited; admission sheds by its pressure)
     "sql.mem.root_budget_bytes": 0,
@@ -117,6 +132,10 @@ _BOUNDS: dict[str, tuple] = {
     "sql.distsql.dense_agg_states": (64, 1 << 28),
     "sql.distsql.max_fused_joins": (0, 64),
     "sql.plan_cache.size": (1, 1 << 16),
+    "sql.warmup.menu.budget_s": (0.0, None),
+    "sql.warmup.menu.max_kernels": (1, None),
+    "sql.log.slow_query.latency_threshold": (0.0, None),
+    "sql.diagnostics.ring_size": (1, 1 << 12),
     "sql.mem.root_budget_bytes": (0, None),
     "admission.sql.slots": (1, 1 << 16),
     "admission.sql.max_queue_depth": (1, 1 << 20),
@@ -129,12 +148,36 @@ _BOUNDS: dict[str, tuple] = {
 
 _values: dict[str, Any] = {}
 
+# this thread's values over the process's (``scoped``)
+_scoped = threading.local()
+
 
 def get(name: str):
+    own = getattr(_scoped, "values", None)
+    if own is not None and name in own:
+        return own[name]
     return _values.get(name, _DEFAULTS[name])
 
 
 def set(name: str, value) -> None:  # noqa: A001 - SQL SET semantics
+    _values[name] = _checked(name, value)
+
+
+@contextlib.contextmanager
+def scoped(values: dict):
+    """Within the block, this thread reads `values` (coerced and checked
+    as ``set`` does) over the process's settings; other threads do not
+    see them."""
+    own = {n: _checked(n, v) for n, v in values.items()}
+    saved = getattr(_scoped, "values", None)
+    _scoped.values = {**(saved or {}), **own}
+    try:
+        yield
+    finally:
+        _scoped.values = saved
+
+
+def _checked(name: str, value):
     default = _DEFAULTS[name]
     if isinstance(default, bool):
         if not isinstance(value, bool):
@@ -150,7 +193,7 @@ def set(name: str, value) -> None:  # noqa: A001 - SQL SET semantics
             raise ValueError(f"{name}: {value} < min {lo}")
         if hi is not None and value > hi:
             raise ValueError(f"{name}: {value} > max {hi}")
-    _values[name] = value
+    return value
 
 
 def reset(name: str | None = None) -> None:
@@ -177,6 +220,11 @@ class Setting:
 
     def get(self):
         return get(self.name)
+
+
+def overrides() -> dict[str, Any]:
+    """The settings set away from their defaults, by name."""
+    return dict(_values)
 
 
 def all_settings() -> dict[str, Setting]:

@@ -234,7 +234,8 @@ def test_plan_cache_rebinds_q6_literals(tcat):
     # a verbatim repeat takes the memo path and still equals
     again = sess.execute(q6_text(*Q6_LITERALS[0]))
     assert again["revenue"].tolist() == results[0]["revenue"].tolist()
-    assert cache.serving_hits == 3
+    # three serving-path hits: two rebinds and the memo
+    assert cache.hits == 3
     sess.close()
 
 
@@ -246,9 +247,9 @@ def test_plan_cache_rebinds_q6_literals(tcat):
     ("show tenants", "kv/tenant.py"),
     ("backup to 'nodelocal://1/b'", "kv/jobs.py"),
     ("restore from 'nodelocal://1/b'", "kv/jobs.py"),
-    ("select name from crdb_internal.node_metrics", "utils/metric.py"),
-    ("select fingerprint from crdb_internal.node_warmup_menu",
-     "sql/warmmenu.py"),
+    ("select range_id from crdb_internal.hot_ranges", "kv/loadstats.py"),
+    ("select name from crdb_internal.node_materialized_views",
+     "sql/matview.py"),
 ])
 def test_unported_statement_raises_typed_error(stmt, module):
     sess = Session(device="cpu")
@@ -265,8 +266,9 @@ def test_unported_entry_points_raise():
         Session(tenant="acme", device="cpu")
     sess = Session(device="cpu")
     sess.execute("create table t (a int primary key)")
-    with pytest.raises(UnportedError, match="sql/diagnostics.py"):
-        explain(sess.catalog, "explain analyze (debug) select a from t")
+    # EXPLAIN ANALYZE (DEBUG) is ported: it names its bundle
+    out = explain(sess.catalog, "explain analyze (debug) select a from t")
+    assert out.splitlines()[-1].startswith("diagnostics bundle: ")
 
 
 def test_crdb_internal_tables():
@@ -403,25 +405,15 @@ def test_plan_cache_evicts_past_its_size(tcat):
 
 
 def test_plan_cache_evicts_past_its_byte_budget(tcat, monkeypatch):
-    """Each plan's runs leave device bytes allocated (here counters
-    standing in for the card: 100 bytes a plan's first run); past
+    """Each plan holds device bytes between runs (here a count standing
+    in for the card: 100 bytes a plan, at an address of its own); past
     ``MAX_DEVICE_FRACTION`` of the card's memory the least recently used
     plans go and their graphs are released, and a plan over the budget
     alone runs but is not kept."""
-    from cockroach_tpu_torch.flow import runtime as truntime
-
-    alloc, seen, capacity = [0], set(), [500]
-    run_operator = truntime.run_operator
-
-    def first_run_allocates(root):
-        if id(root) not in seen:
-            seen.add(id(root))
-            alloc[0] += 100
-        return run_operator(root)
-
+    capacity = [500]
     released = []
-    monkeypatch.setattr(truntime, "run_operator", first_run_allocates)
-    monkeypatch.setattr(plancache, "_device_bytes", lambda dev: alloc[0])
+    monkeypatch.setattr(plancache, "_held_storages",
+                        lambda entry, catalog: {id(entry.root): 100})
     monkeypatch.setattr(plancache, "_device_capacity",
                         lambda dev: capacity[0])
     monkeypatch.setattr(dispatch, "release_graphs",
@@ -430,14 +422,15 @@ def test_plan_cache_evicts_past_its_byte_budget(tcat, monkeypatch):
     cache = plancache.cache_for(tcat)
     cache.clear()
     ev = cache.evictions
+    del released[:]  # what the clear released
     try:
         assert cache.budget() == 500 * plancache.MAX_DEVICE_FRACTION == 250
         want = {q: sess.execute(TPCH_SQL[q]) for q in ("q6", "q14", "q1")}
-        # miss: the build (0 bytes) and the first run (100 bytes)
+        # each miss holds 100 bytes after its first run
         assert len(cache) == 2 and cache.bytes == 200
         assert cache.evictions == ev + 1 and len(released) == 1
         hits = cache.hits
-        sess.execute(TPCH_SQL["q14"] + " ")  # still cached; its run adds 0
+        sess.execute(TPCH_SQL["q14"] + " ")  # still cached, still 100
         assert cache.hits == hits + 1 and cache.bytes == 200
         capacity[0] = 100
         got = sess.execute(TPCH_SQL["q6"])
@@ -568,3 +561,28 @@ def test_admission_matches_reference():
     assert got == want
     assert "tenant rate limit: token bucket empty" in got
     assert "overloaded" in got
+
+
+def test_dml_and_txn_selects_rebind_cached_plans():
+    """An UPDATE's affected-row scan (its WHERE and SET literals) and a
+    SELECT inside a transaction run through the plan cache: repeats with
+    other literals make no new signature, and the rows equal the
+    reference's."""
+    j, t = pair()
+    for s in (j, t):
+        s.execute("create table t (a int primary key, b int)")
+        s.execute("insert into t values (1, 10), (2, 20), (3, 30)")
+    c0 = None
+    for i, pk in enumerate((1, 2, 3)):
+        for s in (j, t):
+            s.execute(f"update t set b = b + {i + 5} where a = {pk}")
+            s.execute("begin")
+            got = s.execute(f"select b from t where a = {pk}")
+            s.execute("commit")
+            assert got["b"].tolist() == [10 * pk + i + 5]
+        if c0 is None:
+            c0 = dispatch.compiles()
+    assert dispatch.compiles() == c0
+    q = "select a, b from t order by a"
+    assert t.execute(q)["b"].tolist() == j.execute(q)["b"].tolist() == [
+        15, 26, 37]

@@ -158,7 +158,23 @@ def test_explain_matches_reference(cats, q):
 
 
 @pytest.mark.parametrize("text", [
+    "insert into t values (1, -2, 3.5, -0.25, 'a''b', null, true, "
+    "date '1998-01-01', 1 + 2, -3 * 4, (5), -'x', .5)",
+    "insert into t (a, b) values (1, 'x'), (-7, 'y''z'), (-1, '')",
+    "insert into t values (1::int, -2::int, -2 - 3, 4 between 1 and 5)",
+    "insert into t values (-1)",
+    "select a, -1 from t -- a comment\n where b = 'q' and c <= .25",
+])
+def test_values_and_tokens_match_reference(text):
+    """A bulk INSERT's literals, read directly, and the one-scan
+    tokenizer give the reference's trees and tokens."""
+    assert ast(tP.parse_statement(text)) == ast(jP.parse_statement(text))
+    assert ast(tP.tokenize(text)) == ast(jP.tokenize(text))
+
+
+@pytest.mark.parametrize("text", [
     "select from t", "select a t where", "select a from lineitem where",
+    "select a from t where b = $1", "select 'open", "select 1 ~",
 ])
 def test_parse_errors_match_reference(text):
     with pytest.raises(SyntaxError) as te:

@@ -53,7 +53,13 @@ index on o_custkey: 100 lookups through ``IndexScanOp``, each equal to the
 full scan, and a checkpoint plus WAL reopened on the card with the same
 live rows; the ``{"tpch_kv": ...}`` line (``kv_launches`` in the kernel
 table counts the storage kernels' launches in the load, the ladders and
-the refresh functions).
+the refresh functions). Between the ladders, q1 as four standing views
+(60, 90, 120 and 150 days before 1998-12-01; ``bench/views.KVViews``) on
+the loaded engine, each equal to a fresh q1 over KV at creation and after
+the flush that follows RF1 and RF2 (on orders instead when priming
+lineitem's shadow passes KV_VIEW_PRIME_LIMIT_S): the prime's seconds and
+peak RSS, create ms, events, ms, dispatches and device-to-host bytes per
+poll of each flush; the flushes' K2 merges are witnessed with the rest.
 
 The SQL front door (``sql/parser.py``, ``binder.py``, ``plancache.py``,
 ``session.py``, ``server/pgwire.py``, ``bench/load.py``), after the KV
@@ -88,7 +94,15 @@ compile with the menu); the ``{"menu": ...}`` line. TPC-C
 tpmC, new-order p50/p99, retries, give-ups and the device lock's p99
 wait; a small run on the card and on the CPU with equal final tables;
 the ``{"tpcc": ...}`` line (``menu_launches`` and ``tpcc_launches`` in
-the kernel table).
+the kernel table). Materialized views (``bench/views.run_views``, the
+``views`` phase): 1000 views in one shape class over a 240-row KV table,
+8 rounds of 64 writes, one flush a round, each of at most one dispatch
+(one CUDA graph replay) and no base rescan, sampled views equal to fresh
+rescans; the ``{"views": ...}`` line. The changefeed fan-out
+(``bench/fanout.run_fanout``, the ``fanout`` phase): 1000 subscribers on
+one hub polling the engine on the card, streams equal to the history
+after reconnects, the staging account drained; the ``{"fanout": ...}``
+line (``views_launches``, ``fanout_launches``).
 
 The SPMD plane (``plan/distribute.py``, ``parallel/``,
 ``Rel.run_distributed``): right after the SF1 phase, q3, q9 and q18 at
@@ -1084,13 +1098,22 @@ class K2Witness:
     timings."""
 
     def __init__(self):
+        import threading
+
         self.pairs = self.max_rows = 0
         self.seconds = 0.0
+        # the matview step's flushes merge on the caller's thread, a hub
+        # poll on its own: one check at a time, counts exact
+        self._mu = threading.Lock()
 
     def __enter__(self):
         self.merge_pair = cuda_merge.merge_pair
 
         def checked(a, b):
+            with self._mu:
+                return check(a, b)
+
+        def check(a, b):
             got = cuda_merge.merge_perm(a, b)
             if a.key.device.type != "cuda":
                 return cuda_merge.gather_merged(a, b, got)  # no kernel
@@ -1275,6 +1298,61 @@ def kv_index_phase(host, dev) -> dict:
         shutil.rmtree(KV_DIR, ignore_errors=True)
 
 
+KV_VIEW_PRIME_LIMIT_S = 45.0  # past it, the views step runs on orders
+
+
+def kv_views(cat, db) -> dict:
+    """Standing views over TPC-H in KV (bench/views.KVViews): q1 at four
+    ship-date cutoffs on lineitem, created after the load; if priming
+    lineitem's shadow passes KV_VIEW_PRIME_LIMIT_S, the views move to
+    orders (a dense grouped aggregate over o_orderstatus) and lineitem's
+    prime seconds stay in the record. Every view equals a fresh run of
+    its query at creation."""
+    from cockroach_tpu_torch.bench.views import KVViews
+
+    out: dict = {}
+    mv = KVViews(cat, db, base="lineitem")
+    if mv.prime_s > KV_VIEW_PRIME_LIMIT_S:
+        out["lineitem_prime_s"] = mv.prime_s
+        out["lineitem_shadow_rows"] = mv.shadow_rows
+        mv.close()
+        mv = KVViews(cat, db, base="orders")
+    bad = mv.check()
+    if bad:
+        raise AssertionError(f"views over KV at creation: {bad}")
+    out.update({"mv": mv, "base": mv.base, "days": list(mv.days),
+                "prime_s": mv.prime_s, "shadow_rows": mv.shadow_rows,
+                "peak_rss_gb": mv.peak_rss_gb,
+                "rss_growth_gb": mv.rss_growth_gb,
+                "create_ms": mv.create_ms, "check_s": mv.check_s})
+    log(f"{len(mv.days)} views on {mv.base}: shadow of {mv.shadow_rows} "
+        f"rows primed in {mv.prime_s:.1f}s, each == a fresh rescan")
+    return out
+
+
+def kv_views_flush(views: dict, when: str, k2: "K2Witness") -> dict:
+    """One pump and flush of the views after a refresh function, each
+    view then held to a fresh run of its query over KV (rewrite off);
+    the flush's K2 merges are witnessed like the rest of the phase (their
+    check's seconds: `k2_check_s`)."""
+    mv = views["mv"]
+    c0 = k2.seconds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mv.flush()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    if out["dispatches"] > 1 or out["events"] == 0:
+        raise AssertionError(f"views flush after {when}: {out}")
+    bad = mv.check()
+    if bad:
+        raise AssertionError(f"views after {when} != fresh rescan: {bad}")
+    out["k2_check_s"] = k2.seconds - c0
+    log(f"views after {when}: {out['events']} events in one flush of "
+        f"{out['dispatches']} dispatch, each view == a fresh rescan")
+    return out
+
+
 def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
                  runs: int = DEPTH_RUNS, dev="cuda") -> tuple[dict, dict]:
     """SQL over the MVCC store on the card: the sf=0.01 parity run, then
@@ -1305,10 +1383,21 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
         ops_ms: dict = {}
         before = kv_ladder(cat, host, dev, runs, ops_ms)
         rf = tpch_kv.gen_refresh(host, sf)
+        t_views = time.perf_counter()
+        views = kv_views(cat, db)
         c0 = k2.seconds
         rf1 = tpch_kv.apply_rf1(cat, db, rf)
+        views["rf1"] = kv_views_flush(views, "RF1", k2)
+        c1 = k2.seconds
         rf2 = tpch_kv.apply_rf2(cat, db, rf)
-        rf2["k2_check_s"] = k2.seconds - c0  # both refresh functions
+        views["rf2"] = kv_views_flush(views, "RF2", k2)
+        # both refresh functions, without the flushes after them
+        rf2["k2_check_s"] = (c1 - c0 - views["rf1"]["k2_check_s"]
+                             + k2.seconds - c1 - views["rf2"]["k2_check_s"])
+        t_close = time.perf_counter()
+        views.pop("mv").close()
+        views["close_s"] = time.perf_counter() - t_close
+        views["step_s"] = time.perf_counter() - t_views
         load["view_slots_after_rf"] = db.engine._merged_view().capacity
         after = kv_ladder(cat, tpch_kv.refreshed_catalog(host, rf), dev,
                           runs)
@@ -1334,7 +1423,7 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
            "host_median_s": {q: host_ladder[q]["median_s"]
                              for q in before if q in host_ladder},
            "before": before, "ops_ms": ops_ms, "rf1": rf1, "rf2": rf2,
-           "after": after,
+           "views": views, "after": after,
            "index": index, "launches": launches, "card": card}
     log("TPC-H SF1 over KV: ladder == oracle before and after RF1/RF2; "
         "index lookups == full scan; checkpoint + WAL reopened")
@@ -1342,6 +1431,11 @@ def run_kv_phase(card: str, host, host_ladder: dict, sf: float = 1.0,
          {"tpch_kv": {"load_s": load["load_s"],
                       "median_s_before": {q: v[0] for q, v in before.items()},
                       "median_s_after": {q: v[0] for q, v in after.items()},
+                      "views": {k: views[k] for k in (
+                          "base", "prime_s", "peak_rss_gb", "create_ms")}
+                      | {f: {k: views[f][k] for k in (
+                          "events", "flush_ms", "dispatches",
+                          "d2h_bytes_per_poll")} for f in ("rf1", "rf2")},
                       "launches": launches}})
     return out, launches
 
@@ -1902,7 +1996,7 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
 # host, about 16 s a warehouse on the card's machine (96 s for 6), and
 # each transaction's time grows with the tables, so the default run's
 # time budget, not the load, sets W and the transaction count (PERF.md §4)
-TPCC_W = 5
+TPCC_W = 3
 TPCC_SPEC = {"districts": 10, "customers": 3000, "items": 100_000}
 TPCC_TXNS = 100
 TPCC_SMALL = {"warehouses": 2, "districts": 4, "customers": 30,
@@ -2049,6 +2143,75 @@ def run_tpcc_phase(card: str, dev="cuda", warehouses: int = TPCC_W,
            "phase_s": time.perf_counter() - t_phase, "card": card}
     emit({"tpcc": out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Materialized views and the changefeed fan-out (flow/viewmaint.py,
+# sql/matview.py, kv/changefeed.py, kv/fanout.py; bench/views.py and
+# bench/fanout.py, bench.py's `views` and `fanout` jobs)
+
+VIEWS_N, VIEWS_ROUNDS, VIEWS_WRITES = 1000, 8, 64
+FANOUT_SUBSCRIBERS = 1000
+FANOUT_DURATION_S = 5.0  # bench.py's 10 s, cut by the default run's budget
+
+
+def run_views_phase(card: str, dev="cuda", views: int = VIEWS_N,
+                    rounds: int = VIEWS_ROUNDS) -> dict:
+    """bench/views.run_views on the card: `views` standing views in one
+    shape class over a 240-row KV table, `rounds` rounds of 64 writes
+    (60% inserts, 30% updates, 10% deletes, seed 7), one flush a round.
+    Fails unless every flush took at most one dispatch, no steady flush
+    rescanned the base table, and the sampled views equal fresh rescans.
+    K2 merges on the path (none: the session's keys are 24 bytes) are
+    witnessed. Prints the ``{"views": ...}`` line."""
+    from cockroach_tpu_torch.bench.views import run_views
+
+    t0 = time.perf_counter()
+    with K2Witness() as k2:
+        r = run_views(views=views, rounds=rounds,
+                      writes_per_round=VIEWS_WRITES, device=dev)
+    r.update(phase_s=time.perf_counter() - t0, k2_checked=k2.pairs,
+             card=card)
+    ok = (r["views_dispatch_ok"] and r["views_oracle_ok"]
+          and r["dispatches_per_flush_max"] <= 1
+          and r["full_rescans_steady"] == 0)
+    if not ok:
+        raise AssertionError(f"views bench failed its gates: {r}")
+    log(f"views: {views} views, {rounds} flushes of <= 1 dispatch, "
+        "sampled views == fresh rescans")
+    keys = ("setup_s", "steady_s", "refresh_lag_p50_ms",
+            "refresh_lag_p99_ms", "dispatches_per_flush_mean",
+            "dispatches_per_flush_max", "captures_per_flush_after_first",
+            "full_rescans_steady", "minmax_rescans_steady",
+            "exec_lock_wait_p99_s", "views_dispatch_ok", "views_oracle_ok")
+    emit({"views": r}, {"views": {k: r[k] for k in keys}})
+    return r
+
+
+def run_fanout_phase(card: str, dev="cuda",
+                     subscribers: int = FANOUT_SUBSCRIBERS,
+                     duration_s: float = FANOUT_DURATION_S) -> dict:
+    """bench/fanout.run_fanout on the card: `subscribers` subscribers
+    (20 never read behind 4 KB socket buffers, 20 dropped mid-stream and
+    reconnected from their frontier, the rest fast) over 32 keys, 30
+    transactions of 8 puts. Fails unless the sampled and reconnected
+    streams equal the changefeed history and the staging account drained
+    to 0 after close. K2 merges on the path are witnessed. Prints the
+    ``{"fanout": ...}`` line."""
+    from cockroach_tpu_torch.bench.fanout import run_fanout
+
+    t0 = time.perf_counter()
+    with K2Witness() as k2:
+        r = run_fanout(subscribers=subscribers, duration_s=duration_s,
+                       device=dev)
+    r.update(duration_s=duration_s, phase_s=time.perf_counter() - t0,
+             k2_checked=k2.pairs, card=card)
+    if not r["fanout_oracle_ok"] or r["staging_bytes_after_close"] != 0:
+        raise AssertionError(f"fanout bench failed its gates: {r}")
+    log(f"fanout: {r['subscribers_sustained']} of {r['subscribers']} "
+        "subscribers sustained; streams == history; staging drained to 0")
+    emit({"fanout": r})
+    return r
 
 
 # the SF10 scaling of the sf=0.01 parity run: every size threshold over
@@ -2929,10 +3092,10 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "tpch", "distsql_sf1", "kv", "sql", "menu", "tpcc",
-          "sf10", "distsql", "tpcds", "ycsb", "parity")
+          "views", "fanout", "sf10", "distsql", "tpcds", "ycsb", "parity")
 # phases whose storage-kernel launches the kernel table reports
-LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "sf10", "distsql",
-                 "tpcds")
+LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "views", "fanout",
+                 "sf10", "distsql", "tpcds")
 
 
 def parse_args(argv=None):
@@ -3045,6 +3208,10 @@ def main(argv=None) -> int:
     run("sql", lambda: run_sql_phase(card, sf1(), hand=hand))
     run("menu", lambda: run_menu_phase(card, sf1(), hand=hand))
     run("tpcc", lambda: run_tpcc_phase(card))
+    gc.collect()
+    run("views", lambda: run_views_phase(card))
+    gc.collect()
+    run("fanout", lambda: run_fanout_phase(card))
     rows1 = (st["tpch"]["lineitem_rows"] if "tpch" in st
              else sf1().get("lineitem").num_rows if "distsql" in phases
              else None)

@@ -144,25 +144,33 @@ class Table:
     def device_batch(self, names: tuple[str, ...] | None = None) -> Batch:
         """Device-resident batch of the requested columns, padded to
         ``_pad_cap``. Cached per column, so a query never uploads columns
-        it does not scan."""
+        it does not scan.
+
+        The cache snapshots the host column and validity dicts when it is
+        made: a concurrent re-host that swaps ``columns``/``valids`` whole
+        (a materialized view's materialize) leaves an in-flight reader
+        uploading from the generation its cache was made over — one
+        consistent snapshot, never a mix of old and new columns."""
         names = names or self.schema.names
-        if self._device_cols is None:
+        dev = self._device_cols
+        if dev is None:
             self.device = resolve_device(self.device or "cuda")
-            n = self.num_rows
+            host, valids = self.columns, self.valids
+            n = len(next(iter(host.values()))) if host else 0
             cap = _pad_cap(n, settings.get("sql.distsql.tile_size"))
             m = torch.zeros(cap, dtype=torch.bool)
             m[:n] = True
-            self._device_cols = {"__cap__": cap,
-                                 "__mask__": m.to(self.device)}
-        dev = self._device_cols
+            dev = self._device_cols = {
+                "__cap__": cap, "__mask__": m.to(self.device),
+                "__host__": host, "__valids__": valids}
+        host, valids = dev["__host__"], dev["__valids__"]
         cols = []
         for cname in names:
             if cname not in dev:
                 t = self.schema.type_of(cname)
                 one = Schema((cname,), (t,))
-                v = ({cname: self.valids[cname]} if cname in self.valids
-                     else None)
-                b = from_host(one, {cname: np.asarray(self.columns[cname])},
+                v = {cname: valids[cname]} if cname in valids else None
+                b = from_host(one, {cname: np.asarray(host[cname])},
                               valids=v, capacity=dev["__cap__"],
                               device=self.device)
                 dev[cname] = b.cols[0]

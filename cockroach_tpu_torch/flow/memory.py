@@ -78,6 +78,10 @@ class BytesMonitor:
             with _TREE_LOCK:
                 parent._children.append(weakref.ref(self))
 
+    def child(self, name: str, budget: int = 0,
+              level: str = "operator") -> "BytesMonitor":
+        return BytesMonitor(name, parent=self, budget=budget, level=level)
+
     def children(self) -> "list[BytesMonitor]":
         """Live (unclosed) child monitors."""
         with _TREE_LOCK:
@@ -159,13 +163,16 @@ ROOT = BytesMonitor("root", level="root")
 _STAGING: dict[str, BytesMonitor] = {}
 
 
-def staging_monitor(name: str) -> BytesMonitor:
-    """Get-or-create the named long-lived account under ROOT."""
+def staging_monitor(name: str, budget: int = 0) -> BytesMonitor:
+    """Get-or-create the named long-lived account under ROOT. ``budget``
+    (when non-zero) installs or updates a cap on the account."""
     with _TREE_LOCK:
         m = _STAGING.get(name)
         if m is None or m.closed:
             m = _STAGING[name] = BytesMonitor(name, parent=ROOT,
                                               level="staging")
+        if budget:
+            m.budget = int(budget)
         return m
 
 

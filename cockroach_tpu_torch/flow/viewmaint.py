@@ -1,0 +1,850 @@
+"""Incremental materialized-view maintenance — delta tiles into standing
+fold states, device-batched across views; the port of
+``cockroach_tpu.flow.viewmaint``.
+
+A grouped-aggregate query's standing state IS the dense partial-state
+arrays the scan path folds tile by tile, so view maintenance is the SAME
+filter/project/group/fold work, applied to a delta tile instead of a
+base-table tile, with retractions subtracted.
+
+One :class:`ViewMaintainer` per base KV table:
+
+- **feed**: an in-process :class:`~..kv.fanout.LocalSubscriber` on the
+  table's span buffers raw ``(ts, key, value|None)`` events under the
+  fan-out plane's accounting and backpressure ladder; the maintainer
+  drains it with the two-phase ``peek``/``ack`` protocol, so a flush
+  that dies mid-apply re-reads the identical delta;
+- **shadow**: a host dict ``key -> value bytes`` of the base table at
+  the applied frontier turns an MVCC update or tombstone into a
+  *retraction* of the old row plus (for updates) an insertion of the
+  new one;
+- **shape classes**: views whose defining query differs only in filter
+  literals share one :class:`ShapeClass` (keyed by the parameterized
+  plan's structural key, sql/plancache.py). A flush makes ONE dispatch
+  per class (``flow/dispatch.jit``: one CUDA graph per class, tile
+  bucket and view-capacity bucket on the card): the insert and retract
+  tiles decode once, then ``torch.func.vmap`` over the view axis
+  evaluates each view's parameterized filter/project pipeline (the
+  literals are batched 0-d parameters of ``ops/expr.param_scope``) and
+  applies ``acc + ins - ret`` to the ``[V, G]`` state arrays. The
+  ``[views, rows, G]`` one-hot intermediates are bounded by
+  ``ONEHOT_BYTES``: past it the kernel walks the views (and a rescan the
+  rows) in chunks;
+- **retractable accumulators**: sum/count/count_rows/avg retract
+  natively (integer and DECIMAL sums are exact, so the incremental state
+  equals a full rescan bit for bit; float sums are maintained but only
+  approximately order-invariant); min/max/any_not_null keep a
+  contributing count and flag ``dirty`` when a retraction hits the
+  current extremum — the per-view rescan fallback
+  (``matview_minmax_rescans``);
+- **frontier**: the views of one maintainer share a resolved frontier;
+  a flush computes everything first (states, rescans, shadow updates)
+  and only then checkpoints, swaps and acks, so a fault at
+  ``matview.flush`` / ``matview.delta.apply`` /
+  ``matview.frontier.checkpoint`` leaves the old state and the buffered
+  delta intact and the retry is exact.
+
+Device work (the delta, rescan and finalize kernels, the feed's scans)
+runs under ``flow/dispatch.exec_lock``, taken before the maintainer's
+own lock (``locked``): the query path's order. A rescan reads the base
+table at its timestamp through this thread's read context
+(``kv/table.reading_at``), never through the shared table's pin.
+
+Out-of-bounds group keys (a dictionary value minted after CREATE falls
+outside the view's dense layout) cannot be represented in the standing
+arrays: the kernel counts them per view and the registry rebuilds the
+view from a fresh bind and a base rescan (``matview_full_rescans``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..coldata.batch import Batch, Column
+from ..coldata.types import Family, Schema
+from ..ops import aggregation as agg
+from ..ops import expr as ex
+from ..plan import spec as S
+from ..utils import faults, locks, log, metric, racesan, settings
+from . import dispatch
+from . import memory as flowmem
+
+_MIN_TILE = 64
+# bound on one kernel's [views, rows, G] one-hot intermediates (a bool
+# membership matrix and two int64 value matrices live at once)
+ONEHOT_BYTES = 1 << 28
+_BYTES_PER_CELL = 17
+
+
+def _bucket(n: int) -> int:
+    """Pad tile/view capacities to power-of-two buckets so the graphs of
+    a run stay O(log n), not O(distinct sizes)."""
+    cap = _MIN_TILE
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+# ---------------------------------------------------------------------------
+# pipeline extraction — the shape a standing view supports
+
+
+@dataclass(frozen=True)
+class PipelineInfo:
+    """A dense grouped-aggregate pipeline carved out of a plan tree:
+    TableScan -> [Filter|Project]* -> Aggregate(key_sizes set). The
+    stages' column refs are relative to each stage's input schema."""
+
+    scan: S.TableScan
+    stages: tuple  # Filter | Project nodes, scan-side first
+    aggregate: S.Aggregate
+    # input schema per stage (stage_schemas[i] feeds stages[i]);
+    # stage_schemas[-1] is the Aggregate's input schema
+    stage_schemas: tuple[Schema, ...]
+
+
+def extract_pipeline(plan: S.PlanNode, scan_schema: Schema
+                     ) -> PipelineInfo | None:
+    """The maintainable pipeline under ``plan``, or None when the plan is
+    not a dense grouped aggregate over a single unsharded scan. The
+    key_sizes requirement is what guarantees a bounded ``[G]`` state."""
+    if (not isinstance(plan, S.Aggregate) or plan.mode != "complete"
+            or plan.key_sizes is None):
+        return None
+    stages = []
+    node = plan.input
+    while isinstance(node, (S.Filter, S.Project)):
+        stages.append(node)
+        node = node.input
+    if not isinstance(node, S.TableScan) or node.shard is not None:
+        return None
+    stages.reverse()
+    schemas = [scan_schema]
+    for st in stages:
+        cur = schemas[-1]
+        if isinstance(st, S.Filter):
+            schemas.append(cur)
+        else:
+            schemas.append(Schema(
+                tuple(st.names),
+                tuple(ex.expr_type(e, cur) for e in st.exprs)))
+    return PipelineInfo(node, tuple(stages), plan, tuple(schemas))
+
+
+def _spec_state_dtype(spec, schema: Schema) -> torch.dtype:
+    if spec.func in ("count", "count_rows"):
+        return torch.int64
+    t = schema.types[spec.col]
+    if spec.func == "sum":
+        return torch.float64 if t.family is Family.FLOAT else torch.int64
+    return t.torch_dtype  # min / max / any_not_null carry the input dtype
+
+
+# ---------------------------------------------------------------------------
+# standing view + shape class
+
+
+@dataclass
+class ViewState:
+    """One registered view: its identity, slot in a shape class, and the
+    per-view resolved frontier the standing state reflects. ``frontier``
+    is written under the maintainer lock and racesan-instrumented."""
+
+    name: str
+    select_text: str
+    values: tuple          # scaled filter literals, one per param slot
+    out_schema: Schema
+    table: object          # catalog.Table registered under `name`
+    cls: "ShapeClass" = None
+    slot: int = -1
+    frontier: int = 0
+    created_s: float = field(default_factory=time.time)
+    minmax_rescans: int = 0
+    full_rescans: int = 0
+    stale: bool = True     # host table behind the standing state
+    last_lag_s: float = 0.0
+
+
+class ShapeClass:
+    """Views sharing one parameterized pipeline: one set of ``[V, G]``
+    state arrays on the table's device and ONE delta dispatch per flush.
+    Per-spec state is ``(data, cnt)`` where cnt counts contributing
+    non-null rows — the retractable basis for the scan path's validity
+    flags (sum/min/max valid == cnt > 0; count/count_rows always valid)."""
+
+    def __init__(self, key, info: PipelineInfo, param_types,
+                 table_schema: Schema, scan_idxs: tuple[int, ...],
+                 device: torch.device):
+        self.key = key
+        self.info = info
+        self.param_types = tuple(param_types)
+        self.table_schema = table_schema
+        self.scan_idxs = scan_idxs
+        self.device = device
+        a = info.aggregate
+        self.gcols = a.group_cols
+        self.key_sizes = a.key_sizes
+        self.key_lows = (0,) * len(a.group_cols)
+        self.G, self.strides = agg.dense_layout(a.key_sizes)
+        self.in_schema = info.stage_schemas[-1]
+        self.pspecs, _, self.final_map = agg.partial_layout(
+            self.in_schema, a.group_cols, a.aggs)
+        self.views: list[ViewState | None] = []  # slot -> view (None=free)
+        self.gen = 0          # bumped on every state swap (read-sync key)
+        cap = _bucket(1)
+        self.datas = [self._empty_state(sp, cap) for sp in self.pspecs]
+        self.cnts = [self._zeros(cap) for _ in self.pspecs]
+        self.rows = self._zeros(cap)
+        self._params: tuple | None = None
+        self._charged = 0
+        self._recharge()
+        self._delta_kernel = dispatch.jit(self._delta)
+        self._scan_kernel = dispatch.jit(self._scan)
+        self._finalize_kernel = dispatch.jit(self._finalize)
+
+    def _zeros(self, cap: int) -> torch.Tensor:
+        return torch.zeros((cap, self.G), dtype=torch.int64,
+                           device=self.device)
+
+    def _recharge(self) -> None:
+        """Standing ``[V, G]`` state is resident memory for the life of
+        the class: keep the matview staging account in sync with its
+        current footprint."""
+        n = self.rows.numel() * self.rows.element_size()
+        for t in (*self.datas, *self.cnts):
+            n += t.numel() * t.element_size()
+        mon = flowmem.staging_monitor("matview")
+        if n > self._charged:
+            mon.reserve(n - self._charged, force=True)
+        elif n < self._charged:
+            mon.release(self._charged - n)
+        self._charged = n
+
+    def close(self) -> None:
+        if self._charged:
+            flowmem.staging_monitor("matview").release(self._charged)
+            self._charged = 0
+
+    # -- state array management -----------------------------------------
+
+    def _empty_state(self, spec, cap: int) -> torch.Tensor:
+        dt = _spec_state_dtype(spec, self.in_schema)
+        if spec.func in ("min", "max", "any_not_null"):
+            sent = agg._minmax_sentinel(dt, spec.func == "min")
+            return torch.full((cap, self.G), sent, dtype=dt,
+                              device=self.device)
+        return torch.zeros((cap, self.G), dtype=dt, device=self.device)
+
+    @property
+    def cap(self) -> int:
+        return int(self.rows.shape[0])
+
+    def live_count(self) -> int:
+        return sum(1 for v in self.views if v is not None)
+
+    def alloc_slot(self, view: ViewState) -> int:
+        for i, v in enumerate(self.views):
+            if v is None:
+                self.views[i] = view
+                break
+        else:
+            self.views.append(view)
+            i = len(self.views) - 1
+        if i >= self.cap:
+            grow = _bucket(i + 1) - self.cap
+            self.datas = [torch.cat([d, self._empty_state(sp, grow)])
+                          for sp, d in zip(self.pspecs, self.datas)]
+            self.cnts = [torch.cat([c, self._zeros(grow)])
+                         for c in self.cnts]
+            self.rows = torch.cat([self.rows, self._zeros(grow)])
+            self._recharge()
+        view.cls, view.slot = self, i
+        self._params = None
+        return i
+
+    def free_slot(self, view: ViewState) -> None:
+        if 0 <= view.slot < len(self.views):
+            self.views[view.slot] = None
+        view.cls, view.slot = None, -1
+        self._params = None
+
+    def param_tensors(self, values) -> tuple:
+        """One view's literals as 0-d tensors on the class's device."""
+        return tuple(torch.tensor(np.asarray(v).item(), dtype=t.torch_dtype,
+                                  device=self.device)
+                     for v, t in zip(values, self.param_types))
+
+    def _padded_params(self):
+        """Per-slot ``[cap]`` value vectors + live mask + per-view
+        frontier vector, padded to the state capacity, on the device.
+        Dead slots repeat a live view's values so the batched lanes
+        evaluate real literals."""
+        if self._params is None:
+            cap = self.cap
+            cols = [np.zeros((cap,), dtype=t.dtype)
+                    for t in self.param_types]
+            live = np.zeros((cap,), dtype=bool)
+            fill = next((v.values for v in self.views if v is not None),
+                        tuple(np.zeros((), t.dtype)
+                              for t in self.param_types))
+            for s in range(cap):
+                v = self.views[s] if s < len(self.views) else None
+                vals = v.values if v is not None else fill
+                for ci, x in enumerate(vals):
+                    cols[ci][s] = x
+                live[s] = v is not None
+            self._params = (
+                tuple(torch.from_numpy(c).to(self.device) for c in cols),
+                torch.from_numpy(live).to(self.device))
+        min_ts = np.zeros((self.cap,), np.int64)
+        for s, v in enumerate(self.views):
+            if v is not None:
+                min_ts[s] = v.frontier
+        return (self._params[0], self._params[1],
+                torch.from_numpy(min_ts).to(self.device))
+
+    # -- the kernels -------------------------------------------------------
+
+    def _tile_states(self, cols, mask, ts, min_ts):
+        """filter/project/group/fold over one delta tile for ONE view
+        (inside param_scope; batched over views by the delta kernel). The
+        one-hot tile fold of ops/aggregation.smallgroup_partial_states
+        plus per-spec contributing counts — integer and DECIMAL
+        reductions are exact, so this matches the scan path bit for
+        bit."""
+        m = mask
+        if ts is not None:
+            # events at or below the view's frontier are already folded
+            # in (or covered by its initial scan): the no-duplication half
+            # of the frontier discipline, enforced on the device
+            m = m & (ts > min_ts)
+        cur = cols
+        for st, sch in zip(self.info.stages, self.info.stage_schemas):
+            if isinstance(st, S.Filter):
+                d, v = ex.eval_expr(st.predicate, cur, sch)
+                m = m & d & v
+            else:
+                cur = tuple(
+                    Column(*ex.eval_expr(e, cur, sch)) for e in st.exprs)
+        b = Batch(cols=cur, mask=m)
+        code, oob = agg.dense_group_codes(
+            b, self.gcols, self.strides, self.key_sizes, self.key_lows)
+        live = m & ~oob
+        codes = torch.clamp(code, 0, self.G - 1)
+        onehot = codes[:, None] == torch.arange(
+            self.G, dtype=codes.dtype, device=codes.device)[None, :]
+        onehot = onehot & live[:, None]
+        rows = torch.sum(onehot, dim=0, dtype=torch.int64)
+        datas, cnts = [], []
+        for spec in self.pspecs:
+            if spec.func == "count_rows":
+                datas.append(rows)
+                cnts.append(rows)
+                continue
+            col = b.cols[spec.col]
+            t = self.in_schema.types[spec.col]
+            member = onehot & col.valid[:, None]
+            cnt = torch.sum(member, dim=0, dtype=torch.int64)
+            if spec.func == "count":
+                datas.append(cnt)
+            elif spec.func == "sum":
+                if t.family is Family.FLOAT:
+                    v = torch.where(
+                        member, col.data.to(torch.float64)[:, None], 0.0)
+                else:
+                    v = torch.where(
+                        member, col.data.to(torch.int64)[:, None], 0)
+                datas.append(torch.sum(v, dim=0))
+            elif spec.func in ("min", "max", "any_not_null"):
+                is_min = spec.func == "min"
+                sent = agg._minmax_sentinel(col.data.dtype, is_min)
+                v = torch.where(member, col.data[:, None], sent)
+                datas.append(torch.amin(v, dim=0) if is_min
+                             else torch.amax(v, dim=0))
+            else:
+                raise ValueError(
+                    f"unsupported standing-view aggregate {spec.func}")
+            cnts.append(cnt)
+        oob_n = torch.sum(oob & m, dtype=torch.int64)
+        return datas, cnts, rows, oob_n
+
+    def _merge_states(self, a, b):
+        """Fold two (datas, cnts, rows, oob) partial states of one view."""
+        ad, ac, ar, ao = a
+        bd, bc, br, bo = b
+        out = []
+        for spec, x, y in zip(self.pspecs, ad, bd):
+            if spec.func == "min":
+                out.append(torch.minimum(x, y))
+            elif spec.func in ("max", "any_not_null"):
+                out.append(torch.maximum(x, y))
+            else:
+                out.append(x + y)
+        return (out, [x + y for x, y in zip(ac, bc)], ar + br, ao + bo)
+
+    def _apply_delta(self, pvals, min_ts, acc_d, acc_c, acc_r,
+                     ins_cols, ins_mask, ins_ts, ret_cols, ret_mask,
+                     ret_ts):
+        """One view's ``acc + ins - ret`` over its accumulator rows.
+        min/max merge inserts monotonically and flag ``dirty`` when a
+        retraction ties or beats the standing extremum — the only case
+        delta algebra cannot answer without the base table."""
+        with ex.param_scope(tuple(pvals)):
+            i_d, i_c, i_r, i_oob = self._tile_states(
+                ins_cols, ins_mask, ins_ts, min_ts)
+            r_d, r_c, r_r, r_oob = self._tile_states(
+                ret_cols, ret_mask, ret_ts, min_ts)
+        new_r = acc_r + i_r - r_r
+        out_d, out_c = [], []
+        dirty = torch.zeros((), dtype=torch.bool, device=acc_r.device)
+        for spec, ad, ac, idv, ic, rd, rc in zip(
+                self.pspecs, acc_d, acc_c, i_d, i_c, r_d, r_c):
+            nc = ac + ic - rc
+            if spec.func in ("sum", "count", "count_rows"):
+                nd = ad + idv - rd
+            else:
+                is_min = spec.func == "min"
+                sent = agg._minmax_sentinel(ad.dtype, is_min)
+                merged = (torch.minimum(ad, idv) if is_min
+                          else torch.maximum(ad, idv))
+                # empty groups reset to the sentinel so later inserts
+                # merge cleanly instead of against a stale extremum
+                nd = torch.where(nc > 0, merged, sent)
+                hit = (rc > 0) & (nc > 0) & (
+                    (rd <= ad) if is_min else (rd >= ad))
+                dirty = dirty | torch.any(hit)
+            out_d.append(nd)
+            out_c.append(nc)
+        return out_d, out_c, new_r, i_oob + r_oob, dirty
+
+    def view_chunk(self, rows: int) -> int:
+        """Views per batched pass: the one-hot intermediates of a chunk
+        stay under ``ONEHOT_BYTES``."""
+        per_view = max(1, rows * self.G * _BYTES_PER_CELL)
+        return max(1, ONEHOT_BYTES // per_view)
+
+    def _delta(self, acc_d, acc_c, acc_r, live, ins_val, ins_sel, ins_ts,
+               ret_val, ret_sel, ret_ts, pvals, min_ts):
+        from ..storage import rowcodec
+
+        ib = rowcodec.decode_columns(
+            ins_val, ins_sel, self.table_schema, self.scan_idxs)
+        rb = rowcodec.decode_columns(
+            ret_val, ret_sel, self.table_schema, self.scan_idxs)
+
+        def one(pv, mt, ad, ac, ar):
+            return self._apply_delta(
+                pv, mt, ad, ac, ar, ib.cols, ib.mask, ins_ts,
+                rb.cols, rb.mask, ret_ts)
+
+        batched = torch.func.vmap(one)
+        V = live.shape[0]
+        step = self.view_chunk(max(ins_sel.shape[0], ret_sel.shape[0]))
+        parts = []
+        for lo in range(0, V, step):
+            sl = slice(lo, lo + step)
+            parts.append(batched(
+                tuple(p[sl] for p in pvals), min_ts[sl],
+                [d[sl] for d in acc_d], [c[sl] for c in acc_c],
+                acc_r[sl]))
+        if len(parts) == 1:
+            nd, nc, nr, oob, dirty = parts[0]
+        else:
+            nd = [torch.cat([p[0][j] for p in parts])
+                  for j in range(len(acc_d))]
+            nc = [torch.cat([p[1][j] for p in parts])
+                  for j in range(len(acc_c))]
+            nr, oob, dirty = (torch.cat([p[k] for p in parts])
+                              for k in (2, 3, 4))
+        # dead/padded slots keep their old state untouched
+        lv = live[:, None]
+        nd = [torch.where(lv, n, o) for n, o in zip(nd, acc_d)]
+        nc = [torch.where(lv, n, o) for n, o in zip(nc, acc_c)]
+        nr = torch.where(lv, nr, acc_r)
+        return nd, nc, nr, oob, dirty
+
+    def _scan(self, cols, mask, pvals):
+        """One view's full state over a base-table batch, in row chunks
+        whose one-hot intermediates stay under ``ONEHOT_BYTES``."""
+        n = mask.shape[0]
+        step = max(_MIN_TILE, ONEHOT_BYTES // (self.G * _BYTES_PER_CELL))
+        acc = None
+        with ex.param_scope(tuple(pvals)):
+            for lo in range(0, n, step):
+                part = self._tile_states(
+                    tuple(Column(c.data[lo:lo + step],
+                                 c.valid[lo:lo + step]) for c in cols),
+                    mask[lo:lo + step], None, None)
+                acc = part if acc is None else self._merge_states(acc, part)
+        return acc
+
+    def _finalize(self, states, rows):
+        return agg.dense_finalize(
+            self.in_schema, self.gcols, self.strides, self.key_sizes,
+            self.G, self.final_map, states, rows, key_lows=self.key_lows)
+
+    # -- finalize (read path) ---------------------------------------------
+
+    def finalize_slot(self, slot: int) -> Batch:
+        """The view's final result batch from its standing state — the
+        same dense_finalize the scan path ends in."""
+        states = []
+        for spec, d, c in zip(self.pspecs, self.datas, self.cnts):
+            if spec.func in ("count", "count_rows"):
+                valid = torch.ones((self.G,), dtype=torch.bool,
+                                   device=self.device)
+            else:
+                valid = c[slot] > 0
+            states.append((d[slot], valid))
+        return self._finalize_kernel(states, self.rows[slot])
+
+
+# ---------------------------------------------------------------------------
+# the maintainer
+
+
+class ViewMaintainer:
+    """All standing views over one base KV table: one LocalSubscriber,
+    one shadow, one shared resolved frontier, one flush that refreshes
+    every view in one dispatch per shape class.
+
+    ``rebuild_cb(view)`` is provided by the registry (sql/matview.py):
+    it re-binds the view's defining SELECT so an out-of-bounds group key
+    (dictionary growth since CREATE) gets a fresh dense layout."""
+
+    def __init__(self, table, hub, rebuild_cb=None):
+        from ..storage import rowcodec
+
+        self.table = table          # kv.table.KVTable
+        self.db = table.db
+        self.device = table.device
+        self.hub = hub
+        self.rebuild_cb = rebuild_cb
+        self.span = rowcodec.table_span(table.table_id)
+        self._mu = locks.rlock("sql.matview.state")
+        self.classes: dict = {}     # class key -> ShapeClass
+        self.frontier = 0
+        self._shadow: dict[bytes, bytes] = {}
+        self.prime_s = 0.0          # seconds the shadow's replay took
+        self.mon = flowmem.staging_monitor(
+            "matview", budget=int(settings.get("sql.matview.staging_bytes")))
+        self.sub = hub.add_local(start=self.span[0], end=self.span[1])
+        if self.sub is None:
+            raise RuntimeError("fan-out hub refused the matview "
+                               "subscription (at max_subscribers?)")
+        with self.locked():
+            self._prime_locked()
+
+    @contextlib.contextmanager
+    def locked(self):
+        """The device (``dispatch.exec_lock``), then this maintainer's
+        state lock."""
+        with dispatch.exec_lock(), self._mu:
+            yield
+
+    # -- feed plumbing ----------------------------------------------------
+
+    def _scan_delta(self, lo: int):
+        """Catch-up path: events in ``(lo, resolved]`` straight from the
+        engine with the hub's span-local resolved discipline — what a
+        shed/evicted subscription resumes from (and what primes the
+        shadow at startup)."""
+        from ..kv.changefeed import _scan
+
+        now = int(self.db.clock.now())
+        versions, intents = _scan(self.db, lo, now, self.span[0],
+                                  self.span[1])
+        resolved = now
+        for its, _ikey in intents:
+            resolved = min(resolved, int(its) - 1)
+        resolved = max(resolved, lo)
+        events = [(int(t), k, v) for t, k, v in versions
+                  if int(t) <= resolved]
+        return events, resolved
+
+    def _prime_locked(self) -> None:
+        """Build the shadow at the current resolved frontier by replaying
+        the table's committed history, then ack the subscription there —
+        from here on the buffered feed is the only input."""
+        t0 = time.perf_counter()
+        events, resolved = self._scan_delta(0)
+        for _ts, key, val in events:
+            if val is None:
+                self._shadow.pop(key, None)
+            else:
+                self._shadow[key] = val
+        racesan.note_write(self, "frontier")
+        self.frontier = resolved
+        self.sub.ack(resolved)
+        self.prime_s = time.perf_counter() - t0
+
+    def pending(self) -> bool:
+        """Anything to flush? Cheap: one hub-lock peek, no engine scan."""
+        events, resolved, _ = self.sub.peek()
+        racesan.note_read(self, "frontier")
+        return events is None or bool(events) or resolved > self.frontier
+
+    def pump(self) -> None:
+        """Deterministically run one hub poll (tests/bench: make writes
+        committed before `now` visible in the buffer without waiting on
+        the poller thread)."""
+        self.hub._poll_once()
+
+    # -- view membership --------------------------------------------------
+
+    def class_for(self, key, info: PipelineInfo, param_types) -> ShapeClass:
+        cls = self.classes.get(key)
+        if cls is None:
+            idxs = (tuple(self.table.schema.index(n)
+                          for n in info.scan.columns)
+                    if info.scan.columns is not None
+                    else tuple(range(len(self.table.schema))))
+            cls = ShapeClass(key, info, param_types, self.table.schema,
+                             idxs, self.device)
+            self.classes[key] = cls
+        return cls
+
+    def add_view(self, view: ViewState, key, info: PipelineInfo,
+                 param_types) -> None:
+        """Register + initially populate: flush everyone to the current
+        resolved frontier first so the newcomer's base scan (at that
+        same frontier) lines up exactly with the feed."""
+        with self.locked():
+            self.flush()
+            cls = self.class_for(key, info, param_types)
+            cls.alloc_slot(view)
+            self._rescan_slot(view, self.frontier, commit=True)
+            view.full_rescans += 1
+            metric.MATVIEW_FULL_RESCANS.inc()
+
+    def drop_view(self, view: ViewState) -> None:
+        with self.locked():
+            cls = view.cls
+            if cls is None:
+                return
+            cls.free_slot(view)
+            if cls.live_count() == 0:
+                self.classes.pop(cls.key, None)
+                cls.close()
+
+    def views(self) -> list[ViewState]:
+        with self._mu:
+            return [v for c in self.classes.values() for v in c.views
+                    if v is not None]
+
+    # -- rescan (init / restart / min-max fallback) -----------------------
+
+    def _rescan_slot(self, view: ViewState, ts: int,
+                     commit: bool) -> tuple:
+        """Recompute one view's full ``[G]`` state from a base-table
+        snapshot at ``ts`` through the same pipeline the delta path uses,
+        one dispatch over the scanned batch. Returns the per-spec (datas,
+        cnts, rows); commits into the class arrays when ``commit`` (init
+        path), else leaves that to the flush's atomic swap (fallback)."""
+        from ..kv.table import reading_at
+
+        cls = view.cls
+        names = (cls.info.scan.columns
+                 if cls.info.scan.columns is not None
+                 else self.table.schema.names)
+        with reading_at(self.db, ts):
+            batch = self.table.device_batch(tuple(names))
+        nbytes = sum(c.data.numel() * c.data.element_size()
+                     for c in batch.cols)
+        with flowmem.staged("matview", nbytes):
+            datas, cnts, rows, _oob = dispatch.own(cls._scan_kernel(
+                batch.cols, batch.mask, cls.param_tensors(view.values)))
+        if commit:
+            for d, nd in zip(cls.datas, datas):
+                d[view.slot] = nd
+            for c, nc in zip(cls.cnts, cnts):
+                c[view.slot] = nc
+            cls.rows[view.slot] = rows
+            cls.gen += 1
+            racesan.note_write(view, "frontier")
+            view.frontier = int(ts)
+            view.stale = True
+        return datas, cnts, rows
+
+    # -- the flush --------------------------------------------------------
+
+    def _stage_tiles(self, rows: list):
+        """list[(ts, value bytes)] -> padded device tiles. Values from the
+        feed are vlen-truncated; re-pad to the engine's value width so
+        the decode sees the layout it expects."""
+        vw = int(self.db.engine.val_width)
+        cap = _bucket(len(rows))
+        vals = np.zeros((cap, vw), np.uint8)
+        sel = np.zeros((cap,), bool)
+        ts = np.zeros((cap,), np.int64)
+        for i, (t, v) in enumerate(rows):
+            b = np.frombuffer(v, dtype=np.uint8)
+            vals[i, : len(b)] = b
+            sel[i] = True
+            ts[i] = t
+        n = vals.nbytes + sel.nbytes + ts.nbytes
+        dev = self.device
+        return (torch.from_numpy(vals).to(dev), torch.from_numpy(sel).to(dev),
+                torch.from_numpy(ts).to(dev), n)
+
+    def flush(self) -> bool:
+        """Drain the buffered delta into every standing view. Everything
+        is computed BEFORE anything is swapped; the three fault sites
+        bracket compute so an injected failure anywhere leaves (state,
+        shadow, frontier, buffer) exactly as they were — the retry
+        re-applies the identical delta. Returns True when state moved."""
+        with self.locked():
+            return self._flush_locked()
+
+    def _flush_locked(self) -> bool:
+        t0 = time.monotonic()
+        faults.fire("matview.flush")
+        events, resolved, oldest = self.sub.peek()
+        racesan.note_read(self, "frontier")
+        applied = self.frontier
+        if events is None:
+            # shed/evicted: the engine holds the delta — resume by
+            # scanning from the applied frontier (reconnect discipline)
+            events, resolved = self._scan_delta(applied)
+        events = [e for e in events if e[0] > applied]
+        if not events and resolved <= applied:
+            return False
+        if not events:
+            # frontier-only advance: no delta work, just the watermark
+            faults.fire("matview.frontier.checkpoint")
+            self._commit_locked(resolved, {}, {}, t0, oldest, 0)
+            return True
+
+        # -- delta algebra against the shadow (host, O(events)) ----------
+        _absent = object()
+        ins_rows: list = []
+        ret_rows: list = []
+        shadow_upd: dict = {}
+        for ts, key, val in events:
+            old = shadow_upd.get(key, _absent)
+            if old is _absent:
+                old = self._shadow.get(key)
+            if old is not None:
+                ret_rows.append((ts, old))
+            if val is not None:
+                ins_rows.append((ts, val))
+            shadow_upd[key] = val
+
+        ins_val, ins_sel, ins_ts, n_ins = self._stage_tiles(ins_rows)
+        ret_val, ret_sel, ret_ts, n_ret = self._stage_tiles(ret_rows)
+
+        # -- one dispatch per shape class ----------------------------------
+        new_states: dict = {}
+        fallbacks: list = []
+        with flowmem.staged("matview", n_ins + n_ret):
+            for cls in self.classes.values():
+                if cls.live_count() == 0:
+                    continue
+                faults.fire("matview.delta.apply")
+                pvals, live, min_ts = cls._padded_params()
+                nd, nc, nr, oob, dirty = dispatch.own(cls._delta_kernel(
+                    cls.datas, cls.cnts, cls.rows, live, ins_val,
+                    ins_sel, ins_ts, ret_val, ret_sel, ret_ts, pvals,
+                    min_ts))
+                flags = torch.stack([oob, dirty.to(torch.int64)]).cpu()
+                oob_np, dirty_np = flags[0].numpy(), flags[1].numpy()
+                for slot, view in enumerate(cls.views):
+                    if view is None:
+                        continue
+                    if oob_np[slot] > 0:
+                        fallbacks.append(("oob", view))
+                    elif dirty_np[slot]:
+                        # min/max retraction hit the standing extremum:
+                        # recompute this view from the base table at the
+                        # NEW frontier and splice it into the pending
+                        # swap — still pre-commit, still retry-safe
+                        sd, sc, sr = self._rescan_slot(
+                            view, resolved, commit=False)
+                        for d, x in zip(nd, sd):
+                            d[slot] = x
+                        for c, x in zip(nc, sc):
+                            c[slot] = x
+                        nr[slot] = sr
+                        fallbacks.append(("minmax", view))
+                new_states[cls.key] = (nd, nc, nr)
+
+        faults.fire("matview.frontier.checkpoint")
+        self._commit_locked(resolved, new_states, shadow_upd, t0, oldest,
+                            len(events))
+        for kind, view in fallbacks:
+            if kind == "minmax":
+                view.minmax_rescans += 1
+                metric.MATVIEW_MINMAX_RESCANS.inc()
+            else:
+                self._rebuild_view(view)
+        return True
+
+    def _commit_locked(self, resolved, new_states, shadow_upd, t0,
+                       oldest, n_events) -> None:
+        """The atomic half: nothing before this mutated anything, and no
+        fault site lies past this point, so state, shadow, frontier and
+        ack move together."""
+        for key, (nd, nc, nr) in new_states.items():
+            cls = self.classes.get(key)
+            if cls is None:
+                continue
+            cls.datas, cls.cnts, cls.rows = nd, nc, nr
+            cls.gen += 1
+            for v in cls.views:
+                if v is not None:
+                    racesan.note_write(v, "frontier")
+                    v.frontier = resolved
+                    v.stale = True
+        racesan.note_write(self, "frontier")
+        self.frontier = resolved
+        # views in classes untouched this flush still advance: their state
+        # at `applied` equals their state at `resolved` (an empty delta)
+        for cls in self.classes.values():
+            for v in cls.views:
+                if v is not None and v.frontier < resolved:
+                    racesan.note_write(v, "frontier")
+                    v.frontier = resolved
+        for k, v in shadow_upd.items():
+            if v is None:
+                self._shadow.pop(k, None)
+            else:
+                self._shadow[k] = v
+        self.sub.ack(resolved)
+        metric.MATVIEW_FLUSHES.inc()
+        if n_events:
+            metric.MATVIEW_DELTA_EVENTS.inc(n_events)
+        lag = time.monotonic() - (oldest if oldest is not None else t0)
+        metric.MATVIEW_REFRESH_LAG_SECONDS.observe(max(0.0, lag))
+        for cls in self.classes.values():
+            for v in cls.views:
+                if v is not None:
+                    v.last_lag_s = max(0.0, lag)
+
+    def _rebuild_view(self, view: ViewState) -> None:
+        """Out-of-bounds group key: the dense layout minted at CREATE
+        cannot hold it. Re-bind the defining SELECT (fresh dictionary
+        sizes -> fresh layout) and repopulate by base rescan."""
+        view.full_rescans += 1
+        metric.MATVIEW_FULL_RESCANS.inc()
+        if self.rebuild_cb is not None:
+            self.rebuild_cb(view)
+        else:  # no registry (direct use): rescan in place
+            log.warning(log.OPS, "matview oob without rebuild_cb",
+                        view=view.name)
+            with self.locked():
+                self._rescan_slot(view, self.frontier, commit=True)
+
+    def close(self) -> None:
+        with self.locked():
+            for cls in self.classes.values():
+                cls.close()
+            self.classes.clear()
+            self._shadow.clear()
+        if self.sub is not None:
+            self.sub.close()
+            self.sub = None

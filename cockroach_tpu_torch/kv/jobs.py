@@ -7,10 +7,11 @@ drives each job and checkpoints its progress, so a job whose resumer
 died resumes from the checkpoint when it is adopted again.
 
 States: pending -> running -> succeeded | failed. The port carries the
-IMPORT and CREATE INDEX job types (``register_import_job`` here,
-``kv.index.register_create_index_job``). Node liveness, with its epoch
-fencing and orphan adoption, and the backup and changefeed job types are
-not ported: every claim is this registry's own.
+IMPORT, CREATE INDEX and changefeed job types (``register_import_job``
+here, ``kv.index.register_create_index_job``,
+``kv.changefeed.register_changefeed_job``). Node liveness, with its
+epoch fencing and orphan adoption, and the backup job type are not
+ported: every claim is this registry's own.
 """
 
 from __future__ import annotations

@@ -59,6 +59,31 @@ def reading_as(txn: Txn):
         _READ_AS.reset(tok)
 
 
+class _Snapshot:
+    """A read snapshot outside any transaction: ``reading_at``'s stand-in
+    for the Txn that ``read_context`` reads (its database, read
+    timestamp, and txn id 0: no intent is this reader's own)."""
+
+    __slots__ = ("db", "read_ts", "txn_id")
+
+    def __init__(self, db: DB, read_ts: int):
+        self.db = db
+        self.read_ts = int(read_ts)
+        self.txn_id = 0
+
+
+@contextlib.contextmanager
+def reading_at(db: DB, ts: int):
+    """Within the block, this thread's scans of db's tables read AT `ts`
+    (the materialized-view rescan); other threads keep their own read
+    context, and no table's shared pin is written."""
+    tok = _READ_AS.set(_Snapshot(db, ts))
+    try:
+        yield
+    finally:
+        _READ_AS.reset(tok)
+
+
 def unique_strings(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """``np.unique(a.astype(str), return_inverse=True)`` through one hash
     pass: the distinct values sorted by code point (numpy's unicode order)

@@ -33,8 +33,12 @@ def explain(catalog, text: str, session=None) -> str:
                 debug = True
                 t = t[len("(debug)"):].lstrip()
     rel = sql(catalog, t)
+    from . import matview
+
+    note = matview.explain_note(catalog, rel)
+    prefix = (note + "\n") if note else ""
     if distsql:
-        return rel.explain_distributed()
+        return prefix + rel.explain_distributed()
     if analyze:
         from . import plancache
         from ..storage import blockcache
@@ -45,7 +49,8 @@ def explain(catalog, text: str, session=None) -> str:
         elapsed = _time.perf_counter() - t0
         # status a normal execution of this statement would see
         # (analyze itself always runs a fresh instrumented tree)
-        out = rendered + f"\nplan cache: {plancache.probe(rel)}"
+        out = (prefix + rendered
+               + f"\nplan cache: {plancache.probe(rel)}")
         out += f"\nblock cache: {blockcache.node_cache().describe()}"
         aq = admission.sql_queue()
         pri = admission.classify_statement(t)
@@ -68,7 +73,7 @@ def explain(catalog, text: str, session=None) -> str:
                 trigger="explain_analyze_debug")
             out += f"\ndiagnostics bundle: {bundle['id']}"
         return out
-    return rel.explain()
+    return prefix + rel.explain()
 
 
 __all__ = ["BindError", "Rel", "Session", "UnportedError", "explain",

@@ -21,8 +21,9 @@ treats the prefix as volatile) — a cached snapshot would freeze time.
 The port of ``cockroach_tpu.sql.crdb_internal`` over the registries the
 port has: statement statistics, live sessions and queries, the memory
 monitor tree, tenant admission, the metric registry, the open trace
-spans, the serving load (device figures from ``torch.cuda``) and the
-warm menu. The reference's other tables read modules the port has not
+spans, the serving load (device figures from ``torch.cuda``), the warm
+menu, the changefeed fan-out plane and the materialized views. The
+reference's other tables read modules the port has not
 got yet; naming one raises ``UnportedError`` (a ``BindError``) with the
 module it needs.
 """
@@ -267,6 +268,58 @@ def _node_warmup_menu(catalog) -> Table:
     ])
 
 
+def _node_changefeed_subscribers(catalog) -> Table:
+    """Per-registration fan-out state (the changefeed observability
+    surface): span, resolved frontier, buffered bytes/events, and the
+    backpressure-ladder counters (coalesced, sheds), one row per live
+    subscriber across every rangefeed hub on this node — so one query
+    answers "who is behind, by how much, and what has the ladder already
+    done about it"."""
+    from ..kv import fanout
+
+    rows = fanout.subscriber_rows()
+    return _table("crdb_internal.node_changefeed_subscribers", [
+        ("hub", T.STRING, _strs(r["hub"] for r in rows)),
+        ("subscriber_id", T.INT64, _ints(r["subscriber_id"] for r in rows)),
+        ("state", T.STRING, _strs(r["state"] for r in rows)),
+        ("span_start", T.STRING, _strs(r["span_start"] for r in rows)),
+        ("span_end", T.STRING, _strs(r["span_end"] for r in rows)),
+        ("frontier", T.INT64, _ints(r["frontier"] for r in rows)),
+        ("buffered_bytes", T.INT64,
+         _ints(r["buffered_bytes"] for r in rows)),
+        ("buffered_events", T.INT64,
+         _ints(r["buffered_events"] for r in rows)),
+        ("sent_events", T.INT64, _ints(r["sent_events"] for r in rows)),
+        ("coalesced", T.INT64, _ints(r["coalesced"] for r in rows)),
+        ("sheds", T.INT64, _ints(r["sheds"] for r in rows)),
+        ("age_s", T.FLOAT64, _floats(r["age_s"] for r in rows)),
+    ])
+
+
+def _node_materialized_views(catalog) -> Table:
+    """Per-view standing state (the incremental-matview observability
+    surface): group count, resolved frontier, last refresh lag, and the
+    two fallback counters — min/max retraction rescans (delta algebra
+    couldn't answer) and full rebuilds (group key outgrew the dense
+    layout) — one row per registered view on this catalog."""
+    from . import matview
+
+    reg = matview.registry_for(catalog)
+    rows = reg.rows() if reg is not None else []
+    return _table("crdb_internal.node_materialized_views", [
+        ("view", T.STRING, _strs(r["view"] for r in rows)),
+        ("base_table", T.STRING, _strs(r["base_table"] for r in rows)),
+        ("groups", T.INT64, _ints(r["groups"] for r in rows)),
+        ("frontier", T.INT64, _ints(r["frontier"] for r in rows)),
+        ("refresh_lag_s", T.FLOAT64,
+         _floats(r["refresh_lag_s"] for r in rows)),
+        ("minmax_rescans", T.INT64,
+         _ints(r["minmax_rescans"] for r in rows)),
+        ("full_rescans", T.INT64, _ints(r["full_rescans"] for r in rows)),
+        ("stale", T.STRING, _strs(r["stale"] for r in rows)),
+    ])
+
+
 _BUILDERS = {
     "crdb_internal.node_statement_statistics": _stmt_statistics,
     "crdb_internal.cluster_queries": _cluster_queries,
@@ -277,13 +330,14 @@ _BUILDERS = {
     "crdb_internal.cluster_load": _cluster_load,
     "crdb_internal.node_tenant_admission": _node_tenant_admission,
     "crdb_internal.node_warmup_menu": _node_warmup_menu,
+    "crdb_internal.node_changefeed_subscribers":
+        _node_changefeed_subscribers,
+    "crdb_internal.node_materialized_views": _node_materialized_views,
 }
 
 # the reference's tables whose registries live in modules not yet ported
 UNPORTED = {
     "crdb_internal.hot_ranges": "kv/loadstats.py",
-    "crdb_internal.node_changefeed_subscribers": "kv/fanout.py",
-    "crdb_internal.node_materialized_views": "sql/matview.py",
 }
 
 

@@ -1,0 +1,529 @@
+"""Materialized views — standing grouped aggregates fed by the changefeed;
+the port of ``cockroach_tpu.sql.matview``.
+
+Reference: CockroachDB materialized views (pkg/sql/create_view.go with
+``materialized=true``) are stored relations refreshed by full re-run
+(``REFRESH MATERIALIZED VIEW``). Here the refresh is INCREMENTAL and
+continuous: CREATE MATERIALIZED VIEW over a dense grouped-aggregate
+query registers a standing view whose state is the fused pipeline's
+fold accumulators, maintained from the table's changefeed event stream
+by :mod:`..flow.viewmaint` (see that module for the delta algebra).
+
+This module is the SQL surface:
+
+- **DDL**: ``CREATE MATERIALIZED VIEW v AS SELECT ...`` /
+  ``DROP MATERIALIZED VIEW v`` / ``REFRESH MATERIALIZED VIEW v``
+  (regex-dispatched from Session like the other admin verbs);
+- **read path**: the view is a plain catalog Table served like any
+  host table; it lazily re-materializes from the standing device state
+  when the state generation moved (``SELECT * FROM v`` never pays
+  O(base table), only O(groups));
+- **freshness**: reads refresh-on-read by default
+  (``sql.matview.refresh_on_read.enabled``): statements naming a view
+  first pump + flush its maintainer, so results are AS OF the resolved
+  frontier at statement start — the changefeed resolved-timestamp bound,
+  never a torn mid-flush state;
+- **planner rewrite** (``sql.matview.rewrite.enabled``): a SELECT whose
+  bound plan matches a registered view's parameterized shape AND literal
+  values serves from the standing state (the Aggregate subtree becomes a
+  TableScan of the view; trailing ORDER BY/LIMIT reapply unchanged) —
+  EXPLAIN shows the substitution.
+
+The registry hangs off the catalog (``catalog._matview_registry``, the
+``_plan_cache`` idiom) so independent catalogs never share views. Its
+device work (finalize, the maintainers' flushes) runs where the base
+table's engine lives, under ``flow/dispatch.exec_lock``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import numpy as np
+
+from ..catalog import Table
+from ..coldata.types import Family
+from ..flow import viewmaint
+from ..plan import spec as S
+from ..utils import locks, metric, racesan, settings
+from .binder import BindError, Binder
+from . import parser as P
+
+_CREATE_RE = re.compile(
+    r"(?is)^create\s+materialized\s+view\s+([a-z_][a-z0-9_]*)\s+as\s+(.+)$")
+_DROP_RE = re.compile(
+    r"(?is)^drop\s+materialized\s+view\s+([a-z_][a-z0-9_]*)$")
+_REFRESH_RE = re.compile(
+    r"(?is)^refresh\s+materialized\s+view\s+([a-z_][a-z0-9_]*)$")
+
+
+class MatviewError(BindError):
+    pass
+
+
+def _scaled_params(values, types) -> tuple:
+    """Filter literals in the device domain — the exact ParamStore
+    scaling (sql/plancache.py set_values), so a standing view's stored
+    literals compare equal to a fresh statement's extracted ones."""
+    out = []
+    for v, t in zip(values, types):
+        if t.family is Family.DECIMAL:
+            v = int(round(float(v) * 10 ** t.scale))
+        out.append(np.asarray(v, dtype=t.dtype))
+    return tuple(out)
+
+
+def _peel(plan):
+    """Split ``plan`` into (order-preserving wrappers outermost-first,
+    core). ORDER BY / LIMIT / TOP-K don't change the standing state —
+    they reapply over the view scan."""
+    wrappers = []
+    while isinstance(plan, (S.Sort, S.TopK, S.Limit)):
+        wrappers.append(plan)
+        plan = plan.input
+    return wrappers, plan
+
+
+def _split_core(core):
+    """(aggregate node, output column permutation) for a view core.
+
+    The binder emits ``Project(names) -> Aggregate`` — a pure-ColRef
+    rename/reorder of the aggregate outputs. The Project is part of the
+    view's identity (it is in the class key) but at materialize time it
+    is just a column permutation over the finalized state. Returns
+    (None, None) when the core is not a maintainable shape."""
+    from ..ops import expr as ex
+
+    if isinstance(core, S.Project):
+        if not all(isinstance(e, ex.ColRef) for e in core.exprs):
+            return None, None
+        agg = core.input
+        perm = tuple(e.idx for e in core.exprs)
+    else:
+        agg = core
+        perm = None
+    if not isinstance(agg, S.Aggregate):
+        return None, None
+    if perm is None:
+        perm = tuple(range(len(agg.group_cols) + len(agg.aggs)))
+    return agg, perm
+
+
+def _find_scan(plan):
+    node = plan
+    while node is not None and not isinstance(node, S.TableScan):
+        node = getattr(node, "input", None)
+    return node
+
+
+class Registry:
+    """Every materialized view of one catalog: name -> ViewState plus one
+    :class:`~..flow.viewmaint.ViewMaintainer` per base table, all sharing
+    one fan-out hub (the N-views-one-poll-loop shape)."""
+
+    def __init__(self, catalog):
+        self.catalog = catalog
+        self._mu = locks.lock("sql.matview.registry")
+        self.views: dict[str, viewmaint.ViewState] = {}
+        self.maintainers: dict[str, viewmaint.ViewMaintainer] = {}
+        self.hub = None
+
+    # -- plumbing ---------------------------------------------------------
+
+    def _hub_for(self, db):
+        from ..kv.fanout import FanoutHub
+
+        if self.hub is None:
+            self.hub = FanoutHub(db, poll_interval_s=0.02, name="matview",
+                                 device=db.engine.device)
+        return self.hub
+
+    def _maintainer_for(self, base) -> viewmaint.ViewMaintainer:
+        m = self.maintainers.get(base.name)
+        if m is None:
+            m = viewmaint.ViewMaintainer(
+                base, self._hub_for(base.db), rebuild_cb=self._rebuild)
+            self.maintainers[base.name] = m
+        return m
+
+    def _bind_pipeline(self, select_text: str):
+        """Parse + bind the defining SELECT and carve out the maintainable
+        pipeline. Returns (rel, wrappers, class key, pinfo, scaled
+        values, param types, base KVTable)."""
+        from ..kv.table import KVTable
+        from . import plancache
+
+        stmt = P.parse_statement(select_text)
+        if not isinstance(stmt, P.Select):
+            raise MatviewError("materialized views are defined by a SELECT")
+        rel = Binder(self.catalog).bind(stmt)
+        wrappers, core = _peel(rel.plan)
+        agg, perm = _split_core(core)
+        if agg is None:
+            raise MatviewError(
+                "materialized view query must be a grouped aggregate "
+                "(optionally renamed/reordered) over one table scan")
+        scan = _find_scan(agg)
+        if scan is None:
+            raise MatviewError(
+                "materialized view query must scan exactly one table")
+        base = self.catalog.tables.get(scan.table)
+        if not isinstance(base, KVTable):
+            raise MatviewError(
+                f"materialized view base table {scan.table!r} must be "
+                "KV-backed (CREATE TABLE) — it is the changefeed source")
+        names = (scan.columns if scan.columns is not None
+                 else base.schema.names)
+        scan_schema = base.schema.select(
+            tuple(base.schema.index(n) for n in names))
+        try:
+            # the class key covers the WHOLE core (rename project
+            # included) so a statement's bound plan keys identically
+            pcore, values, types = plancache.parameterize(core)
+            key = plancache.plan_key(pcore)
+        except Exception as e:
+            raise MatviewError(
+                f"materialized view query is not shape-cacheable: {e}")
+        pagg = pcore.input if isinstance(pcore, S.Project) else pcore
+        pinfo = viewmaint.extract_pipeline(pagg, scan_schema)
+        if pinfo is None:
+            raise MatviewError(
+                "materialized view query must be a dense grouped "
+                "aggregate (GROUP BY bounded keys, aggregates in "
+                "sum/count/avg/min/max) over filters/projections of one "
+                "table scan")
+        return (rel, wrappers, key, pinfo, _scaled_params(values, types),
+                tuple(types), base, perm)
+
+    # -- DDL --------------------------------------------------------------
+
+    def create(self, name: str, select_text: str) -> dict:
+        if not settings.get("sql.matview.enabled"):
+            raise MatviewError("materialized views are disabled "
+                               "(sql.matview.enabled)")
+        with self._mu:
+            racesan.note_read(self, "views")
+            if name in self.catalog.tables or name in self.views:
+                raise MatviewError(f"relation {name!r} already exists")
+        rel, _w, key, pinfo, vals, types, base, perm = self._bind_pipeline(
+            select_text)
+        tbl = Table(
+            name=name,
+            schema=rel.schema,
+            columns={n: np.zeros((0,), dtype=t.dtype)
+                     for n, t in zip(rel.schema.names, rel.schema.types)},
+            dictionaries={rel.schema.names[i]: d
+                          for i, d in rel.dicts.items()},
+        )
+        view = viewmaint.ViewState(
+            name=name, select_text=select_text, values=vals,
+            out_schema=rel.schema, table=tbl)
+        view.param_types = types
+        view.base_table = base.name
+        view.out_perm = perm
+        m = self._maintainer_for(base)
+        m.add_view(view, key, pinfo, types)
+        with self._mu:
+            racesan.note_write(self, "views")
+            self.views[name] = view
+            metric.MATVIEW_VIEWS.set(len(self.views))
+        self.catalog.add(tbl)  # bumps the catalog version
+        self.materialize(view)
+        return {"created_view": name, "frontier": view.frontier}
+
+    def drop(self, name: str) -> dict:
+        with self._mu:
+            racesan.note_read(self, "views")
+            view = self.views.get(name)
+            if view is None:
+                raise MatviewError(f"unknown materialized view {name!r}")
+            racesan.note_write(self, "views")
+            del self.views[name]
+            metric.MATVIEW_VIEWS.set(len(self.views))
+        m = self.maintainers.get(view.base_table)
+        if m is not None:
+            m.drop_view(view)
+            if not any(v.base_table == view.base_table
+                       for v in self.views.values()):
+                m.close()
+                del self.maintainers[view.base_table]
+        self.catalog.tables.pop(name, None)
+        self.catalog.bump_version()
+        return {"dropped_view": name}
+
+    def refresh(self, name: str) -> dict:
+        with self._mu:
+            racesan.note_read(self, "views")
+            view = self.views.get(name)
+        if view is None:
+            raise MatviewError(f"unknown materialized view {name!r}")
+        self.refresh_view(view)
+        return {"refreshed": name, "frontier": view.frontier}
+
+    # -- refresh + read surface -------------------------------------------
+
+    def refresh_view(self, view) -> None:
+        m = self.maintainers.get(view.base_table)
+        if m is None:
+            return
+        m.pump()
+        m.flush()
+        self.materialize(view)
+
+    def materialize(self, view) -> None:
+        """Re-host the view's result table from its standing state when
+        the state generation moved — O(groups), one dense_finalize, never
+        a base-table scan. The in-place Table mutation plus a catalog
+        version bump is the schema-change invalidation discipline
+        (cached plans over the old rows re-key out of existence)."""
+        cls = view.cls
+        m = self.maintainers.get(view.base_table)
+        if cls is None or m is None:
+            return
+        with m.locked():
+            gen = (cls.gen, view.frontier)
+            if getattr(view, "_mat_gen", None) == gen:
+                return
+            batch = cls.finalize_slot(view.slot)
+            mask = batch.mask.cpu().numpy()
+            tbl = view.table
+            perm = getattr(view, "out_perm",
+                           tuple(range(len(batch.cols))))
+            # build the new generation aside, then swap whole dicts: a
+            # concurrent reader holds either the old generation or the
+            # new one (device_batch snapshots its host source), never a
+            # mix of re-hosted and stale columns
+            new_cols: dict[str, np.ndarray] = {}
+            new_valids: dict[str, np.ndarray] = {}
+            for n, ci in zip(view.out_schema.names, perm):
+                col = batch.cols[ci]
+                new_cols[n] = col.data.cpu().numpy()[mask]
+                valid = col.valid.cpu().numpy()[mask]
+                if not valid.all():
+                    new_valids[n] = valid
+            tbl.columns = new_cols
+            tbl.valids = new_valids
+            tbl._device_cols = None
+            tbl._stats = None
+            tbl._dense_keys = None
+            if hasattr(tbl, "table_stats"):
+                del tbl.table_stats
+            view._mat_gen = gen
+            view.stale = False
+        from . import plancache
+
+        self.catalog.bump_version()
+        plancache.cache_for(self.catalog).invalidate(self.catalog.version)
+
+    def _rebuild(self, view) -> None:
+        """Out-of-bounds group key (dictionary grew since CREATE): re-bind
+        the defining SELECT — the fresh bind sees the grown dictionary,
+        so the new dense layout holds every key — and repopulate by base
+        rescan at the maintainer's frontier. Called by the maintainer
+        post-commit, under its state lock (reentrant)."""
+        m = self.maintainers.get(view.base_table)
+        if m is None:
+            return
+        rel, _w, key, pinfo, vals, types, _base, perm = self._bind_pipeline(
+            view.select_text)
+        with m.locked():
+            old = view.cls
+            if old is not None:
+                old.free_slot(view)
+                if old.live_count() == 0:
+                    m.classes.pop(old.key, None)
+                    old.close()
+            view.values = vals
+            view.out_schema = rel.schema
+            view.param_types = types
+            view.out_perm = perm
+            view.table.dictionaries = {
+                rel.schema.names[i]: d for i, d in rel.dicts.items()}
+            cls = m.class_for(key, pinfo, types)
+            cls.alloc_slot(view)
+            m._rescan_slot(view, m.frontier, commit=True)
+
+    # -- introspection ----------------------------------------------------
+
+    def rows(self) -> list[dict]:
+        out = []
+        with self._mu:
+            racesan.note_read(self, "views")
+            views = list(self.views.values())
+        from ..flow import dispatch
+
+        for v in views:
+            cls = v.cls
+            groups = 0
+            if cls is not None and v.slot >= 0:
+                with dispatch.exec_lock():
+                    groups = int((cls.rows[v.slot] > 0).sum())
+            out.append({
+                "view": v.name,
+                "base_table": getattr(v, "base_table", ""),
+                "groups": groups,
+                "frontier": v.frontier,
+                "refresh_lag_s": v.last_lag_s,
+                "minmax_rescans": v.minmax_rescans,
+                "full_rescans": v.full_rescans,
+                "stale": v.stale,
+            })
+        return out
+
+    def close(self) -> None:
+        for m in list(self.maintainers.values()):
+            m.close()
+        self.maintainers.clear()
+        with self._mu:
+            racesan.note_write(self, "views")
+            self.views.clear()
+        if self.hub is not None:
+            self.hub.close()
+            self.hub = None
+
+
+# ---------------------------------------------------------------------------
+# module surface (Session / explain / vtable entry points)
+
+
+def registry_for(catalog, create: bool = False) -> Registry | None:
+    reg = getattr(catalog, "_matview_registry", None)
+    if reg is None and create:
+        reg = catalog._matview_registry = Registry(catalog)
+    return reg
+
+
+def close_all(catalog) -> None:
+    """Tear down the catalog's matview plane (tests: subscriber monitors
+    and the hub poller must not outlive the store)."""
+    reg = registry_for(catalog)
+    if reg is not None:
+        reg.close()
+        catalog._matview_registry = None
+
+
+def maybe_matview_stmt(session, text: str):
+    """The DDL dispatch hook (Session._dispatch, before parse — the
+    grammar lives here, not in the parser)."""
+    t = text.strip().rstrip(";")
+    m = _CREATE_RE.match(t)
+    if m:
+        if session._txn is not None:
+            raise MatviewError(
+                "DDL inside an explicit transaction is not supported")
+        reg = registry_for(session.catalog, create=True)
+        out = reg.create(m.group(1).lower(), m.group(2))
+        session._invalidate_plans()
+        return out
+    m = _DROP_RE.match(t)
+    if m:
+        if session._txn is not None:
+            raise MatviewError(
+                "DDL inside an explicit transaction is not supported")
+        reg = registry_for(session.catalog)
+        if reg is None:
+            raise MatviewError(
+                f"unknown materialized view {m.group(1).lower()!r}")
+        out = reg.drop(m.group(1).lower())
+        session._invalidate_plans()
+        return out
+    m = _REFRESH_RE.match(t)
+    if m:
+        reg = registry_for(session.catalog)
+        if reg is None:
+            raise MatviewError(
+                f"unknown materialized view {m.group(1).lower()!r}")
+        return reg.refresh(m.group(1).lower())
+    return None
+
+
+def refresh_for_text(catalog, text: str) -> None:
+    """Refresh-on-read: a statement that names a registered view flushes
+    that view's maintainer first, so the read serves the resolved
+    frontier as of statement start (cheap when the buffer is empty: one
+    peek under the hub lock)."""
+    reg = registry_for(catalog)
+    if reg is None or not reg.views:
+        return
+    if not settings.get("sql.matview.refresh_on_read.enabled"):
+        return
+    # a view is named where its name is a whole word of the text (the
+    # reference's \b<name>\b search, one pass over the text instead of
+    # one search per registered view)
+    words = set(re.findall(r"\w+", text.lower()))
+    for view in list(reg.views.values()):
+        if view.name in words:
+            reg.refresh_view(view)
+
+
+def _match_view(reg: Registry, plan):
+    """The registered view whose parameterized shape AND literal values
+    match ``plan`` (a peeled core), or None."""
+    from . import plancache
+
+    agg, _perm = _split_core(plan)
+    if agg is None:
+        return None
+    try:
+        pplan, values, types = plancache.parameterize(plan)
+        key = plancache.plan_key(pplan)
+    except Exception:
+        return None
+    scaled = _scaled_params(values, types)
+    for view in reg.views.values():
+        if view.cls is None or view.cls.key != key:
+            continue
+        if len(view.values) == len(scaled) and all(
+                np.array_equal(a, b)
+                for a, b in zip(view.values, scaled)):
+            return view
+    return None
+
+
+def maybe_rewrite(catalog, rel):
+    """Planner rewrite: serve a SELECT whose plan matches a standing
+    view from the view's state. Returns (rel, view|None) — the rewritten
+    Rel scans the view table; trailing Sort/TopK/Limit reapply unchanged
+    (the view schema IS the aggregate output schema)."""
+    if not settings.get("sql.matview.rewrite.enabled"):
+        return rel, None
+    reg = registry_for(catalog)
+    if reg is None or not reg.views:
+        return rel, None
+    wrappers, core = _peel(rel.plan)
+    view = _match_view(reg, core)
+    if view is None:
+        return rel, None
+    metric.MATVIEW_REWRITE_HITS.inc()
+    reg.refresh_view(view)
+    node: S.PlanNode = S.TableScan(
+        table=view.name, columns=tuple(view.out_schema.names))
+    for w in reversed(wrappers):
+        node = dataclasses.replace(w, input=node)
+    from .rel import Rel
+
+    return Rel(catalog=catalog, plan=node, schema=rel.schema,
+               dicts=rel.dicts), view
+
+
+def explain_note(catalog, rel) -> str | None:
+    """The EXPLAIN annotation: present when the statement would serve
+    from a standing view — either FROM <view> directly or through the
+    planner rewrite."""
+    reg = registry_for(catalog)
+    if reg is None or not reg.views:
+        return None
+    scan = _find_scan(rel.plan)
+    if scan is not None and scan.table in reg.views:
+        v = reg.views[scan.table]
+        return (f"served from materialized view {v.name} "
+                f"(frontier={v.frontier})")
+    if not settings.get("sql.matview.rewrite.enabled"):
+        return None
+    _w, core = _peel(rel.plan)
+    view = _match_view(reg, core)
+    if view is None:
+        return None
+    return (f"served from materialized view {view.name} "
+            f"(frontier={view.frontier}, rewrite)")

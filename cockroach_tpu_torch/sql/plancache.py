@@ -301,10 +301,12 @@ def _boundary_types() -> tuple:
     from ..flow import dispatch
     from ..flow.memory import BytesMonitor
     from ..kv import DB
-    from ..kv.table import KVTable
+    from ..kv.table import KVTable, _TableDict
     from ..storage.lsm import Engine
 
-    return (Catalog, Table, KVTable, Engine, DB, BytesMonitor,
+    # a KV table's string dictionaries hold no tensor, and millions of
+    # host strings at TPC-H scale: the walk of the catalog skips them
+    return (Catalog, Table, KVTable, _TableDict, Engine, DB, BytesMonitor,
             dispatch._Kernel, PlanCache, _Entry)
 
 

@@ -23,11 +23,12 @@ The port of ``cockroach_tpu.sql.session``: the catalog and the default
 engine live on ``device`` (``"cuda"`` by default; without a card that
 raises unless the caller passes ``device="cpu"``). Statements that need
 a module the port has not got raise ``BindError`` naming it
-(``UnportedError``): materialized views (sql/matview.py), ALTER TABLE
-(sql/schemachange.py), tenants (kv/tenant.py), BACKUP and RESTORE (the
-backup job of kv/jobs.py and utils/external_storage.py). With no view
-defined, the reference's matview hooks change no result, so the port
-has none. The slow-query log leaves a diagnostics bundle
+(``UnportedError``): ALTER TABLE (sql/schemachange.py), tenants
+(kv/tenant.py), BACKUP and RESTORE (the backup job of kv/jobs.py and
+utils/external_storage.py). CREATE / DROP / REFRESH MATERIALIZED VIEW
+go to sql/matview.py, a statement that names a view refreshes it first,
+and a SELECT matching a view's shape and literals is served from it, as
+in the reference. The slow-query log leaves a diagnostics bundle
 (sql/diagnostics.py) as the reference's does.
 
 Additions over the reference: ``execute`` answers EXPLAIN statements
@@ -59,8 +60,6 @@ from .rel import Rel
 
 # statements of modules the port has not got: (pattern, what, module)
 _UNPORTED_STMTS = (
-    (r"(?is)^(create|drop|refresh)\s+materialized\s+view\b",
-     "MATERIALIZED VIEW", "sql/matview.py and flow/viewmaint.py"),
     (r"(?is)^(create|drop|show|alter)\s+tenants?\b", "tenant DDL",
      "kv/tenant.py"),
     (r"(?is)^backup\b", "BACKUP",
@@ -316,6 +315,17 @@ class Session:
             handled = self._maybe_session_var_stmt(text)
         if handled is not None:
             return handled
+        from . import matview
+
+        handled = matview.maybe_matview_stmt(self, text)
+        if handled is not None:
+            return handled
+        if self._txn is None:
+            # standing views refresh BEFORE the plan-cache fast path: a
+            # memoized statement over a view must still see the frontier
+            # as of statement start (a refresh bumps the catalog version,
+            # which re-keys any plan the refresh staled)
+            matview.refresh_for_text(self.catalog, text)
         if text.lstrip()[:7].lower() == "explain":
             from . import explain
 
@@ -492,6 +502,12 @@ class Session:
             self._set_phase("binding")
             with tracing.leaf_span("sql.bind"):
                 rel = Binder(self.catalog).bind(stmt)
+            # a plan matching a standing view's shape + literals serves
+            # from the view's state (autocommit only: an explicit txn
+            # reads at ITS snapshot, not the view frontier)
+            from . import matview
+
+            rel, _mv = matview.maybe_rewrite(self.catalog, rel)
             self._set_phase("executing")
             res, _, fp = plancache.run_cached_ex(rel, text=text)
             self._last_fp = fp or None

@@ -1,6 +1,6 @@
 """Query error boundary — the colexecerror analog; the port of the part of
-``cockroach_tpu.utils.errors`` that the distributed runner and SQL
-admission need.
+``cockroach_tpu.utils.errors`` that the distributed runner, SQL
+admission and the changefeed fan-out plane need.
 
 Reference: pkg/sql/colexecerror/error.go:45 CatchVectorizedRuntimeError
 converts engine panics into SQL errors at the flow boundary. Here the
@@ -72,3 +72,21 @@ class AdmissionRejectedError(Exception):
         if retry_after_s > 0:
             msg += f" (retry after {retry_after_s:.3f}s)"
         super().__init__(msg)
+
+
+class SlowConsumerError(Exception):
+    """A changefeed subscriber fell too far behind and was evicted from
+    the fan-out plane (kvserver/rangefeed's BufferedSender eviction: the
+    processor never blocks raft apply on one stuck registration). The
+    error carries the subscriber's last durably-delivered resolved
+    timestamp — ``frontier`` — which is the exact ``since`` a reconnect
+    must present to resume without loss; events after the frontier may
+    re-deliver and are deduplicated by (ts, key)."""
+
+    def __init__(self, subscriber_id: int, reason: str, frontier: int = 0):
+        self.subscriber_id = subscriber_id
+        self.reason = reason
+        self.frontier = frontier
+        super().__init__(
+            f"slow consumer {subscriber_id} evicted ({reason}); "
+            f"reconnect with since={frontier}")

@@ -1,7 +1,7 @@
 """Fault-injection hooks at the storage engine's, the external
-operators', SQL admission's and the warm menu's sites, with the
-reference's site names. Every hook is a no-op until ``arm`` is
-called."""
+operators', SQL admission's, the warm menu's, the changefeed's and the
+materialized views' sites, with the reference's site names. Every hook
+is a no-op until ``arm`` is called."""
 
 from __future__ import annotations
 
@@ -22,6 +22,20 @@ SITES: dict[str, str] = {
     "admission.grant.stall": "a queued admission grant stalls or is lost",
     "sql.warmup.compile": "ahead-of-time menu compile failure at server "
                           "start",
+    "kv.rangefeed.subscribe": "rangefeed (re)subscription failure",
+    "changefeed.fanout.enqueue": "fan-out buffer enqueue failure: the "
+                                 "subscriber sheds to a catch-up scan",
+    "changefeed.subscriber.send": "subscriber socket send failure: the "
+                                  "consumer is evicted and reconnects "
+                                  "from its frontier",
+    "changefeed.frontier.checkpoint": "resolved-frontier checkpoint "
+                                      "failure: resume re-delivers past "
+                                      "the stale frontier, never skips",
+    "matview.flush": "materialized-view flush failure before any apply",
+    "matview.delta.apply": "materialized-view delta kernel failure "
+                           "mid-flush: no state swapped",
+    "matview.frontier.checkpoint": "materialized-view frontier checkpoint "
+                                   "failure after compute, before swap",
 }
 
 

@@ -57,6 +57,14 @@ class Histogram:
             self.n += 1
             self.sum += v
 
+    def observe_many(self, vs: list) -> None:
+        """``observe`` of each value, under one acquisition of the lock."""
+        with self._lock:
+            for v in vs:
+                self.counts[bisect.bisect_left(self.buckets, v)] += 1
+                self.sum += v
+            self.n += len(vs)
+
 
 class LabeledCounter:
     """Counter family keyed by one label: a child Counter per observed
@@ -186,6 +194,31 @@ QUERIES = Counter("sql_queries")
 # captures on the card), and serving-path plan-cache hits on its items
 SQL_WARMUP_KERNELS_COMPILED = Counter("sql_warmup_kernels_compiled")
 SQL_WARMUP_MENU_HITS = Counter("sql_warmup_menu_hits")
+# the changefeed fan-out plane (kv/fanout.py): registrations, frames
+# delivered, the backpressure ladder's rungs (coalesced events, sheds to
+# a catch-up scan, evictions), buffered bytes and per-event send lag
+_LAG_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                10.0, 30.0)
+CHANGEFEED_SUBSCRIBERS = Gauge("changefeed_subscribers")
+CHANGEFEED_EVENTS_EMITTED = Counter("changefeed_events_emitted")
+CHANGEFEED_EVENTS_COALESCED = Counter("changefeed_events_coalesced")
+CHANGEFEED_SHEDS = Counter("changefeed_sheds")
+CHANGEFEED_EVICTIONS = Counter("changefeed_evictions")
+CHANGEFEED_BUFFER_BYTES = Gauge("changefeed_buffer_bytes")
+CHANGEFEED_SEND_LAG_SECONDS = Histogram("changefeed_send_lag_seconds",
+                                        buckets=_LAG_BUCKETS)
+# materialized views (sql/matview.py, flow/viewmaint.py): registered
+# views, flushes, delta events applied, rescans (initial population and
+# out-of-bounds rebuilds; min/max retractions), rewrite hits and the age
+# of the oldest buffered event when its flush lands
+MATVIEW_VIEWS = Gauge("matview_views")
+MATVIEW_FLUSHES = Counter("matview_flushes")
+MATVIEW_DELTA_EVENTS = Counter("matview_delta_events")
+MATVIEW_FULL_RESCANS = Counter("matview_full_rescans")
+MATVIEW_MINMAX_RESCANS = Counter("matview_minmax_rescans")
+MATVIEW_REWRITE_HITS = Counter("matview_rewrite_hits")
+MATVIEW_REFRESH_LAG_SECONDS = Histogram("matview_refresh_lag_seconds",
+                                        buckets=_LAG_BUCKETS)
 
 
 class Registry:

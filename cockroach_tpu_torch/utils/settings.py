@@ -108,6 +108,30 @@ _DEFAULTS: dict[str, Any] = {
     # NORMAL priority too, are shed
     "admission.shed.mem_low": 0.90,
     "admission.shed.mem_high": 0.97,
+    # deadline on control-plane socket I/O: rangefeed dials, handshakes
+    # and per-frame reads on an established stream (a liveness backstop
+    # against silent peers, not a latency objective)
+    "flow.dcn.io_timeout_s": 30.0,
+    # the runtime data-race sanitizer (utils/racesan.py)
+    "debug.race_detector.enabled": False,
+    # the changefeed fan-out plane (kv/fanout.py): per-subscriber buffer
+    # budget, the fraction of it where duplicate-key events coalesce, the
+    # send deadline after which a subscriber is evicted, the idle
+    # heartbeat, the bound on registrations per hub, and the sheds in a
+    # row without a drain that end in eviction
+    "changefeed.fanout.buffer_bytes": 1 << 20,
+    "changefeed.fanout.highwater_frac": 0.5,
+    "changefeed.fanout.send_deadline_s": 5.0,
+    "changefeed.fanout.heartbeat_s": 1.0,
+    "changefeed.fanout.max_subscribers": 4096,
+    "changefeed.fanout.max_consecutive_sheds": 3,
+    # materialized views (sql/matview.py, flow/viewmaint.py): the master
+    # switch, the planner rewrite, refresh before a statement that reads
+    # a view, and the delta-tile staging budget of a maintainer
+    "sql.matview.enabled": True,
+    "sql.matview.rewrite.enabled": True,
+    "sql.matview.refresh_on_read.enabled": True,
+    "sql.matview.staging_bytes": 4 << 20,
 }
 
 # enumerated string settings: the values each accepts
@@ -144,6 +168,14 @@ _BOUNDS: dict[str, tuple] = {
     "admission.tenant.burst": (1, None),
     "admission.shed.mem_low": (0.0, 1.0),
     "admission.shed.mem_high": (0.0, 1.0),
+    "flow.dcn.io_timeout_s": (0.1, 600.0),
+    "changefeed.fanout.buffer_bytes": (4096, None),
+    "changefeed.fanout.highwater_frac": (0.05, 1.0),
+    "changefeed.fanout.send_deadline_s": (0.05, None),
+    "changefeed.fanout.heartbeat_s": (0.05, None),
+    "changefeed.fanout.max_subscribers": (1, None),
+    "changefeed.fanout.max_consecutive_sheds": (1, None),
+    "sql.matview.staging_bytes": (4096, None),
 }
 
 _values: dict[str, Any] = {}

@@ -229,8 +229,6 @@ def test_unported_statement_is_an_error_response(servers):
         c.query("create table w (a int primary key)")
         for stmt, module in (
                 ("alter table w add column z int", b"sql/schemachange.py"),
-                ("create materialized view mv as select a from w",
-                 b"sql/matview.py"),
                 ("backup to 'nowhere'", b"kv/jobs.py"),
                 ("create tenant t1", b"kv/tenant.py")):
             reply = c.query(stmt)

@@ -36,7 +36,7 @@ q18's and q21's aggregations spill to the host-staged Grace
 aggregation): all 22 queries at sf=0.01 under the SF10 scaling (every
 size threshold over 1000) on the card against the CPU, with the same
 streamed scans and spills; SF10 generated; q3, q9 and q18 timed and held
-to the numpy oracle in every run and profiled once; q7 and q21 cold and
+to the numpy oracle in every run, q3 profiled once; q7 and q21 cold and
 warm; a forced Grace hash join (q3) and external sort (q7), each equal
 to its default run; the ``{"tpch_sf10": ...}`` line. Neither storage
 kernel runs on those paths (``tpch_launches`` and ``sf10_launches`` in
@@ -94,7 +94,20 @@ compile with the menu); the ``{"menu": ...}`` line. TPC-C
 tpmC, new-order p50/p99, retries, give-ups and the device lock's p99
 wait; a small run on the card and on the CPU with equal final tables;
 the ``{"tpcc": ...}`` line (``menu_launches`` and ``tpcc_launches`` in
-the kernel table). Materialized views (``bench/views.run_views``, the
+the kernel table). The control plane (``kv/liveness.py``,
+``kv/jobs.py``, ``sql/schemachange.py``, ``utils/external_storage.py``,
+``kv/tenant.py``; the ``jobs`` phase) after it: TPC-C at W=1 loaded,
+ALTER TABLE ADD a STRING column (customer) and an INT column (stock,
+claimed by node 1 of two liveness records, which dies after chunk 50;
+node 2 adopts it once node 1 expires, and node 1's late checkpoint is
+fenced), 20 transactions and the consistency checks on the new
+descriptors, DROP COLUMN, BACKUP to ``nodelocal://``, 10 transactions,
+RESTORE with every table's digest back to the backup's and the old
+engine freed, a tenant's isolation and a revoked capability, and
+``bench/load.run_tenant_overload`` at the reference's defaults (every
+refusal typed; the goodput and isolation verdicts reported); the same sequence at TPCC_SMALL on the card and the CPU
+with equal final tables; the ``{"jobs": ...}`` line (``jobs_launches``).
+Materialized views (``bench/views.run_views``, the
 ``views`` phase): 1000 views in one shape class over a 240-row KV table,
 8 rounds of 64 writes, one flush a round, each of at most one dispatch
 (one CUDA graph replay) and no base rescan, sampled views equal to fresh
@@ -138,7 +151,7 @@ merge join, right, full and cross joins, UNION ALL and string_agg
 peak RSS printed; SF10 generated (seed 19980401); the nine and
 ``tpcds.sales_window`` (a window over all 28.8 M store_sales rows)
 timed by ``bench/tpcds_run.run_tpcds``, every run equal to the numpy
-oracle, and profiled once; the ``{"tpcds": ...}`` line, which also
+oracle, sales_window profiled once; the ``{"tpcds": ...}`` line, which also
 carries the SF1 phase's lineitem x orders merge join against the hash
 join (equal results, both timed). Result
 lines are compact JSON with floats to 4 significant digits, and the
@@ -154,6 +167,7 @@ exits non-zero; without CUDA it exits non-zero before any result.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import faulthandler
 import json
 import os
@@ -861,11 +875,13 @@ def _fusion(on: bool):
     settings.set("sql.distsql.fusion.enabled", on)
 
 
-def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
+def fusion_runs(cat, q: str, on: bool, runs: int,
+                profile: bool = True) -> tuple[dict, dict]:
     """Query q over cat with fusion on or off: a cold run, a second run
     (join capacities learned in the first take effect), then `runs` more,
-    timed; then one profiled run. Graph captures of each stage, host
-    syncs, dispatches, launches and peak memory. -> (figures, result)"""
+    timed; then, with `profile`, one profiled run. Graph captures of each
+    stage, host syncs, dispatches, graph replays of the timed runs,
+    launches (profiled) and peak memory. -> (figures, result)"""
     import gc
 
     from cockroach_tpu_torch.bench import queries as Q
@@ -893,6 +909,7 @@ def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
             t_cold = t_cold or time.perf_counter() - t0
             caps.append(dispatch.captures() - c0)
         c0, d0, e0 = dispatch.captures(), dispatch.total(), dispatch.eager()
+        r0 = dispatch.replays()
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
@@ -905,10 +922,11 @@ def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
         caps.append(dispatch.captures() - c0)
         disp = (dispatch.total() - d0) / runs
         eager = (dispatch.eager() - e0) / runs
-        r0 = dispatch.replays()
+        replays = (dispatch.replays() - r0) / runs
         fill_s = io_report(root)["fill_wait_s"]
-        prof = launch_profile(lambda: run_operator(root))
-        replays = dispatch.replays() - r0
+        prof = (launch_profile(lambda: run_operator(root)) if profile
+                else dict.fromkeys(("host_launches", "graph_launches",
+                                    "device_ops", "idle_share")))
         tiles = lineitem_tiles(root)
         med = statistics.median(times)
         fig = {"median_ms": med * 1e3,
@@ -917,9 +935,11 @@ def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
                "host_syncs": sum(host_syncs(root).values()),
                "dispatches": disp, "dispatches_per_tile": disp / tiles,
                "eager_dispatches": eager, "replays": replays,
-               "launches_per_tile": prof["host_launches"] / tiles,
+               "launches_per_tile": (None if prof["host_launches"] is None
+                                     else prof["host_launches"] / tiles),
                "graph_launches": prof["graph_launches"],
-               "device_ops_per_tile": prof["device_ops"] / tiles,
+               "device_ops_per_tile": (None if prof["device_ops"] is None
+                                       else prof["device_ops"] / tiles),
                "idle_share": prof["idle_share"], "tiles": tiles,
                "fill_wait_s": fill_s, "base_gb": base / 1e9,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -929,15 +949,18 @@ def fusion_runs(cat, q: str, on: bool, runs: int) -> tuple[dict, dict]:
         settings.reset("sql.distsql.fusion.enabled")
 
 
-def fusion_compare(cat, queries=("q3", "q9", "q18"), runs: int = 5) -> dict:
+def fusion_compare(cat, queries=("q3", "q9", "q18"), runs: int = 5,
+                   profiled=("q3", "q9", "q18")) -> dict:
     """Each query fused and unfused in turn on one card: the figures of
     fusion_runs side by side, the two results held equal bit for bit,
     and the fused path held to its contract: graphs captured on the first
-    run, none on a repeat run, no eager device function."""
+    run and replayed in the timed runs, none captured on a repeat run, no
+    eager device function. The queries in `profiled` get a profiled run
+    each way."""
     out = {}
     for q in queries:
-        unfused, a = fusion_runs(cat, q, False, runs)
-        fused, b = fusion_runs(cat, q, True, runs)
+        unfused, a = fusion_runs(cat, q, False, runs, q in profiled)
+        fused, b = fusion_runs(cat, q, True, runs, q in profiled)
         if not same_result(a, b):
             raise AssertionError(f"{q}: fused != unfused")
         if fused["captures"][0] <= 0 or fused["replays"] <= 0:
@@ -1996,9 +2019,9 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
 # host, about 16 s a warehouse on the card's machine (96 s for 6), and
 # each transaction's time grows with the tables, so the default run's
 # time budget, not the load, sets W and the transaction count (PERF.md §4)
-TPCC_W = 3
+TPCC_W = 1
 TPCC_SPEC = {"districts": 10, "customers": 3000, "items": 100_000}
-TPCC_TXNS = 100
+TPCC_TXNS = 50
 TPCC_SMALL = {"warehouses": 2, "districts": 4, "customers": 30,
               "items": 1000}
 TPCC_SMALL_TXNS = 60
@@ -2024,22 +2047,31 @@ def same_tables(a: dict, b: dict) -> str | None:
     return None
 
 
-def tpcc_load(sess, **sizes) -> tuple[float, float]:
-    """bench/tpcc.load with IO pacing off, as for a bulk import, then a
-    flush and a full compaction; returns the two parts' seconds."""
-    from cockroach_tpu_torch.bench import tpcc
+@contextlib.contextmanager
+def io_pacing_off():
+    """The IOGovernor's write pacing off for the block (a bulk import or
+    rewrite), as an operator would set it."""
     from cockroach_tpu_torch.utils import settings
 
     settings.set("admission.io_pacing.enabled", False)
     try:
+        yield
+    finally:
+        settings.reset("admission.io_pacing.enabled")
+
+
+def tpcc_load(sess, **sizes) -> tuple[float, float]:
+    """bench/tpcc.load with IO pacing off, as for a bulk import, then a
+    flush and a full compaction; returns the two parts' seconds."""
+    from cockroach_tpu_torch.bench import tpcc
+
+    with io_pacing_off():
         t0 = time.perf_counter()
         tpcc.load(sess, **sizes)
         load_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         sess.db.engine.flush()
         sess.db.engine.compact(bottom=True)
-    finally:
-        settings.reset("admission.io_pacing.enabled")
     return load_s, time.perf_counter() - t0
 
 
@@ -2142,6 +2174,423 @@ def run_tpcc_phase(card: str, dev="cuda", warehouses: int = TPCC_W,
            "small_card_eq_cpu": True,
            "phase_s": time.perf_counter() - t_phase, "card": card}
     emit({"tpcc": out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Node liveness, jobs fencing and orphan adoption, online ALTER TABLE,
+# BACKUP/RESTORE and tenants (kv/liveness.py, kv/jobs.py,
+# sql/schemachange.py, utils/external_storage.py, kv/tenant.py) over TPC-C
+# at W=1: the schema-change roachtests' work on a loaded TPC-C, reduced to
+# one session
+
+JOBS_TTL_MS = 500  # the two nodes' liveness ttl
+JOBS_CRASH_AFTER = 50  # node 1 crashes after this chunk of the stock ALTER
+JOBS_MIX_TXNS = 20  # TPC-C transactions on the new descriptors
+JOBS_LOST_TXNS = 10  # transactions after the backup, gone at the restore
+JOBS_SMALL_CRASH_AFTER = 2  # TPCC_SMALL's stock: 2000 rows, 4 chunks
+
+
+def table_digests(state: dict) -> dict:
+    """sha256 of each table's tpcc_state columns (names, dtypes, bytes)."""
+    import hashlib
+
+    out = {}
+    for t, cols in state.items():
+        h = hashlib.sha256()
+        for c, v in cols.items():
+            a = np.asarray(v)
+            h.update(f"{c}:{a.dtype}:{a.shape}".encode())
+            h.update("\x00".join(map(str, a.tolist())).encode()
+                     if a.dtype == object else np.ascontiguousarray(a)
+                     .tobytes())
+        out[t] = h.hexdigest()
+    return out
+
+
+def state_rows(state: dict) -> set:
+    """Every row of a tpcc_state snapshot as (table, row tuple)."""
+    return {(t, row) for t, cols in state.items()
+            for row in zip(*(np.asarray(v).tolist()
+                             for v in cols.values()))}
+
+
+def _allocated(on_card: bool) -> int | None:
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def timed_alter(sess, text: str, on_card: bool, say=log) -> dict:
+    """One ALTER TABLE through the session, its backfill unpaced as a bulk
+    rewrite (io_pacing_off): rows, chunks, the backfill's and the
+    descriptor swap's times, device bytes before and after."""
+    from cockroach_tpu_torch.sql import schemachange
+
+    swap_s = []
+    swap = schemachange._swap_descriptor
+
+    def timed_swap(*a, **k):
+        t = time.perf_counter()
+        try:
+            return swap(*a, **k)
+        finally:
+            swap_s.append(time.perf_counter() - t)
+
+    name = text.split()[2]
+    rows = int(sess.execute(f"select count(*) as n from {name}")["n"][0])
+    before = _allocated(on_card)
+    schemachange._swap_descriptor = timed_swap
+    t0 = time.perf_counter()
+    try:
+        with io_pacing_off():
+            sess.execute(text)
+    finally:
+        schemachange._swap_descriptor = swap
+    total = time.perf_counter() - t0
+    backfill_s = total - sum(swap_s)
+    out = {"rows": rows, "chunks": -(-rows // schemachange.CHUNK_ROWS),
+           "backfill_s": backfill_s, "rows_per_s": rows / backfill_s,
+           "swap_ms": 1e3 * sum(swap_s), "device_bytes_before": before,
+           "device_bytes_after": _allocated(on_card)}
+    say(f"jobs: {text}: {rows} rows, {out['chunks']} chunks, backfill "
+        f"{backfill_s:.2f}s ({out['rows_per_s']:.0f} rows/s), swap "
+        f"{out['swap_ms']:.1f} ms, device bytes {before} -> "
+        f"{out['device_bytes_after']}")
+    return out
+
+
+def crash_and_failover(sess, text: str, crash_after: int, say=log) -> dict:
+    """`text` (an ALTER TABLE) as a schema_change job claimed by node 1,
+    whose process dies right after the checkpoint of chunk `crash_after`
+    (the resumer driven directly, its checkpoint raising, as
+    tests/test_schemachange.py does). Node 1 stops heartbeating; once
+    its record expires node 2's adopt_orphans fences it and resumes from
+    the checkpoint; node 1's late checkpoint must raise EpochFencedError.
+    The catalog serves the old schema until the swap. Both backfills run
+    unpaced, as timed_alter's do."""
+    from cockroach_tpu_torch.kv.jobs import Registry
+    from cockroach_tpu_torch.kv.liveness import EpochFencedError, NodeLiveness
+    from cockroach_tpu_torch.sql import schemachange as sc
+    from cockroach_tpu_torch.sql.parser import parse_statement
+
+    class Crash(Exception):
+        pass
+
+    stmt = parse_statement(text)
+    db, cat = sess.db, sess.catalog
+    lv1 = NodeLiveness(db, 1, ttl_ms=JOBS_TTL_MS)
+    lv2 = NodeLiveness(db, 2, ttl_ms=JOBS_TTL_MS)
+    lv1.heartbeat()
+    lv2.heartbeat()
+    reg1 = Registry(db, node_id=1, liveness=lv1)
+    reg2 = Registry(db, node_id=2, liveness=lv2)
+    for reg in (reg1, reg2):
+        sc.register_schema_change_job(reg, cat)
+    job = reg1.create("schema_change", sc.plan_alter(cat, db, stmt))
+    claimed = reg1._claim(job.job_id, reg1.load(job.job_id))
+    assert claimed.claim_node == 1 and claimed.claim_epoch == 1, claimed
+    checkpoint = reg1.checkpoint
+    done = {"n": 0}
+
+    def crashing_checkpoint(j):
+        checkpoint(j)
+        done["n"] += 1
+        if done["n"] == crash_after:
+            raise Crash(f"node 1 died after chunk {crash_after}")
+
+    reg1.checkpoint = crashing_checkpoint
+    t0 = time.perf_counter()
+    try:
+        with io_pacing_off():
+            sc.backfill(reg1, claimed, cat)
+        raise AssertionError("the injected crash did not happen")
+    except Crash:
+        pass
+    crash_s = time.perf_counter() - t0
+    reg1.checkpoint = checkpoint
+    table = cat.tables[stmt.name]
+    if stmt.column.name in table.schema.names:
+        raise AssertionError("the new column is visible before the swap")
+    last_pk = reg1.load(job.job_id).progress["last_pk"]
+    # node 1 is dark; node 2 keeps heartbeating until node 1 expires
+    while lv2.is_live(1):
+        lv2.heartbeat()
+        time.sleep(0.01)
+    t_expired = time.perf_counter()
+    claims, chunks2 = [], []
+    claim, checkpoint2 = reg2._claim, reg2.checkpoint
+
+    def timed_claim(*a, **k):
+        claims.append(time.perf_counter())
+        return claim(*a, **k)
+
+    def counted_checkpoint(j):
+        if j.state == "running" and "last_pk" in j.progress:
+            chunks2.append(j.progress["last_pk"])
+        return checkpoint2(j)
+
+    reg2._claim, reg2.checkpoint = timed_claim, counted_checkpoint
+    with io_pacing_off():
+        adopted = reg2.adopt_orphans()
+    resume_s = time.perf_counter() - t_expired
+    reg2._claim, reg2.checkpoint = claim, checkpoint2
+    if [j.job_id for j in adopted] != [job.job_id]:
+        raise AssertionError(f"node 2 adopted {adopted}, not job "
+                             f"{job.job_id}")
+    final = reg2.load(job.job_id)
+    if final.state != "succeeded" or final.claim_node != 2:
+        raise AssertionError(f"adopted job ended {final.state} on node "
+                             f"{final.claim_node}")
+    if stmt.column.name not in cat.tables[stmt.name].schema.names:
+        raise AssertionError("the swap did not install the new column")
+    try:
+        reg1.checkpoint(claimed)
+        raise AssertionError("node 1's late checkpoint was not fenced")
+    except EpochFencedError:
+        pass
+    try:
+        lv1.heartbeat()
+        raise AssertionError("node 1's heartbeat was not fenced")
+    except EpochFencedError:
+        pass
+    sess._invalidate_plans()  # the job ran beside the session
+    rows = int(sess.execute(f"select count(*) as n from {stmt.name}")
+               ["n"][0])
+    chunks = -(-rows // sc.CHUNK_ROWS)
+    # chunk txns run in all: node 1's before the crash, node 2's after
+    rerun = crash_after + len(chunks2) - chunks
+    if not 0 <= rerun <= 1:
+        raise AssertionError(f"{rerun} chunks re-ran after the failover")
+    say(f"jobs: {stmt.name} ALTER: node 1 died after chunk {crash_after} "
+        f"({crash_s:.2f}s), node 2 adopted {1e3 * (claims[0] - t_expired):.1f}"
+        f" ms after expiry and finished in {resume_s:.2f}s, {rerun} chunks "
+        "re-run, node 1 fenced")
+    return {"rows": rows, "chunks": chunks,
+            "chunks_before_crash": crash_after, "crash_last_pk": last_pk,
+            "crash_s": crash_s, "node1_epoch": lv2._read(1).epoch,
+            "expiry_to_adoption_ms": 1e3 * (claims[0] - t_expired),
+            "resume_s": resume_s, "chunks_rerun": rerun, "fenced": True}
+
+
+def jobs_sequence(sess, sizes: dict, crash_after: int, backup_uri: str,
+                  on_card: bool = False, say=log) -> dict:
+    """Steps 3-7 of the jobs phase on a loaded TPC-C session: ALTER ADD a
+    STRING column (customer), ALTER ADD an INT column (stock) with the
+    crash and failover, the TPC-C mix and its consistency on the new
+    descriptors, ALTER DROP the STRING column, BACKUP, more transactions,
+    RESTORE with every table's digest back to the backup's."""
+    import gc
+    import weakref
+
+    from cockroach_tpu_torch.bench import tpcc
+
+    w, d = sizes["warehouses"], sizes["districts"]
+    spec = {k: sizes[k] for k in ("districts", "customers", "items")}
+    out = {"add_string": timed_alter(
+        sess, "ALTER TABLE customer ADD COLUMN c_credit STRING "
+              "DEFAULT 'GC'", on_card, say)}
+    out["failover"] = crash_and_failover(
+        sess, "ALTER TABLE stock ADD COLUMN s_remote_cnt INT DEFAULT 0",
+        crash_after, say)
+    mix = tpcc.run_mix(sess, txns=JOBS_MIX_TXNS, warehouses=w, seed=1,
+                       **spec)
+    tpcc.check_consistency(sess, warehouses=w, districts=d)
+    n_gc = int(sess.execute("select count(*) as n from customer where "
+                            "c_credit = 'GC'")["n"][0])
+    n_cust = w * d * sizes["customers"]
+    remote = sess.execute("select sum(s_remote_cnt) as s from stock")["s"]
+    if n_gc != n_cust or int(remote[0]) != 0:
+        raise AssertionError(f"new columns: {n_gc} of {n_cust} customers "
+                             f"at 'GC', sum(s_remote_cnt) {remote[0]}")
+    out["mix"] = {"txns": JOBS_MIX_TXNS, "counts": mix["counts"],
+                  "give_ups": mix["give_ups"], "consistent": True}
+    out["drop_string"] = timed_alter(
+        sess, "ALTER TABLE customer DROP COLUMN c_credit", on_card, say)
+    gc.collect()
+    before = _allocated(on_card)
+    t0 = time.perf_counter()
+    bk = sess.execute(f"BACKUP TO '{backup_uri}'")
+    backup_s = time.perf_counter() - t0
+    if bk["state"] != "succeeded":
+        raise AssertionError(f"BACKUP ended {bk['state']}")
+    from cockroach_tpu_torch.utils.external_storage import resolve_dir_uri
+
+    path = resolve_dir_uri(backup_uri)
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(path) for f in fs)
+    at_backup = tpcc_state(sess)
+    tpcc.run_mix(sess, txns=JOBS_LOST_TXNS, warehouses=w, seed=2, **spec)
+    written = state_rows(tpcc_state(sess)) - state_rows(at_backup)
+    old = weakref.ref(sess.db.engine)
+    t0 = time.perf_counter()
+    sess.execute(f"RESTORE FROM '{backup_uri}'")
+    restore_s = time.perf_counter() - t0
+    gc.collect()
+    if old() is not None:
+        raise AssertionError("the pre-RESTORE engine is still referenced")
+    after = _allocated(on_card)
+    restored = tpcc_state(sess)
+    if table_digests(restored) != table_digests(at_backup):
+        bad = same_tables(restored, at_backup)
+        raise AssertionError(f"RESTORE != the backup: {bad}")
+    tpcc.check_consistency(sess, warehouses=w, districts=d)
+    if not written or written & state_rows(restored):
+        raise AssertionError("rows written after the backup survived")
+    say(f"jobs: BACKUP {backup_s:.2f}s ({nbytes} bytes), RESTORE "
+        f"{restore_s:.2f}s, {len(written)} rows gone, digests equal, device "
+        f"bytes {before} -> {after}")
+    out["backup"] = {"backup_s": backup_s, "bytes": nbytes,
+                     "restore_s": restore_s, "rows_gone": len(written),
+                     "lost_txns": JOBS_LOST_TXNS, "digests_equal": True,
+                     "consistent": True, "device_bytes_before": before,
+                     "device_bytes_after": after, "old_engine_freed": True}
+    return out
+
+
+def jobs_small_state(device: str, threads: int | None = None) -> dict:
+    """jobs_sequence at TPCC_SMALL on `device`, crashing after chunk
+    JOBS_SMALL_CRASH_AFTER, backing up under a temporary nodelocal base;
+    its final tables."""
+    import tempfile
+
+    from cockroach_tpu_torch.sql import Session
+    from cockroach_tpu_torch.utils.external_storage import set_nodelocal_base
+
+    if threads is not None:
+        torch.set_num_threads(threads)
+    s = Session(val_width=256, device=device)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            set_nodelocal_base(tmp)
+            tpcc_load(s, **TPCC_SMALL)
+            jobs_sequence(s, TPCC_SMALL, JOBS_SMALL_CRASH_AFTER,
+                          "nodelocal://1/small", say=lambda msg: None)
+        return tpcc_state(s)
+    finally:
+        s.close()
+
+
+def tenant_checks(sess, dev) -> dict:
+    """CREATE TENANT, a tenant session on `dev` creating, writing and
+    reading a table the system session cannot see, and REVOKE
+    CAPABILITY can_create_table refusing its next CREATE TABLE."""
+    from cockroach_tpu_torch.kv.tenant import CapabilityError
+    from cockroach_tpu_torch.sql import Session
+
+    rec = sess.execute("CREATE TENANT t1")
+    ts = Session(db=sess.db, tenant="t1", device=dev)
+    try:
+        ts.execute("CREATE TABLE t1_kv (k INT PRIMARY KEY, v INT)")
+        ts.execute("INSERT INTO t1_kv VALUES " + ", ".join(
+            f"({k}, {k * 7})" for k in range(64)))
+        got = ts.execute("SELECT sum(v) AS s FROM t1_kv")["s"]
+        tid = ts.catalog.tables["t1_kv"].table_id
+        in_slice = ts.tenant.id_lo <= tid <= ts.tenant.id_hi
+        if int(got[0]) != 7 * sum(range(64)) or not in_slice:
+            raise AssertionError(f"tenant table: sum {got[0]}, id {tid}")
+        try:
+            sess.execute("SELECT v FROM t1_kv")
+            raise AssertionError("the system session sees t1's table")
+        except KeyError:  # the catalog's unknown-table error
+            pass
+    finally:
+        ts.close()
+    sess.execute("ALTER TENANT t1 REVOKE CAPABILITY can_create_table")
+    ts = Session(db=sess.db, tenant="t1", device=dev)
+    try:
+        ts.execute("CREATE TABLE t1_more (k INT PRIMARY KEY)")
+        raise AssertionError("a revoked capability let CREATE TABLE pass")
+    except CapabilityError:
+        pass
+    finally:
+        ts.close()
+    return {"tenant_id": int(rec["tenant_id"]), "table_id": tid,
+            "isolated": True, "capability_refused": True}
+
+
+def run_jobs_phase(card: str, dev="cuda", warehouses: int = 1,
+                   crash_after: int = JOBS_CRASH_AFTER,
+                   overload_s: float = 6.0) -> dict:
+    """The jobs phase: TPC-C at `warehouses` (TPCC_SPEC's cardinalities)
+    loaded into one session's engine on `dev`, then jobs_sequence (two
+    ALTERs, the crash/failover between nodes 1 and 2, TPC-C on the new
+    descriptors, DROP COLUMN, BACKUP/RESTORE), the tenant checks and
+    run_tenant_overload at the reference's defaults: every refusal typed
+    is held, the goodput and isolation verdicts are reported (the
+    reference's admission fails them too: ROADMAP Queue 3 item 28);
+    then jobs_sequence at TPCC_SMALL on the card and on the CPU (a
+    spawned process of its own, beside the rest), final states equal
+    row for row. Any K2 merge is held to the plain merge (K2Witness).
+    Prints the ``{"jobs": ...}`` line."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from cockroach_tpu_torch.bench.load import run_tenant_overload
+    from cockroach_tpu_torch.sql import Session
+    from cockroach_tpu_torch.utils.external_storage import set_nodelocal_base
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    on_cpu = pool.submit(jobs_small_state, "cpu", 1)
+    sizes = {"warehouses": warehouses, **TPCC_SPEC}
+    try:
+        with K2Witness() as k2, tempfile.TemporaryDirectory() as tmp:
+            set_nodelocal_base(tmp)
+            sess = Session(val_width=256, device=dev)
+            load_s, compact_s = tpcc_load(sess, **sizes)
+            log(f"jobs: TPC-C W={warehouses} loaded in {load_s:.1f}s")
+            out = {"warehouses": warehouses, **TPCC_SPEC, "load_s": load_s,
+                   "compact_s": compact_s}
+            out.update(jobs_sequence(sess, sizes, crash_after,
+                                     "nodelocal://1/tpcc", on_card))
+            out["tenants"] = tenant_checks(sess, dev)
+            log(f"jobs: tenants {out['tenants']}")
+            sess.close()
+            del sess
+            t0 = time.perf_counter()
+            ovl = run_tenant_overload(duration_s=overload_s, device=dev)
+            ovl["seconds"] = time.perf_counter() - t0
+            out["overload"] = ovl
+            log("jobs: overload " + json.dumps(_sig4({
+                k: v for k, v in ovl.items()
+                if k not in ("rejections_by_reason", "last_error")})))
+            if not ovl["oracle_typed_ok"]:
+                raise AssertionError(f"tenant overload: a refusal was not "
+                                     f"a typed AdmissionRejectedError, or "
+                                     f"none was shed: {ovl}")
+            if not ovl["oracle_ok"]:
+                log("jobs: the overload oracle failed (goodput "
+                    f"{ovl['oracle_goodput_ok']}, isolation "
+                    f"{ovl['oracle_isolation_ok']}): ROADMAP Queue 3 "
+                    "item 28")
+            t0 = time.perf_counter()
+            card_state = jobs_small_state(dev)
+            out["small_s"] = time.perf_counter() - t0
+            cpu_state = on_cpu.result(timeout=900)
+        out["k2_witnessed_pairs"] = k2.pairs
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    bad = same_tables(card_state, cpu_state)
+    if bad is not None:
+        raise AssertionError(f"jobs small run, card != CPU: {bad}")
+    out.update({"small_card_eq_cpu": True,
+                "phase_s": time.perf_counter() - t_phase, "card": card})
+    a, f, b = out["add_string"], out["failover"], out["backup"]
+    emit({"jobs": out}, {"jobs": {
+        "load_s": load_s, "add_rows_per_s": a["rows_per_s"],
+        "stock_resume_s": f["resume_s"],
+        "adoption_ms": f["expiry_to_adoption_ms"],
+        "rerun": f["chunks_rerun"], "backup_s": b["backup_s"],
+        "restore_s": b["restore_s"], "rows_gone": b["rows_gone"],
+        "overload_goodput": ovl["goodput_frac_of_saturation"],
+        "isolation": ovl["isolation_ratio"],
+        "overload_oracle_ok": ovl["oracle_ok"], "small_eq": True,
+        "phase_s": out["phase_s"]}})
     return out
 
 
@@ -2298,8 +2747,8 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
                    dev="cuda") -> dict:
     """TPC-H at SF10, BASELINE config #2's scale: the SF10-scaling parity
     run at sf=0.01, then SF10 generated (seed 19920101) and q3, q9, q18
-    timed through run_tpch (every run held to the numpy oracle) and
-    profiled once; q7 and q21 cold and warm (warm equal to cold); q3 with
+    timed through run_tpch (every run held to the numpy oracle); q7 and
+    q21 cold and warm (warm equal to cold); q3 with
     workmem_bytes lowered until its orders build spills to the Grace hash
     join, and q9 and q7 with workmem_rows at its floor, each equal to its
     default run. Returns the figures and the SF10 catalog."""
@@ -2321,14 +2770,15 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
     ladder = ("q3", "q9", "q18")
     res = run_tpch(ladder, sf=sf, seed=TPCH_SEED, runs=DEPTH_RUNS, device=dev,
                    catalog=cat)
-    profiles = {}
+    # one profiled run at SF10, of q3 (a depth cut for the 1000 s
+    # budget: q9's and q18's profiles went)
     for q in ladder:
-        root = builder.build(Q.QUERIES[q](cat).optimized_plan(), cat)
-        profiles[q] = device_profile(lambda root=root: run_operator(root))
         res[q] = brief(res[q])
-        res[q]["idle_share"] = profiles[q]["idle_share"]
-        res[q]["device_busy_s"] = profiles[q]["device_busy_s"]
-        res[q]["top_device_ops"] = profiles[q]["top_device_ops"]
+    root = builder.build(Q.QUERIES["q3"](cat).optimized_plan(), cat)
+    prof = device_profile(lambda: run_operator(root))
+    del root
+    for k in ("idle_share", "device_busy_s", "top_device_ops"):
+        res["q3"][k] = prof[k]
     ext = run_tpch(("q7", "q21"), sf=sf, seed=TPCH_SEED, runs=0,
                    device=dev, catalog=cat)
     if not any("GraceAggregateOp" in s for s in ext["q21"]["spills"]):
@@ -2365,7 +2815,9 @@ def run_sf10_phase(card: str, fusion: dict, sf: float = 10.0,
          {"tpch_sf10": {**{q: res[q]["median_s"] for q in ladder},
                         **{q: ext[q]["warm_s"] for q in ("q7", "q21")},
                         "gen_s": gen_s, "phase_s": out["phase_s"]}})
-    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS)
+    # q3 alone profiled each way (a depth cut for the 1000 s budget)
+    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS,
+                                         profiled=("q3",))
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     return out, cat
 
@@ -2458,17 +2910,19 @@ def check_distsql_parity(dev, sf: float = 0.01) -> dict:
 
 
 def dist_runs(cat, shards: int, single: dict, queries=DIST_QUERIES,
-              runs: int = 1, dev="cuda") -> dict:
+              runs: int = 1, dev="cuda", profiled=DIST_QUERIES) -> dict:
     """`queries` over `shards` shards (bench/tpch_dist.run_dist, every
-    run held to the oracle), one more run of each profiled; compact rows
-    of DIST_COLUMNS, the single-device median beside them."""
+    run held to the oracle), one more run of each of `profiled`
+    profiled; compact rows of DIST_COLUMNS, the single-device median
+    beside them."""
     from cockroach_tpu_torch.bench.tpch_dist import run_dist
 
-    def profile(q, dq):
-        return {"idle_share": device_profile(dq.run)["idle_share"]}
+    def idle(q, dq):
+        return {"idle_share": (device_profile(dq.run)["idle_share"]
+                               if q in profiled else None)}
 
     res = run_dist(queries, shards=shards, runs=runs, device=dev,
-                   catalog=cat, after=profile)
+                   catalog=cat, after=idle)
     rows = {}
     for q in queries:
         r = res[q]
@@ -2552,8 +3006,10 @@ def run_distsql_phase(card: str, parity: dict, sf1: dict, cat10,
         qs = tuple(q for q in DIST_QUERIES if scale[q] == sf)
         cat = (cat10 if sf == 10 and cat10 is not None
                else gen_tpch(sf=sf, seed=TPCH_SEED, device=dev))
+        # q3 alone profiled past SF1 (a depth cut for the 1000 s
+        # budget); the SF1 runs keep theirs
         rows.update(dist_runs(cat, 3, single10 if sf == 10 else {}, qs,
-                              dev=dev))
+                              dev=dev, profiled=("q3",)))
         del cat
         gc.collect()
     cut = {q: f"SF{scale[q]}: one 80 GB card holds all three shards"
@@ -2605,7 +3061,7 @@ def merge_vs_hash(cat, runs: int = 3) -> dict:
         out[name] = {"cold_s": times[0],
                      "median_s": statistics.median(times[1:]),
                      "operator": type(root).__name__}
-    if sorted_rows(res["merge"]) != sorted_rows(res["hash"]):
+    if not same_multiset(res["merge"], res["hash"]):
         raise AssertionError("merge join != hash join on lineitem x orders")
     out["rows"] = len(res["merge"]["l_orderkey"])
     log(f"merge join == hash join on lineitem x orders ({out['rows']} rows)")
@@ -2617,6 +3073,22 @@ def sorted_rows(res: dict) -> list:
     cols = [np.asarray(v, dtype=object) for v in res.values()]
     key = lambda r: tuple((x is not None, x) for x in r)  # noqa: E731
     return sorted(zip(*cols), key=key)
+
+
+def same_multiset(a: dict, b: dict) -> bool:
+    """sorted_rows(a) == sorted_rows(b), through one np.lexsort a side
+    when every column is a numeric array with no NaN (not a Python sort
+    of millions of row tuples), else through sorted_rows."""
+    ca = [np.asarray(v) for v in a.values()]
+    cb = [np.asarray(v) for v in b.values()]
+    numeric = all(c.dtype.kind in "iufb" and not (
+        c.dtype.kind == "f" and np.isnan(c).any()) for c in ca + cb)
+    if not numeric:
+        return sorted_rows(a) == sorted_rows(b)
+    if len(ca) != len(cb) or {len(c) for c in ca + cb} != {len(ca[0])}:
+        return False
+    oa, ob = np.lexsort(ca[::-1]), np.lexsort(cb[::-1])
+    return all(np.array_equal(x[oa], y[ob]) for x, y in zip(ca, cb))
 
 
 def tpcds_cases(cat) -> dict:
@@ -2732,7 +3204,7 @@ def _same(a: dict, b: dict, ordered: bool) -> bool:
     multisets of rows."""
     if ordered:
         return first_difference(a, b, rtol=1e-12) is None
-    return list(a) == list(b) and sorted_rows(a) == sorted_rows(b)
+    return list(a) == list(b) and same_multiset(a, b)
 
 
 def check_tpcds_parity(dev, sf: float = 0.01) -> dict:
@@ -2819,7 +3291,8 @@ def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
     CPU and unfused checks; the TPC-H catalogs freed and the host's RAM
     printed; SF10 generated (seed 19980401); the nine queries and the
     full-size sales_window timed through run_tpcds (cold, warm, median
-    of DEPTH_RUNS, every run equal to the numpy oracle) and profiled once; the
+    of DEPTH_RUNS, every run equal to the numpy oracle), sales_window
+    profiled once; the
     {"tpcds": ...} line, with `merge_join` (the SF1 merge join against
     the hash join)."""
     import gc
@@ -2855,15 +3328,20 @@ def run_tpcds_phase(card: str, merge_join: dict, sf: float = 10.0,
         r = res[q]
         rel = (tpcds.sales_window(cat) if q == "sales_window"
                else tpcds.QUERIES[q](cat))
-        root = builder.build(rel.optimized_plan(), cat)
-        prof = device_profile(lambda root=root: run_operator(root))
+        # one profiled run, of sales_window alone (the nine's profiles: a
+        # depth cut for the 1000 s budget)
+        idle = None
+        if q == "sales_window":
+            root = builder.build(rel.optimized_plan(), cat)
+            idle = device_profile(
+                lambda root=root: run_operator(root))["idle_share"]
+            del root
         table[q] = [r["cold_s"], r["warm_s"], r["median_s"],
                     r["rows_per_sec"], r["rows"],
-                    sum(r["host_syncs"].values()), prof["idle_share"], r["h2d_bytes"] / 1e9, r["h2d_s"],
+                    sum(r["host_syncs"].values()), idle, r["h2d_bytes"] / 1e9, r["h2d_s"],
                     r["fill_wait_s"], len(r["streamed"]),
                     r["staged_bytes"] / 1e9,
                     (r["peak_device_bytes"] or 0) / 1e9, r["spills"]]
-        del root
     if not any("GraceAggregateOp" in s for s in res["q65_lite"]["spills"]):
         raise AssertionError("q65_lite at SF10 did not spill its GROUP BY: "
                              f"{res['q65_lite']['spills']}")
@@ -3092,10 +3570,11 @@ def card_line() -> str:
 
 
 PHASES = ("kernels", "tpch", "distsql_sf1", "kv", "sql", "menu", "tpcc",
-          "views", "fanout", "sf10", "distsql", "tpcds", "ycsb", "parity")
+          "jobs", "views", "fanout", "sf10", "distsql", "tpcds", "ycsb",
+          "parity")
 # phases whose storage-kernel launches the kernel table reports
-LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "views", "fanout",
-                 "sf10", "distsql", "tpcds")
+LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "jobs", "views",
+                 "fanout", "sf10", "distsql", "tpcds")
 
 
 def parse_args(argv=None):
@@ -3208,6 +3687,8 @@ def main(argv=None) -> int:
     run("sql", lambda: run_sql_phase(card, sf1(), hand=hand))
     run("menu", lambda: run_menu_phase(card, sf1(), hand=hand))
     run("tpcc", lambda: run_tpcc_phase(card))
+    gc.collect()
+    run("jobs", lambda: run_jobs_phase(card))
     gc.collect()
     run("views", lambda: run_views_phase(card))
     gc.collect()

@@ -425,7 +425,8 @@ class FanoutHub:
             # scan starts at the lowest live watermark (the reference
             # starts at the hub frontier too, 0 until the first poll: a
             # whole-history scan while a consumer primes itself)
-            lo = min((s.enq_frontier for s in subs if s.state == LIVE),
+            live = {s.id for s in subs if s.state == LIVE}
+            lo = min((s.enq_frontier for s in subs if s.id in live),
                      default=None)
         if not subs:
             return  # idle hub: don't scan, don't advance the frontier
@@ -459,6 +460,12 @@ class FanoutHub:
                     # advance the watermark the rescan will cover
                     sub.enq_frontier = sub_resolved
                     wake.append(sub)
+                    continue
+                if sub.id not in live:
+                    # its sender took its catch-up bounds after this
+                    # poll's scan started past its watermark: advancing it
+                    # here would skip what lies between; the next poll
+                    # scans from it
                     continue
                 batch = []
                 i = bisect.bisect_right(ts_order, sub.enq_frontier)

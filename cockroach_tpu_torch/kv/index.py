@@ -240,26 +240,11 @@ def plan_create_index(catalog, db, stmt,
             "index_id": index_id}
 
 
-def _fenced_job_read(reg, job, t):
-    """Read the durable job record inside txn `t` and check this claimant
-    still owns it (the fence of every non-re-runnable schema-change txn)."""
-    from .jobs import _PREFIX
-
-    rows = t.scan(reg._chunk_key(job.job_id, 0),
-                  _PREFIX + b"%08d.\xff" % job.job_id)
-    cur = reg._from_chunks(job.job_id, rows) if rows else job
-    if (cur.claim_node, cur.claim_epoch) != (job.claim_node,
-                                             job.claim_epoch):
-        raise RuntimeError(
-            f"job {job.job_id} was re-adopted by node {cur.claim_node} "
-            f"(epoch {cur.claim_epoch}); this claimant is stale")
-    return cur
-
-
 def backfill_index(reg, job, catalog) -> None:
     """The create_index resumer: chunked entry writes, a checkpoint after
     each chunk, then a fenced descriptor swap that makes the index visible.
     With bulk ingest on, each chunk's entries land as one RunBuilder run."""
+    from ..sql.schemachange import _fenced_job_read
     from ..storage import ingest as bulk
     from .table import KVTable, write_descriptor
 

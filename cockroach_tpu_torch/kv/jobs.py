@@ -6,12 +6,15 @@ keyspace through kv transactions; a resumer registered per job type
 drives each job and checkpoints its progress, so a job whose resumer
 died resumes from the checkpoint when it is adopted again.
 
-States: pending -> running -> succeeded | failed. The port carries the
-IMPORT, CREATE INDEX and changefeed job types (``register_import_job``
-here, ``kv.index.register_create_index_job``,
-``kv.changefeed.register_changefeed_job``). Node liveness, with its
-epoch fencing and orphan adoption, and the backup job type are not
-ported: every claim is this registry's own.
+States: pending -> running -> succeeded | failed. With node liveness
+(kv/liveness.py) wired in, claims are stamped with the claimant's
+liveness epoch, checkpoints are fenced against epoch increments, and
+``adopt_orphans`` re-adopts the running jobs of nodes whose records
+expired. The job types are BACKUP and IMPORT (``register_builtin_jobs``
+and ``register_import_job`` here), CREATE INDEX
+(``kv.index.register_create_index_job``), ALTER TABLE
+(``sql.schemachange.register_schema_change_job``) and the changefeed
+(``kv.changefeed.register_changefeed_job``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,13 @@ class Job:
 class Registry:
     """Durable job records + resumer dispatch (jobs.Registry reduction)."""
 
-    def __init__(self, db: DB, node_id: int = 1):
+    def __init__(self, db: DB, node_id: int = 1, liveness=None):
         self.db = db
         self.node_id = node_id
+        # NodeLiveness (kv/liveness.py): adoption claims are epoch-stamped
+        # and checkpoints are fenced against epoch increments; None keeps
+        # the single-registry behavior (claims recorded, never contested)
+        self.liveness = liveness
         self._mu = threading.Lock()  # guards _resumers and _running
         self._resumers: dict[str, object] = {}
         self._running: set[int] = set()  # in-process, guards self-re-adoption
@@ -154,16 +161,84 @@ class Registry:
 
         return self.db.txn(op)
 
+    def _my_epoch(self) -> int:
+        """The liveness epoch this node BELIEVES it owns (set by its own
+        successful heartbeats) — a fenced node must keep stamping its old
+        epoch so its writes fail, not adopt the fencer's."""
+        if self.liveness is None:
+            return 0
+        if self.liveness._my_epoch is not None:
+            return self.liveness._my_epoch
+        rec = self.liveness._read(self.node_id)
+        return rec.epoch if rec is not None else 0
+
     def checkpoint(self, job: Job) -> None:
         """Persist progress mid-run: a resume after this point starts here,
-        not from zero."""
-        self.db.txn(lambda t: self._write(t, job))
+        not from zero.
+
+        Epoch fencing: with liveness wired, the fence check and the record
+        write share ONE txn — the liveness read lands in the txn's read
+        spans, so a fencer's epoch increment between check and commit
+        invalidates the write instead of letting a stale node clobber the
+        new owner."""
+        from .liveness import EpochFencedError
+
+        def op(t):
+            if self.liveness is not None and job.claim_node == self.node_id:
+                rec = self.liveness._read(self.node_id, t)
+                if rec is not None and rec.epoch != job.claim_epoch:
+                    raise EpochFencedError(
+                        f"node {self.node_id} epoch {rec.epoch} != claim "
+                        f"epoch {job.claim_epoch}; job {job.job_id} was "
+                        "re-adopted"
+                    )
+            self._write(t, job)
+
+        self.db.txn(op)
+
+    def adopt_orphans(self) -> list[Job]:
+        """Re-adopt running jobs whose claim is no longer valid: the
+        claimant's liveness record expired (fence it — its late checkpoints
+        must fail) or it is a stale self-claim from before our own epoch
+        advanced (jobs/adopt.go's claim-expired loop). One failing job must
+        not stall its siblings. Requires liveness."""
+        if self.liveness is None:
+            return []
+        from ..utils import log
+        from .liveness import StillLiveError
+
+        out = []
+        for job in self.jobs():
+            with self._mu:
+                in_flight = job.job_id in self._running
+            if job.state != "running" or in_flight:
+                continue
+            if job.claim_node == 0:
+                continue
+            if job.claim_node != self.node_id:
+                # our own claim after a crash-and-restart is resumed as it
+                # stands; a peer's only once its record expired and it is
+                # fenced
+                if self.liveness.is_live(job.claim_node):
+                    continue
+                try:
+                    self.liveness.increment_epoch(job.claim_node)
+                except StillLiveError:
+                    continue  # heartbeated between checks; leave it alone
+            try:
+                out.append(self.adopt_and_resume(job.job_id))
+            except Exception as e:  # adoption failure is per job: logged
+                log.warning(log.OPS, "orphan adoption failed",
+                            job=job.job_id, error=str(e))
+        return out
 
     def _claim(self, job_id: int, observed: Job) -> Job | None:
         """Transactionally claim a job for this node. The read of the
         record is span-tracked, so two adopters racing on the same orphan
         conflict: the loser's retry re-reads the new claim and backs off
         (returns None) instead of double-running the job."""
+        my_epoch = self._my_epoch()
+
         def op(t):
             # read through the txn so the chunk span lands in the read
             # spans (claim races conflict at commit)
@@ -183,7 +258,7 @@ class Registry:
                 return None  # someone else claimed since we looked
             cur.state = "running"
             cur.claim_node = self.node_id
-            cur.claim_epoch = 0
+            cur.claim_epoch = my_epoch
             self._write(t, cur)
             return cur
 
@@ -227,11 +302,30 @@ class Registry:
                 self._running.discard(job_id)
 
 
+# -- built-in job types ------------------------------------------------------
+
+
+def register_builtin_jobs(registry: Registry) -> None:
+    """BACKUP as a job (pkg/backup/backup_processor.go under jobs.Resumer):
+    the engine checkpoint rides the same frame — durable record -> run ->
+    terminal state, resumable by re-adoption."""
+
+    def backup_resume(reg: Registry, job: Job):
+        from ..utils.external_storage import resolve_dir_uri
+
+        # URI destinations (nodelocal://, file://; cloud schemes fail
+        # with configuration guidance) — pkg/cloud ExternalStorage role
+        path = resolve_dir_uri(job.payload["path"])
+        reg.db.engine.checkpoint(path)
+        return {"path": path}
+
+    registry.register("backup", backup_resume)
+
+
 def register_import_job(registry: Registry, catalog) -> None:
     """IMPORT INTO <table> CSV DATA (file) as a job: parse the CSV on the
     host, bulk-load through the AddSSTable path (KVTable.bulk_load), record
-    row counts in progress — the pkg/sql/importer reduction. The payload's
-    ``path`` is a local file (a ``file://`` URI or a plain path)."""
+    row counts in progress — the pkg/sql/importer reduction."""
     import csv as _csv
 
     import numpy as np
@@ -241,12 +335,13 @@ def register_import_job(registry: Registry, catalog) -> None:
     def import_resume(reg: Registry, job: Job):
         import io
 
+        from ..utils.external_storage import from_uri
+
         table = catalog.tables[job.payload["table"]]
-        path = job.payload["path"]
-        if path.startswith("file://"):
-            path = path[len("file://"):]
-        with open(path, "rb") as f:
-            data = f.read().decode("utf-8")
+        # URI destinations (nodelocal://, file://, plain paths) read
+        # through the ExternalStorage registry (pkg/cloud role)
+        storage, path = from_uri(job.payload["path"])
+        data = storage.read_file(path).decode("utf-8")
         rows = list(_csv.DictReader(io.StringIO(data, newline="")))
         cols: dict[str, np.ndarray] = {}
         valids: dict[str, np.ndarray] = {}

@@ -36,8 +36,8 @@ from .txn import DB, Txn
 
 _UNSUPPORTED = (Family.BYTES, Family.JSON)
 
-# unscoped table ids come from the system tenant's range (kv/tenant.py's
-# _SYSTEM_RANGE in the reference)
+# unscoped table ids come from the system tenant's range; kv/tenant.py
+# slices the ids above it among the other tenants
 _SYSTEM_RANGE = (1, 127)
 
 # the transaction the running statement reads as (``reading_as``); a

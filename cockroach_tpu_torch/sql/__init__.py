@@ -3,9 +3,9 @@ analog), the Rel fluent plan builder and the Session; the port of
 ``cockroach_tpu.sql``. ``sql(catalog, text)`` parses and binds a SELECT
 into an executable Rel."""
 
-from .binder import BindError, sql
+from .binder import BindError, UnportedError, sql
 from .rel import Rel
-from .session import Session, UnportedError
+from .session import Session
 
 
 def explain(catalog, text: str, session=None) -> str:

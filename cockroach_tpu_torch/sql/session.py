@@ -14,18 +14,22 @@ planner; INSERT/UPDATE/DELETE encode rows and write through kv.Txn
   versions / tombstones transactionally;
 - SELECT returns columns through the standard bind/execute path.
 
-Divergences (documented): no schema changes after creation, single-node
-descriptors (table ids allocated locally), and writes materialize the
-affected rows on the host before re-encoding (no vectorized write path
-yet — the reference's colenc).
+- ALTER TABLE ADD/DROP COLUMN runs as a schema_change job
+  (sql/schemachange.py); BACKUP TO runs as a backup job and RESTORE FROM
+  swaps the engine in from the checkpoint (kv/jobs.py,
+  utils/external_storage.py); CREATE/DROP/SHOW/ALTER TENANT and
+  ``Session(tenant=...)`` run over kv/tenant.py.
+
+Divergences (documented): single-node descriptors (table ids allocated
+locally), and writes materialize the affected rows on the host before
+re-encoding (no vectorized write path yet — the reference's colenc).
 
 The port of ``cockroach_tpu.sql.session``: the catalog and the default
 engine live on ``device`` (``"cuda"`` by default; without a card that
-raises unless the caller passes ``device="cpu"``). Statements that need
-a module the port has not got raise ``BindError`` naming it
-(``UnportedError``): ALTER TABLE (sql/schemachange.py), tenants
-(kv/tenant.py), BACKUP and RESTORE (the backup job of kv/jobs.py and
-utils/external_storage.py). CREATE / DROP / REFRESH MATERIALIZED VIEW
+raises unless the caller passes ``device="cpu"``), and RESTORE opens the
+checkpoint there. The one statement whose module the port has not got,
+``crdb_internal.hot_ranges`` (kv/loadstats.py), raises ``BindError``
+naming it (``UnportedError``). CREATE / DROP / REFRESH MATERIALIZED VIEW
 go to sql/matview.py, a statement that names a view refreshes it first,
 and a SELECT matching a view's shape and literals is served from it, as
 in the reference. The slow-query log leaves a diagnostics bundle
@@ -54,19 +58,9 @@ from ..storage.lsm import WriteIntentError
 from ..storage import rowcodec
 from ..storage.lsm import Engine
 from . import parser as P
-from .binder import BindError, Binder, ExprLowerer, UnportedError
+from .binder import BindError, Binder, ExprLowerer
 from .rel import Rel
 
-
-# statements of modules the port has not got: (pattern, what, module)
-_UNPORTED_STMTS = (
-    (r"(?is)^(create|drop|show|alter)\s+tenants?\b", "tenant DDL",
-     "kv/tenant.py"),
-    (r"(?is)^backup\b", "BACKUP",
-     "the backup job of kv/jobs.py and utils/external_storage.py"),
-    (r"(?is)^restore\b", "RESTORE",
-     "the backup job of kv/jobs.py and utils/external_storage.py"),
-)
 
 _TYPE_MAP = {
     "int": T.INT64, "integer": T.INT64, "bigint": T.INT64,
@@ -111,14 +105,14 @@ class Session:
         scan per connection would replace live KVTable objects under
         concurrently executing sessions).
 
-        tenant: the reference runs the session as the named tenant
-        (kv/tenant.py, not ported): any value but None raises
-        UnportedError.
+        tenant: run this session AS the named tenant over the shared KV
+        store (kv/tenant.py) — catalog discovery and table creation are
+        confined to the tenant's table-id range, and capability checks
+        gate CREATE TABLE / BACKUP. None = the unscoped session
+        (system-tenant powers, no restrictions).
 
         device: where the catalog and the default engine live; a catalog
         or DB passed in must live there too."""
-        if tenant is not None:
-            raise UnportedError("Session(tenant=...)", "kv/tenant.py")
         dev = resolve_device(device)
         self.catalog = catalog if catalog is not None else Catalog(dev)
         if self.catalog.device != dev:
@@ -138,13 +132,38 @@ class Session:
             raise ValueError(
                 f"engine on {self.db.engine.device}, session on {dev}: "
                 "a session runs on one device")
+        self.tenant = None
+        if tenant is not None:
+            from ..kv.tenant import TenantRegistry
+
+            reg = TenantRegistry(self.db)
+            reg.bootstrap()
+            self.tenant = reg.get(tenant)
+            # admission capabilities bind here: a tenant carrying
+            # admission_rate / admission_burst / admission_weight caps
+            # gets its token bucket / fair-share weight configured past
+            # the cluster defaults (tenant rate-limiter shape)
+            caps = self.tenant.caps
+            if any(k in caps for k in ("admission_rate", "admission_burst",
+                                       "admission_weight")):
+                from ..utils import admission as _adm
+
+                _adm.sql_queue().configure_tenant(
+                    self.tenant.tenant_id,
+                    rate=caps.get("admission_rate"),
+                    burst=caps.get("admission_burst"),
+                    weight=caps.get("admission_weight"))
         if db is not None and bootstrap:
             # opening over an existing store: rediscover persisted tables
             # from their descriptors (the catalog bootstrap path), plus any
             # persisted ANALYZE statistics (system.table_statistics role)
             from ..kv.table import load_catalog_from_engine
 
-            load_catalog_from_engine(self.catalog, self.db)
+            load_catalog_from_engine(
+                self.catalog, self.db,
+                id_range=(None if self.tenant is None
+                          else (self.tenant.id_lo, self.tenant.id_hi)),
+            )
             from . import stats as stats_mod
 
             for tbl in self.catalog.tables.values():
@@ -220,12 +239,15 @@ class Session:
             # session's tier, then the root span of the statement's trace:
             # everything below — parse/bind, plan-cache lookup, flow pull,
             # KV batches, WAL appends — nests under them via contextvars.
-            # The slot request carries the statement's lane (analytical
-            # sheds first under overload) and the statement deadline:
-            # queue-wait counts against statement_timeout, so a full
-            # queue is a fast typed 53300 instead of a silent stall
+            # The slot request carries this session's tenant, the
+            # statement's lane (analytical sheds first under overload) and
+            # the statement deadline: queue-wait counts against
+            # statement_timeout, so a full queue is a fast typed 53300
+            # instead of a silent stall
             with admission.sql_slot(
                     admission.classify_statement(text),
+                    tenant_id=(None if self.tenant is None
+                               else self.tenant.tenant_id),
                     deadline=self._statement_deadline()), \
                     flowmem.query_scope(self._mem_mon) as qmon, \
                     tracing.span("sql.execute",
@@ -357,7 +379,7 @@ class Session:
         if isinstance(stmt, P.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, P.AlterTable):
-            raise UnportedError("ALTER TABLE", "sql/schemachange.py")
+            return self._alter_table(stmt)
         if isinstance(stmt, P.CreateIndex):
             return self._create_index(stmt)
         if isinstance(stmt, P.DropIndex):
@@ -603,16 +625,111 @@ class Session:
             }
         return None
 
+    def _maybe_tenant_stmt(self, t: str):
+        """CREATE/DROP/SHOW/ALTER TENANT — the system tenant's DDL surface
+        (reference: SQL tenant builtins + tenantcapabilities; reduced to
+        the capability grammar the capability set here supports)."""
+        import re as _re
+
+        import numpy as _np
+
+        from ..kv.tenant import TenantError, TenantRegistry
+
+        def require_system():
+            if self.tenant is not None and self.tenant.name != "system":
+                raise TenantError(
+                    "tenant DDL requires the system tenant"
+                )
+            reg = TenantRegistry(self.db)
+            reg.bootstrap()
+            return reg
+
+        m = _re.match(r"(?is)^create\s+tenant\s+'?([a-z0-9_]+)'?$", t)
+        if m:
+            rec = require_system().create(m.group(1))
+            return {"tenant_id": rec.tenant_id, "name": rec.name}
+        m = _re.match(r"(?is)^drop\s+tenant\s+'?([a-z0-9_]+)'?$", t)
+        if m:
+            require_system().drop(m.group(1))
+            return {"dropped": m.group(1)}
+        if _re.match(r"(?is)^show\s+tenants$", t):
+            recs = require_system().list()
+            return {
+                "id": _np.array([r.tenant_id for r in recs],
+                                dtype=_np.int64),
+                "name": _np.array([r.name for r in recs], dtype=object),
+                "capabilities": _np.array(
+                    [",".join(f"{k}={v}" for k, v in sorted(r.caps.items()))
+                     for r in recs], dtype=object),
+            }
+        m = _re.match(
+            r"(?is)^alter\s+tenant\s+'?([a-z0-9_]+)'?\s+"
+            r"(grant|revoke)\s+capability\s+([a-z0-9_]+)$", t)
+        if m:
+            cap = m.group(3).lower()
+            if cap not in ("can_create_table", "can_backup"):
+                # GRANT/REVOKE writes booleans: numeric caps (max_tables)
+                # would silently corrupt
+                raise TenantError(f"unknown boolean capability {cap!r}")
+            rec = require_system().set_capability(
+                m.group(1), cap,
+                m.group(2).lower() == "grant",
+            )
+            return {"tenant": rec.name,
+                    m.group(3).lower(): rec.caps[m.group(3).lower()]}
+        return None
+
     def _maybe_admin_stmt(self, text: str):
-        """SHOW TABLES / COLUMNS / STATISTICS / RANGES / STATEMENTS /
-        CONTENTION / JOBS and ANALYZE. The reference's BACKUP, RESTORE
-        and tenant DDL raise UnportedError (see ``_UNPORTED_STMTS``)."""
+        """Tenant DDL, BACKUP TO '<uri>' / RESTORE FROM '<uri>', SHOW TABLES
+        / COLUMNS / STATISTICS / RANGES / STATEMENTS / CONTENTION / JOBS
+        and ANALYZE. BACKUP runs as a job, exactly the reference's shape;
+        RESTORE swaps the engine state in from the checkpoint, on this
+        session's device, and reloads the table descriptors and
+        dictionaries."""
         import re as _re
 
         t = text.strip().rstrip(";")
-        for pat, what, module in _UNPORTED_STMTS:
-            if _re.match(pat, t):
-                raise UnportedError(what, module)
+        handled = self._maybe_tenant_stmt(t)
+        if handled is not None:
+            return handled
+        m = _re.match(r"(?is)^backup\s+to\s+'([^']+)'$", t)
+        if m:
+            if self.tenant is not None:
+                from ..kv.tenant import check_capability
+
+                check_capability(self.tenant, "can_backup")
+            from ..kv.jobs import register_builtin_jobs
+
+            reg = self._jobs_registry()
+            register_builtin_jobs(reg)
+            job = reg.create("backup", {"path": m.group(1)})
+            done = reg.adopt_and_resume(job.job_id)
+            return {"job_id": done.job_id, "state": done.state}
+        m = _re.match(r"(?is)^restore\s+from\s+'([^']+)'$", t)
+        if m:
+            if self.tenant is not None and self.tenant.name != "system":
+                from ..kv.tenant import CapabilityError
+
+                # RESTORE swaps the SHARED engine state — system only
+                raise CapabilityError(
+                    "RESTORE requires the system tenant (it replaces the "
+                    "shared store)"
+                )
+            from ..utils.external_storage import resolve_dir_uri
+
+            self.db.engine = Engine.open_checkpoint(
+                resolve_dir_uri(m.group(1)), device=self.catalog.device)
+            # schemas are data: rebuild the catalog from the restored
+            # descriptors (tables created after the backup disappear;
+            # tables present in the backup return even into a fresh session)
+            from ..kv.table import load_catalog_from_engine
+
+            for name in [n for n, tbl in self.catalog.tables.items()
+                         if isinstance(tbl, KVTable)]:
+                del self.catalog.tables[name]
+            load_catalog_from_engine(self.catalog, self.db)
+            self._invalidate_plans()
+            return {"restored": m.group(1)}
         if _re.match(r"(?is)^show\s+tables$", t):
             import numpy as _np
 
@@ -778,10 +895,41 @@ class Session:
                 f"{self.db.engine.val_width}; open the Session with "
                 f"val_width>={need}"
             )
+        id_range = None
+        if self.tenant is not None:
+            from ..kv.tenant import CapabilityError, check_capability
+
+            check_capability(self.tenant, "can_create_table")
+            n_tables = sum(1 for t in self.catalog.tables.values()
+                           if isinstance(t, KVTable))
+            if n_tables >= int(self.tenant.caps.get("max_tables", 1 << 30)):
+                raise CapabilityError(
+                    f"tenant {self.tenant.name!r} reached its max_tables "
+                    f"({self.tenant.caps['max_tables']})"
+                )
+            id_range = (self.tenant.id_lo, self.tenant.id_hi)
         create_kv_table(self.catalog, self.db, stmt.name, schema,
-                        pk=pks[0])
+                        pk=pks[0], id_range=id_range)
         self._invalidate_plans()
         return {"created": stmt.name}
+
+    def _alter_table(self, stmt: P.AlterTable):
+        """ALTER TABLE as a schema_change job: validate, create the job,
+        run the checkpointed backfill, swap the descriptor (the reference's
+        schema changes are jobs for exactly this crash-resume reason)."""
+        from .schemachange import plan_alter, register_schema_change_job
+
+        payload = plan_alter(self.catalog, self.db, stmt)
+        reg = self._jobs_registry()
+        register_schema_change_job(reg, self.catalog)
+        job = reg.create("schema_change", payload)
+        done = reg.adopt_and_resume(job.job_id)
+        if done.state != "succeeded":
+            raise BindError(
+                f"schema change failed: {done.error or done.state}"
+            )
+        self._invalidate_plans()
+        return {"altered": stmt.name, "job_id": done.job_id}
 
     def _create_index(self, stmt: P.CreateIndex):
         """CREATE INDEX as a create_index job: chunked checkpointed entry
@@ -789,7 +937,10 @@ class Session:
         discipline, same machinery as ALTER TABLE)."""
         from ..kv.index import plan_create_index, register_create_index_job
 
-        payload = plan_create_index(self.catalog, self.db, stmt)
+        id_range = ((self.tenant.id_lo, self.tenant.id_hi)
+                    if self.tenant is not None else None)
+        payload = plan_create_index(self.catalog, self.db, stmt,
+                                    id_range=id_range)
         reg = self._jobs_registry()
         register_create_index_job(reg, self.catalog)
         job = reg.create("create_index", payload)

@@ -19,9 +19,11 @@
 
 The reference also adds delay for memory pressure against
 ``sql.mem.root_budget_bytes`` in the IOGovernor; the port's governor has
-no such term (0 under the default unlimited budget). Its tenant
-registry's capability hook (``configure_tenant``) is here, but nothing
-in the port calls it until ``kv/tenant.py`` is ported; the chaos sites
+no such term (0 under the default unlimited budget). A tenant's
+admission capabilities bind through ``configure_tenant`` when a session
+opens as the tenant (sql/session.py), and each tenant keeps its admitted
+statements' queue waits for the per-tenant p99 that bench/load.py's
+overload oracle reads (``tenant_wait_samples``); the chaos sites
 ``admission.bucket.refill`` and ``admission.grant.stall`` are registered
 in utils/faults.py.
 """
@@ -131,7 +133,11 @@ class _TenantState:
     queue lock."""
 
     __slots__ = ("tenant_id", "bucket", "weight", "vtime",
-                 "admitted", "rejected")
+                 "admitted", "rejected", "waits")
+
+    # per-tenant queue-wait sample cap: enough for any bench window's
+    # percentiles without unbounded growth on a long-lived node
+    MAX_WAIT_SAMPLES = 65536
 
     def __init__(self, tenant_id: int, bucket: TokenBucket,
                  weight: float = 1.0, vtime: float = 0.0):
@@ -141,6 +147,14 @@ class _TenantState:
         self.vtime = vtime
         self.admitted = 0
         self.rejected = 0
+        # queue-wait seconds of this tenant's admitted statements (the
+        # per-tenant half of admission_wait_seconds: the isolation oracle
+        # reads p99 per tenant, which a global histogram cannot answer)
+        self.waits: list[float] = []
+
+    def note_wait(self, seconds: float) -> None:
+        if len(self.waits) < self.MAX_WAIT_SAMPLES:
+            self.waits.append(seconds)
 
 
 class _Waiter:
@@ -285,6 +299,13 @@ class WorkQueue:
                 st.weight = max(1e-6, float(weight))
             self._publish_tenant(st)
 
+    def tenant_wait_samples(self, tenant_id: int) -> list[float]:
+        """Copy of the tenant's queue-wait samples (seconds, admitted
+        statements only) — the per-tenant p99 isolation oracle's input."""
+        with self._lock:
+            st = self._tenants.get(tenant_id)
+            return [] if st is None else list(st.waits)
+
     def tenant_rows(self) -> list[dict]:
         """Per-tenant admission snapshot (crdb_internal / /_status/load)."""
         with self._lock:
@@ -414,6 +435,7 @@ class WorkQueue:
                 self.admitted += 1
                 if st is not None:
                     self._charge_locked(st)
+                    st.note_wait(time.perf_counter() - t0)
                 if self._instrument:
                     # fast-path admissions observe too: the wait histogram
                     # must count EVERY admission so queue-wait percentiles
@@ -485,6 +507,8 @@ class WorkQueue:
                 self._publish()
                 return False
             self.admitted += 1
+            if st is not None:
+                st.note_wait(time.perf_counter() - t0)
             if self._instrument:
                 metric.ADMISSION_WAIT_SECONDS.observe(
                     time.perf_counter() - t0)

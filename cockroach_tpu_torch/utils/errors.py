@@ -1,6 +1,7 @@
 """Query error boundary — the colexecerror analog; the port of the part of
 ``cockroach_tpu.utils.errors`` that the distributed runner, SQL
-admission and the changefeed fan-out plane need.
+admission, the changefeed fan-out plane and the liveness and tenant
+status reads need.
 
 Reference: pkg/sql/colexecerror/error.go:45 CatchVectorizedRuntimeError
 converts engine panics into SQL errors at the flow boundary. Here the
@@ -90,3 +91,23 @@ class SlowConsumerError(Exception):
         super().__init__(
             f"slow consumer {subscriber_id} evicted ({reason}); "
             f"reconnect with since={frontier}")
+
+
+def retry_past_intents(fn, deadline_s: float = 0.5):
+    """Run a status-level read, retrying briefly past WriteIntentError:
+    background loops (heartbeats, jobs adoption) commit constantly, and a
+    status probe (an is_live check, a tenant listing) must never fail just
+    because a txn was mid-commit. Raises the final WriteIntentError if the
+    intent outlives the deadline (a wedged writer)."""
+    import time
+
+    from ..storage.lsm import WriteIntentError
+
+    deadline = time.time() + deadline_s
+    while True:
+        try:
+            return fn()
+        except WriteIntentError:
+            if time.time() >= deadline:
+                raise
+            time.sleep(0.005)

@@ -1,7 +1,12 @@
 """Fault-injection hooks at the storage engine's, the external
-operators', SQL admission's, the warm menu's, the changefeed's and the
-materialized views' sites, with the reference's site names. Every hook
-is a no-op until ``arm`` is called."""
+operators', SQL admission's, the warm menu's, the changefeed's, the
+materialized views' and node liveness's sites, with the reference's site
+names. Every hook is a no-op until ``arm`` is called.
+
+The liveness sites exist per node: ``fire_scoped`` fires the generic name
+and its node-scoped variant ``<site>.n<id>``, so a test can blackhole one
+node's heartbeats (``liveness.heartbeat.n1``) while its peers stay live;
+``liveness.epoch_bump.n<id>`` is keyed by the node doing the bump."""
 
 from __future__ import annotations
 
@@ -36,7 +41,12 @@ SITES: dict[str, str] = {
                            "mid-flush: no state swapped",
     "matview.frontier.checkpoint": "materialized-view frontier checkpoint "
                                    "failure after compute, before swap",
+    "liveness.heartbeat": "node-liveness heartbeat failure (node-scoped)",
+    "liveness.epoch_bump": "IncrementEpoch CPut failure (node-scoped)",
 }
+
+# sites that also fire as ``<site>.n<id>`` (fire_scoped)
+_SCOPED = ("liveness.heartbeat", "liveness.epoch_bump")
 
 
 class InjectedFault(ConnectionError):
@@ -67,7 +77,8 @@ _specs: dict[str, FaultSpec] = {}
 def arm(seed: int, specs: dict[str, FaultSpec]) -> None:
     global _armed, _rng
     for site in specs:
-        if site not in SITES:
+        base, _, node = site.rpartition(".n")
+        if site not in SITES and not (base in _SCOPED and node.isdigit()):
             raise KeyError(f"unknown fault site {site!r}")
     with _lock:
         _rng = random.Random(seed)
@@ -95,6 +106,13 @@ def fire(site: str) -> None:
         time.sleep(spec.delay_s)
         return
     raise InjectedFault(site, spec.kind)
+
+
+def fire_scoped(site: str, node_id: int) -> None:
+    """Fire a per-node site: the generic name hits every node, the
+    node-scoped ``<site>.n<id>`` variant exactly one."""
+    fire(site)
+    fire(f"{site}.n{node_id}")
 
 
 def partial_fraction(site: str) -> float | None:

@@ -162,6 +162,8 @@ GRACE_JOIN_SKEW_ROUTED = Counter("sql_grace_join_skew_rows")
 # KV transactions, the contention registry and the disk monitor
 TXN_COMMITS = Counter("txn_commits")
 TXN_RETRIES = Counter("txn_retries")
+# range leases taken after epoch-fencing an expired holder (kv/liveness.py)
+LEASE_FAILOVERS = Counter("kv_lease_failovers")
 CONTENTION_RECORD_ERRORS = Counter("contention_record_errors")
 DISK_WRITE_P99 = Gauge("storage_disk_write_p99_ms")
 DISK_SLOW = Gauge("storage_disk_slow")

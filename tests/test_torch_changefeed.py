@@ -342,6 +342,42 @@ def test_subscribe_fault_is_retried():
         srv.close()
 
 
+def test_subscriber_going_live_mid_poll_loses_nothing(monkeypatch):
+    """A registration whose sender takes its catch-up bounds (and turns
+    LIVE) while a poll is scanning: the poll's scan started past its
+    watermark (it was in catch-up when the bounds were taken), so the
+    poll must leave its watermark alone and the next poll deliver what
+    lies between. Advancing it skipped those versions and let the
+    resolved frontier pass them (an intermittent failure of
+    test_subscriber_send_fault_evicts_typed_then_resumes)."""
+    db = _tdb()
+    for i in range(4):
+        db.txn(lambda t, i=i: t.put(b"s%d" % i, b"v%d" % i))
+    hub = fanout.FanoutHub(db, poll_interval_s=3600, device="cpu")
+    a, b = socket.socketpair()
+    try:
+        sub = hub.add_subscriber(a, start_sender=False)
+        assert sub.state == fanout.CATCHUP and sub.enq_frontier == 0
+        scan = tcf._scan
+
+        def racing_scan(*args, **kw):
+            with hub._mu:  # what the sender does, between the two locks
+                sub.state = fanout.LIVE
+            return scan(*args, **kw)
+
+        monkeypatch.setattr(tcf, "_scan", racing_scan)
+        hub._poll_once()
+        monkeypatch.setattr(tcf, "_scan", scan)
+        assert sub.enq_frontier == 0 and not sub.buf
+        hub._poll_once()
+        got = sorted(json.loads(p)["key"] for _ts, _k, p, _n, _t in sub.buf)
+        assert got == ["s0", "s1", "s2", "s3"]
+    finally:
+        hub.close()
+        a.close()
+        b.close()
+
+
 # -- the backpressure ladder -------------------------------------------------
 
 

@@ -24,6 +24,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import cockroach_tpu.catalog as jcatalog
 from cockroach_tpu import coldata as jcd
@@ -65,6 +66,17 @@ J = SimpleNamespace(Rel=jRel, ex=jex, cd=jcd, Q=jQ, DQ=jDQ,
                     dispatch=jdispatch)
 T = SimpleNamespace(Rel=tRel, ex=tex, cd=tT, Q=tQ, DQ=tDQ,
                     dispatch=tdispatch)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores (the file took 1035 s
+    under 6 workers against about 63 s alone)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

@@ -213,6 +213,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "cockroach_tpu_torch/kv/table.py",
             "cockroach_tpu_torch/kv/index.py",
             "cockroach_tpu_torch/kv/jobs.py",
+            "cockroach_tpu_torch/kv/liveness.py",
+            "cockroach_tpu_torch/kv/tenant.py",
+            "cockroach_tpu_torch/sql/schemachange.py",
+            "cockroach_tpu_torch/utils/external_storage.py",
             "cockroach_tpu_torch/plan/indexopt.py",
             "cockroach_tpu_torch/bench/tpch_kv.py"} <= names
     for f in files:

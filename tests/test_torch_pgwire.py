@@ -220,24 +220,39 @@ def test_extended_protocol_replies_byte_equal(servers):
         assert g == w, i
 
 
-def test_unported_statement_is_an_error_response(servers):
-    """A statement whose module is not ported answers an ErrorResponse
-    naming the module, and the connection goes on serving."""
-    _, t = servers
-    c = RawPg(t.addr)
+def test_unported_statement_is_an_error_response(servers, tmp_path):
+    """The statements ported since (ALTER TABLE, BACKUP and tenant DDL)
+    reply byte for byte as the reference's server does, and the
+    connection goes on serving."""
+    from cockroach_tpu.utils import external_storage as jext
+    from cockroach_tpu_torch.utils import external_storage as text
+
+    saved = [(ext, ext._NODELOCAL_BASE) for ext in (jext, text)]
+    for ext, _ in saved:
+        ext.set_nodelocal_base(str(tmp_path))
+    replies = []
     try:
-        c.query("create table w (a int primary key)")
-        for stmt, module in (
-                ("alter table w add column z int", b"sql/schemachange.py"),
-                ("backup to 'nowhere'", b"kv/jobs.py"),
-                ("create tenant t1", b"kv/tenant.py")):
-            reply = c.query(stmt)
-            assert reply[0][0] == b"E" and module in reply[0][1], stmt
-            assert b"CXX000" in reply[0][1]
-            assert reply[-1] == (b"Z", b"I")
-        assert c.query("select count(*) as n from w")[-2][0] == b"C"
+        for srv in servers:
+            c = RawPg(srv.addr)
+            try:
+                got = [c.query("create table w (a int primary key)")]
+                for stmt in ("alter table w add column z int",
+                             "backup to 'nodelocal://1/w'",
+                             "create tenant t1"):
+                    reply = c.query(stmt)
+                    assert reply[0][0] != b"E", (stmt, reply)
+                    assert reply[-1] == (b"Z", b"I")
+                    got.append(reply)
+                got.append(c.query("select count(*) as n from w"))
+                assert got[-1][-2][0] == b"C"
+            finally:
+                c.close()
+            replies.append(got)
     finally:
-        c.close()
+        for ext, base in saved:
+            ext.set_nodelocal_base(base)
+    want, have = replies
+    assert have == want
 
 
 def _keys(reply) -> list[int]:

@@ -4,8 +4,9 @@ transactions with the aborted-block discipline, CREATE INDEX and its use,
 ANALYZE with statistics persisted and reloaded — each statement's result
 equal to the reference's and the engine's versions afterwards byte-equal
 (both engines on a manual clock); the plan cache rebinding q6's literals
-into one entry; the typed error of every statement whose module is not
-ported; sessions on four threads giving the results of one; and the
+into one entry; the statements ported since (ALTER TABLE, tenant DDL,
+BACKUP, RESTORE) equal to the reference and the typed error of the one
+whose module is not; sessions on four threads giving the results of one; and the
 mixed serving load reading back every acknowledged insert."""
 
 import threading
@@ -25,6 +26,7 @@ from cockroach_tpu.kv import ManualClock as jClock
 from cockroach_tpu.sql import Session as jSession
 from cockroach_tpu.sql import explain as jexplain
 from cockroach_tpu.storage.lsm import Engine as jEngine
+from cockroach_tpu.utils import external_storage as jext
 from cockroach_tpu_torch.bench import tpch as ttpch
 from cockroach_tpu_torch.bench.load import run_mixed_load
 from cockroach_tpu_torch.bench.tpch_sql import TPCH_SQL
@@ -36,6 +38,7 @@ from cockroach_tpu_torch.sql import BindError, Session, UnportedError
 from cockroach_tpu_torch.sql import explain, plancache
 from cockroach_tpu_torch.storage.lsm import Engine as tEngine
 from cockroach_tpu_torch.utils import admission as tadmission
+from cockroach_tpu_torch.utils import external_storage as text
 from cockroach_tpu_torch.utils import settings as tsettings
 from cockroach_tpu_torch.utils.errors import (
     AdmissionRejectedError as tRejected)
@@ -247,14 +250,32 @@ def test_plan_cache_rebinds_q6_literals(tcat):
     ("restore from 'nodelocal://1/b'", "kv/jobs.py"),
     ("select range_id from crdb_internal.hot_ranges", "kv/loadstats.py"),
 ])
-def test_unported_statement_raises_typed_error(stmt, module):
-    sess = Session(device="cpu")
-    sess.execute("create table t (a int primary key)")
-    with pytest.raises(UnportedError, match=module.replace(".", r"\.")):
-        sess.execute(stmt)
+def test_unported_statement_raises_typed_error(stmt, module, tmp_path):
+    """crdb_internal.hot_ranges (kv/loadstats.py) still raises the typed
+    error; the statements whose modules are now ported give the
+    reference's result (or error) and leave byte-equal engines."""
+    saved = [(ext, ext._NODELOCAL_BASE) for ext in (jext, text)]
+    for ext, _ in saved:
+        ext.set_nodelocal_base(str(tmp_path))
+    try:
+        j, t = pair()
+        run_both(j, t, "create table t (a int primary key)")
+        if module == "kv/loadstats.py":
+            with pytest.raises(UnportedError,
+                               match=module.replace(".", r"\.")):
+                t.execute(stmt)
+        else:
+            if stmt.startswith("restore"):
+                run_both(j, t, "backup to 'nodelocal://1/b'")
+                run_both(j, t, "insert into t values (7)")
+            run_both(j, t, stmt)
+            engines_equal(j, t)
+    finally:
+        for ext, base in saved:
+            ext.set_nodelocal_base(base)
     assert isinstance(UnportedError("x", module), BindError)
     # the session goes on serving
-    assert sess.execute("select count(*) as n from t")["n"].tolist() == [0]
+    assert t.execute("select count(*) as n from t")["n"].tolist() == [0]
 
 
 @pytest.mark.parametrize("stmt,want", [
@@ -275,8 +296,23 @@ def test_matview_statements_are_ported(stmt, want):
 
 
 def test_unported_entry_points_raise():
-    with pytest.raises(UnportedError, match="kv/tenant.py"):
-        Session(tenant="acme", device="cpu")
+    """Session(tenant=...) is ported: an unknown tenant meets the
+    reference's TenantError, a created one opens a scoped session."""
+    j, t = pair()
+    outs = []
+    for s, make in ((j, lambda: jSession(db=j.db, tenant="acme")),
+                    (t, lambda: Session(db=t.db, tenant="acme",
+                                        device="cpu"))):
+        try:
+            make()
+        except Exception as e:  # noqa: BLE001 - the error is the outcome
+            outs.append((type(e).__name__, str(e)))
+        s.execute("create tenant acme")
+        outs.append(make().tenant)
+    # [reference error, reference tenant, port error, port tenant]
+    assert outs[2] == outs[0] and outs[0][0] == "TenantError"
+    assert repr(outs[3]) == repr(outs[1])
+    engines_equal(j, t)
     sess = Session(device="cpu")
     sess.execute("create table t (a int primary key)")
     # EXPLAIN ANALYZE (DEBUG) is ported: it names its bundle

@@ -278,3 +278,29 @@ def test_streaming_scan_raises(cats):
     assert type(root).__name__ == "FusedPipeline"
     assert root.top.child.streaming
     np.testing.assert_array_equal(got["l_quantity"], want["l_quantity"])
+
+
+def test_same_multiset_equals_sorted_rows():
+    """chip_smoke.same_multiset (np.lexsort on numeric columns) gives the
+    answer of comparing chip_smoke.sorted_rows (a Python sort of row
+    tuples), the check it speeds up, on permuted, altered, NULL-bearing
+    and NaN-bearing results."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    for trial in range(300):
+        n = int(rng.integers(0, 30))
+        a = {"x": rng.integers(0, 4, n), "y": rng.random(n).round(1),
+             "z": rng.integers(0, 2, n).astype(bool)}
+        if trial % 7 == 0:  # a NULL: object columns take the slow path
+            a["x"] = a["x"].astype(object)
+            if n:
+                a["x"][0] = None
+        if trial % 11 == 0 and n:  # NaN: the slow path too
+            a["y"][0] = np.nan
+        b = {k: v[rng.permutation(n)] for k, v in a.items()}
+        if n and trial % 3 == 0:
+            b["y"] = b["y"].copy()
+            b["y"][int(rng.integers(0, n))] += 1.0
+        want = chip_smoke.sorted_rows(a) == chip_smoke.sorted_rows(b)
+        assert chip_smoke.same_multiset(a, b) == want, trial

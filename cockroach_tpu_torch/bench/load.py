@@ -18,8 +18,9 @@ After the run every acknowledged insert is read back (``readback_ok``).
 ``run_tenant_overload`` is the multi-tenant overload-survival oracle: a
 well-behaved tenant alone, then beside a noisy one past the node's
 capacity (kv/tenant.py tenants, utils/admission.py's per-tenant buckets
-and fair share). The reference's ``run_coalesce_ab`` waits for
-``kv/coalesce.py``.
+and fair share). ``run_coalesce_ab`` is the commit train's A/B
+(kv/coalesce.py): coalescing off against on over a WAL store, and the
+bit-identity oracle.
 """
 
 from __future__ import annotations
@@ -481,3 +482,178 @@ def run_tenant_overload(duration_s: float = 6.0, sf: float = 0.004,
         admission._SQL_QUEUE = saved
         boot.close()
 
+
+
+# ------------------------------------------------- the commit train's A/B
+
+
+def _coalesce_worker(db, stop: threading.Event, tid: int, n_hot: int,
+                     lat: list, ctr: _Counters, seed: int) -> None:
+    """Mixed-DML worker over the non-txn KV surface (the coalescer's
+    lane): 90% put / 10% delete over per-thread keys, so the A/B measures
+    batching, not conflicts. Per-op wall time lands in ``lat``."""
+    rng = np.random.default_rng(seed)
+    j = 0
+    while not stop.is_set():
+        r = rng.random()
+        k = f"cl-{tid}-{j % n_hot}"
+        t0 = time.perf_counter()
+        try:
+            if r < 0.9:
+                db.put(k, f"v{tid}-{j}".encode())
+            else:
+                db.delete(k)
+        except Exception as e:  # noqa: BLE001 - counted and reported
+            with ctr.lock:
+                ctr.errors += 1
+                ctr.last_error = f"{type(e).__name__}: {e}"[:200]
+            j += 1
+            continue
+        lat.append(time.perf_counter() - t0)
+        with ctr.lock:
+            ctr.point_ops += 1
+        j += 1
+
+
+def _coalesce_oracle(threads: int = 4, ops: int = 200, seed: int = 7,
+                     device="cuda") -> bool:
+    """Bit-identity oracle: one deterministic concurrent mixed-DML script
+    run coalesced and solo against fresh stores on ``device`` must leave
+    byte-identical visible state (keys and values; timestamps are clock
+    readings and differ between any two runs, solo included)."""
+    from ..kv.txn import DB
+    from ..utils import settings
+
+    scripts = []
+    for t in range(threads):
+        rng = np.random.default_rng(seed * 1000 + t)
+        ops_t = []
+        for j in range(ops):
+            r = rng.random()
+            k = f"or-{t}-{int(rng.integers(0, 32))}"
+            if r < 0.6:
+                ops_t.append(("put", k, f"v{t}-{j}".encode()))
+            elif r < 0.8:
+                ops_t.append(("delete", k, b""))
+            else:
+                ops_t.append(("get", k, b""))
+        scripts.append(ops_t)
+
+    def run(coalesced: bool):
+        db = DB(device=device)
+        settings.set("kv.batch.coalesce.enabled", coalesced)
+        try:
+            def w(script):
+                for kind, k, v in script:
+                    if kind == "put":
+                        db.put(k, v)
+                    elif kind == "delete":
+                        db.delete(k)
+                    else:
+                        db.get(k)
+            ths = [threading.Thread(target=w, args=(s,), daemon=True)
+                   for s in scripts]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=60.0)
+        finally:
+            settings.set("kv.batch.coalesce.enabled", False)
+        return sorted(db.scan(None, None))
+
+    return run(False) == run(True)
+
+
+def _coalesce_phase(on: bool, sessions: int, duration_s: float,
+                    n_hot: int, device="cuda") -> dict:
+    """One timed phase over a fresh WAL-backed (fsync) store."""
+    import os
+    import tempfile
+
+    from ..kv.txn import DB
+    from ..storage.lsm import Engine
+    from ..utils import metric, settings
+
+    with tempfile.TemporaryDirectory() as td:
+        db = DB(Engine(wal_path=os.path.join(td, "wal.log"),
+                       wal_fsync=True, device=device))
+        settings.set("kv.batch.coalesce.enabled", on)
+        m0 = metric.KV_BATCH_COALESCED.value
+        try:
+            ctr = _Counters()
+            lats: list[list[float]] = [[] for _ in range(sessions)]
+            stop = threading.Event()
+            threads = [
+                threading.Thread(
+                    target=_coalesce_worker,
+                    args=(db, stop, i, n_hot, lats[i], ctr, 500 + i),
+                    name=f"coal-{i}", daemon=True)
+                for i in range(sessions)
+            ]
+            t0 = time.time()
+            for t in threads:
+                t.start()
+            stop.wait(duration_s)
+            stop.set()
+            for t in threads:
+                t.join(timeout=30.0)
+            elapsed = time.time() - t0
+        finally:
+            settings.set("kv.batch.coalesce.enabled", False)
+        db.engine.close()
+        flat = [x for lat in lats for x in lat]
+        return {
+            "ops_per_sec": ctr.point_ops / elapsed if elapsed > 0 else 0.0,
+            "p99_wait_ms": _p99_ms(flat),
+            "errors": ctr.errors,
+            "last_error": ctr.last_error,
+            "coalesced_ops": metric.KV_BATCH_COALESCED.value - m0,
+        }
+
+
+def run_coalesce_ab(sessions: int = 16, duration_s: float = 2.0,
+                    n_hot: int = 64, rounds: int = 3,
+                    device: str = "cuda") -> dict:
+    """Coalescing off against on over a WAL-backed (fsync) store on
+    ``device`` ("cuda" by default; raises without a card unless "cpu"):
+    ``sessions`` threads of mixed non-txn DML, each seeded by its
+    index, the same both phases.
+    Phases interleave (off, on x rounds) and the speedup is the median
+    of per-round ratios, as in the reference; ``coalesce_oracle_ok`` is
+    the bit-identity oracle."""
+    from ..device import resolve_device
+
+    resolve_device(device)
+    offs, ons = [], []
+    for _ in range(max(1, rounds)):
+        offs.append(_coalesce_phase(False, sessions, duration_s, n_hot,
+                                    device))
+        ons.append(_coalesce_phase(True, sessions, duration_s, n_hot,
+                                   device))
+
+    def med(vals):
+        vals = sorted(vals)
+        return vals[len(vals) // 2]
+
+    off_ops = med([p["ops_per_sec"] for p in offs])
+    on_ops = med([p["ops_per_sec"] for p in ons])
+    ratios = [on["ops_per_sec"] / off["ops_per_sec"]
+              for off, on in zip(offs, ons) if off["ops_per_sec"] > 0]
+    off_p99 = med([p["p99_wait_ms"] for p in offs])
+    on_p99 = med([p["p99_wait_ms"] for p in ons])
+    return {
+        "coalesce_sessions": sessions,
+        "coalesce_rounds": len(offs),
+        "coalesce_off_ops_per_sec": off_ops,
+        "coalesce_on_ops_per_sec": on_ops,
+        "coalesce_speedup": med(ratios) if ratios else 0.0,
+        "coalesce_off_p99_wait_ms": off_p99,
+        "coalesce_on_p99_wait_ms": on_p99,
+        "coalesce_p99_wait_ratio": on_p99 / off_p99 if off_p99 > 0 else 0.0,
+        "coalesce_batched_ops": sum(p["coalesced_ops"] for p in ons),
+        "coalesce_errors": (sum(p["errors"] for p in offs)
+                            + sum(p["errors"] for p in ons)),
+        "coalesce_last_error": next((p["last_error"] for p in offs + ons
+                                     if p["last_error"]), None),
+        "coalesce_oracle_ok": _coalesce_oracle(device=device),
+    }

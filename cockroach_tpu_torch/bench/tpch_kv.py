@@ -100,40 +100,62 @@ def engine_bytes(eng: Engine) -> int:
 
 
 def load_tpch_kv(host: Catalog, device="cuda", memtable_size: int = 1 << 20,
-                 clock=None) -> tuple[Catalog, DB, dict]:
+                 clock=None, stores: int = 1) -> tuple[Catalog, DB, dict]:
     """Bulk-load every table of `host` into one engine on `device`: a
     Catalog of KVTables, its DB (on `clock`, default a wall clock), and
     the load's figures (rows, seconds, rows/s, the seconds of its parts,
-    runs, compactions, device bytes)."""
+    runs, compactions, device bytes).
+
+    With ``stores`` > 1 the DB is a DistSender over that many stores
+    (kv/dist.py, one range on store 1 until the caller splits and moves
+    it); each chunk lands through ``DistSender.ingest``, since the run
+    builder's presorted runs are single-engine (the reference's
+    DistSender takes no ``presorted`` either)."""
+    import contextlib
+
+    from ..utils import settings
+
     dev = resolve_device(device)
     width = max(rowcodec.value_width(kv_schema(host.get(n))) for n in TABLES)
-    eng = Engine(key_width=16, val_width=width,
-                 memtable_size=memtable_size, device=dev)
+    if stores > 1:
+        from ..kv.dist import make_cluster
+
+        eng = make_cluster(stores, device=dev, key_width=16,
+                           val_width=width, memtable_size=memtable_size)
+        scope = settings.scoped({"storage.bulk_ingest.enabled": False})
+    else:
+        eng = Engine(key_width=16, val_width=width,
+                     memtable_size=memtable_size, device=dev)
+        scope = contextlib.nullcontext()
+    engines = ([s.engine for s in eng.stores.values()] if stores > 1
+               else [eng])
     db = DB(eng, clock or Clock())
     cat = Catalog(dev)
     parts: dict[str, float] = {}
     rows = 0
     t0 = time.perf_counter()
     parts["compaction"] = 0.0
-    for name in TABLES:
-        ht = host.get(name)
-        t = create_kv_table(cat, db, name, kv_schema(ht), PRIMARY[name])
-        rows += t.bulk_load(host_columns(ht), timings=parts)
-        # each table's runs (and the memtable of dictionary entries) merge
-        # into one before the next table's dictionary puts, which the
-        # IOGovernor would otherwise pace for every run over its healthy
-        # count
-        _sync(dev)
-        t1 = time.perf_counter()
-        eng.compact(bottom=True)
-        _sync(dev)
-        parts["compaction"] += time.perf_counter() - t1
+    with scope:
+        for name in TABLES:
+            ht = host.get(name)
+            t = create_kv_table(cat, db, name, kv_schema(ht), PRIMARY[name])
+            rows += t.bulk_load(host_columns(ht), timings=parts)
+            # each table's runs (and the memtable of dictionary entries)
+            # merge into one before the next table's dictionary puts,
+            # which the IOGovernor would otherwise pace for every run over
+            # its healthy count
+            _sync(dev)
+            t1 = time.perf_counter()
+            eng.compact(bottom=True)
+            _sync(dev)
+            parts["compaction"] += time.perf_counter() - t1
     secs = time.perf_counter() - t0
     return cat, db, {
         "rows": rows, "load_s": secs, "rows_per_s": rows / secs,
-        "parts_s": parts, "runs": len(eng.runs),
-        "compactions": eng.stats.compactions,
-        "device_bytes": engine_bytes(eng), "val_width": width}
+        "parts_s": parts, "runs": sum(len(e.runs) for e in engines),
+        "compactions": sum(e.stats.compactions for e in engines),
+        "device_bytes": sum(engine_bytes(e) for e in engines),
+        "val_width": width}
 
 
 def _sync(dev: torch.device) -> None:

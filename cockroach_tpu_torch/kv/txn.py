@@ -14,9 +14,10 @@ Reference mapping:
 - WriteTooOld      <- a newer committed version above the txn's read_ts
   forces a retry, as in the reference's WriteTooOldError.
 
-Single-process scope: the engine mutex latches each write. The
-reference's commit train (``kv.batch.coalesce.enabled``, kv/coalesce.py)
-is not ported: every non-transactional op here is the solo path.
+Single-process scope: the engine mutex latches each write. With
+``kv.batch.coalesce.enabled`` (off by default, as in the reference),
+concurrent non-transactional ops of different sessions ride one commit
+train (kv/coalesce.py).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import itertools
 from dataclasses import dataclass, field
 
 from ..storage.lsm import Engine, WriteIntentError
-from ..utils import metric
+from ..utils import metric, settings
 from . import hlc
 
 
@@ -209,7 +210,14 @@ class DB:
     # another txn's intent conflicts (WriteIntentError) instead of silently
     # laying a committed version beneath the intent; non-txn reads surface
     # the same WriteIntentError (callers retry after the owner resolves).
+    # When kv.batch.coalesce.enabled, concurrent point ops from different
+    # sessions merge into one stamped batch (kv/coalesce.py commit train)
+    # — gate checked BEFORE any engine lock so riders park lock-free.
     def put(self, key, value) -> int:
+        if settings.get("kv.batch.coalesce.enabled"):
+            from .coalesce import for_db
+
+            return for_db(self).put(key, value)
         return self._put_solo(_b(key), value)
 
     def _put_solo(self, key, value) -> int:
@@ -221,6 +229,10 @@ class DB:
         return ts
 
     def delete(self, key) -> int:
+        if settings.get("kv.batch.coalesce.enabled"):
+            from .coalesce import for_db
+
+            return for_db(self).delete(key)
         return self._delete_solo(_b(key))
 
     def _delete_solo(self, key) -> int:
@@ -237,6 +249,13 @@ class DB:
             raise WriteIntentError([key], [other])
 
     def get(self, key, ts: int | None = None) -> bytes | None:
+        if settings.get("kv.batch.coalesce.enabled"):
+            from .coalesce import for_db
+
+            return for_db(self).get(key, ts)
+        return self._get_solo(_b(key), ts)
+
+    def _get_solo(self, key, ts: int | None = None) -> bytes | None:
         return self.engine.get(_b(key), ts=ts if ts is not None
                                else self.clock.now())
 

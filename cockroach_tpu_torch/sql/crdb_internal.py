@@ -22,10 +22,11 @@ The port of ``cockroach_tpu.sql.crdb_internal`` over the registries the
 port has: statement statistics, live sessions and queries, the memory
 monitor tree, tenant admission, the metric registry, the open trace
 spans, the serving load (device figures from ``torch.cuda``), the warm
-menu, the changefeed fan-out plane and the materialized views. The
-reference's other tables read modules the port has not
-got yet; naming one raises ``UnportedError`` (a ``BindError``) with the
-module it needs.
+menu, the changefeed fan-out plane, the materialized views and the range
+descriptors with their load (``hot_ranges``: kv/allocator.py's payload,
+else the DistSender's Meta). Every reference table is here; a table
+listed in ``UNPORTED`` (none now) would raise ``UnportedError`` (a
+``BindError``) naming the module it needs.
 """
 
 from __future__ import annotations
@@ -251,6 +252,47 @@ def _inflight_trace_spans(catalog) -> Table:
     ])
 
 
+def _hot_ranges_payload(catalog) -> list[dict]:
+    """The /_status/hot_ranges row shape, sourced from whatever range
+    infrastructure the session's environment carries: a stashed Node's
+    RangeLifecycle, else the engine's meta descriptor table, else empty
+    (single-range standalone sessions legitimately have no ranges)."""
+    node = getattr(catalog, "_crdb_node", None)
+    ranger = getattr(node, "ranger", None) if node is not None else None
+    if ranger is not None:
+        return ranger.hot_ranges().get("hotRanges", [])
+    db = getattr(catalog, "_crdb_db", None)
+    eng = getattr(db, "engine", None) if db is not None else None
+    meta = getattr(eng, "meta", None) if eng is not None else None
+    if meta is None:
+        return []
+    return [{"rangeId": d.range_id,
+             "startKey": d.start_key.decode(errors="replace"),
+             "endKey": (d.end_key.decode(errors="replace")
+                        if d.end_key is not None else None),
+             "storeId": d.store_id, "qps": 0.0, "writeBytesRate": 0.0,
+             "sizeBytes": None, "leaseholder": None}
+            for d in meta.snapshot()]
+
+
+def _hot_ranges(catalog) -> Table:
+    rows = _hot_ranges_payload(catalog)
+    return _table("crdb_internal.hot_ranges", [
+        ("range_id", T.INT64, _ints(r.get("rangeId", 0) for r in rows)),
+        ("start_key", T.STRING, _strs(r.get("startKey", "") for r in rows)),
+        ("end_key", T.STRING,
+         _strs(r.get("endKey") or "" for r in rows)),
+        ("store_id", T.INT64, _ints(r.get("storeId") or 0 for r in rows)),
+        ("qps", T.FLOAT64, _floats(r.get("qps") or 0.0 for r in rows)),
+        ("write_bytes_rate", T.FLOAT64,
+         _floats(r.get("writeBytesRate") or 0.0 for r in rows)),
+        ("size_bytes", T.INT64,
+         _ints(r.get("sizeBytes") or 0 for r in rows)),
+        ("leaseholder", T.INT64,
+         _ints(r.get("leaseholder") or 0 for r in rows)),
+    ])
+
+
 def _node_warmup_menu(catalog) -> Table:
     """The warm menu's state (sql/warmmenu.py): one row per item with its
     course (explicit/hot/ladder), outcome (compiled/failed/skipped), new
@@ -326,6 +368,7 @@ _BUILDERS = {
     "crdb_internal.cluster_sessions": _cluster_sessions,
     "crdb_internal.node_metrics": _node_metrics,
     "crdb_internal.node_inflight_trace_spans": _inflight_trace_spans,
+    "crdb_internal.hot_ranges": _hot_ranges,
     "crdb_internal.node_memory_monitors": _memory_monitors,
     "crdb_internal.cluster_load": _cluster_load,
     "crdb_internal.node_tenant_admission": _node_tenant_admission,
@@ -336,9 +379,8 @@ _BUILDERS = {
 }
 
 # the reference's tables whose registries live in modules not yet ported
-UNPORTED = {
-    "crdb_internal.hot_ranges": "kv/loadstats.py",
-}
+# (name -> module); empty since kv/loadstats.py and kv/allocator.py came
+UNPORTED: dict[str, str] = {}
 
 
 def is_virtual(name: str) -> bool:

@@ -27,9 +27,9 @@ re-encoding (no vectorized write path yet — the reference's colenc).
 The port of ``cockroach_tpu.sql.session``: the catalog and the default
 engine live on ``device`` (``"cuda"`` by default; without a card that
 raises unless the caller passes ``device="cpu"``), and RESTORE opens the
-checkpoint there. The one statement whose module the port has not got,
-``crdb_internal.hot_ranges`` (kv/loadstats.py), raises ``BindError``
-naming it (``UnportedError``). CREATE / DROP / REFRESH MATERIALIZED VIEW
+checkpoint there. Over a ``DB(DistSender(...))`` (kv/dist.py) SHOW RANGES
+and ``crdb_internal.hot_ranges`` read the cluster's descriptors.
+CREATE / DROP / REFRESH MATERIALIZED VIEW
 go to sql/matview.py, a statement that names a view refreshes it first,
 and a SELECT matching a view's shape and literals is served from it, as
 in the reference. The slow-query log leaves a diagnostics bundle

@@ -516,9 +516,10 @@ class Engine:
             )
 
     @_locked
-    def replay_cache_get(self, cid: str, seq: int):
+    def replay_cache_get(self, cid: str, seq: int, n_ops=None):
         """The cached wire response if (cid, seq) already applied, else
-        None."""
+        None. ``n_ops``, the batch's op count, is not needed here: one
+        WAL record holds the whole batch (a DistSender checks it)."""
         ent = self._replay_cache.get(cid)
         if ent is not None and ent[0] == seq:
             return ent[1]

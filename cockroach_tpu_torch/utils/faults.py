@@ -1,6 +1,7 @@
 """Fault-injection hooks at the storage engine's, the external
 operators', SQL admission's, the warm menu's, the changefeed's, the
-materialized views' and node liveness's sites, with the reference's site
+materialized views', node liveness's, the KV RPC's, gossip's, the range
+lifecycle's and the commit train's sites, with the reference's site
 names. Every hook is a no-op until ``arm`` is called.
 
 The liveness sites exist per node: ``fire_scoped`` fires the generic name
@@ -43,10 +44,20 @@ SITES: dict[str, str] = {
                                    "failure after compute, before swap",
     "liveness.heartbeat": "node-liveness heartbeat failure (node-scoped)",
     "liveness.epoch_bump": "IncrementEpoch CPut failure (node-scoped)",
+    "kv.rpc.client.batch": "DistSender send error before evaluation",
+    "kv.rpc.server.eval": "replica-side evaluation failure",
+    "kv.rpc.server.respond": "response lost after apply (ambiguous result)",
+    "kv.dialer.dial": "nodedialer connect failure (breaker-tracked)",
+    "gossip.broadcast": "gossip exchange failure (node-scoped)",
+    "ranger.split.apply": "split partially applied before bookkeeping",
+    "ranger.merge.apply": "merge partially applied before bookkeeping",
+    "ranger.lease.transfer": "lease transfer write lost in flight",
+    "kv.batch.coalesce": "coalesced-batch flush failure: every rider "
+                         "degrades to its own per-session solo batch",
 }
 
 # sites that also fire as ``<site>.n<id>`` (fire_scoped)
-_SCOPED = ("liveness.heartbeat", "liveness.epoch_bump")
+_SCOPED = ("liveness.heartbeat", "liveness.epoch_bump", "gossip.broadcast")
 
 
 class InjectedFault(ConnectionError):

@@ -221,18 +221,59 @@ MATVIEW_MINMAX_RESCANS = Counter("matview_minmax_rescans")
 MATVIEW_REWRITE_HITS = Counter("matview_rewrite_hits")
 MATVIEW_REFRESH_LAG_SECONDS = Histogram("matview_refresh_lag_seconds",
                                         buckets=_LAG_BUCKETS)
+# KV distribution (kv/dist.py): admin splits, merges and range moves; the
+# range cache's evictions and single-flight coalesced lookups
+RANGE_SPLITS = Counter("range_splits")
+RANGE_MERGES = Counter("range_merges")
+RANGE_MOVES = Counter("range_moves")
+RANGE_CACHE_EVICTIONS = Counter("range_cache_evictions")
+RANGE_CACHE_COALESCED = Counter("range_cache_coalesced_lookups")
+# the range lifecycle (kv/allocator.py): load/size splits, merges and
+# lease transfers its queues applied
+KV_RANGE_SPLITS = Counter("kv_range_splits")
+KV_RANGE_MERGES = Counter("kv_range_merges")
+KV_LEASE_TRANSFERS = Counter("kv_lease_transfers")
+# the KV Batch RPC, its retries and breaker (kv/rpc.py, kv/dialer.py,
+# utils/retry.py), gossip's bound (flow/gossip.py), replication's
+# reconnects (kv/replication.py) and the commit train (kv/coalesce.py)
+RPC_RETRIES = Counter("rpc_retries")
+RPC_TIMEOUTS = Counter("rpc_timeouts")
+RPC_RETRIES_BY_RANGE = LabeledCounter("rpc_retries_by_range", "range")
+RPC_RETRY_BUDGET_EXHAUSTED = Counter("rpc_retry_budget_exhausted")
+BREAKER_TRIPS = Counter("rpc_breaker_trips")
+REPLAY_CACHE_HITS = Counter("kv_replay_cache_hits")
+AMBIGUOUS_RESULTS = Counter("kv_ambiguous_results")
+GOSSIP_INFOS_EVICTED = Counter("gossip_infos_evicted")
+REPLICATION_RECONNECTS = Counter("replication_stream_reconnects")
+KV_BATCH_COALESCED = Counter("kv_batch_coalesced")
 
 
 class Registry:
     """The named metrics of the process (the reference's metric.Registry,
-    reduced to what crdb_internal.node_metrics reads)."""
+    reduced to what crdb_internal.node_metrics and kv/tsdb.py read).
+    ``counter``/``gauge`` return the metric of that name, made on first
+    use (the replica queues register theirs per queue name)."""
 
     def __init__(self):
         self._metrics: dict[str, object] = {}
+        self._lock = threading.Lock()
 
     def add(self, m):
         self._metrics[m.name] = m
         return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_add(name, lambda: Counter(name))
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_add(name, lambda: Gauge(name))
+
+    def _get_or_add(self, name: str, make):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = make()
+            return m
 
 
 DEFAULT = Registry()

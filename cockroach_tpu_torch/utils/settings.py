@@ -132,6 +132,25 @@ _DEFAULTS: dict[str, Any] = {
     "sql.matview.rewrite.enabled": True,
     "sql.matview.refresh_on_read.enabled": True,
     "sql.matview.staging_bytes": 4 << 20,
+    # the KV Batch RPC (kv/rpc.py): per-call deadline and attempts against
+    # transport errors; a peer's breaker (kv/dialer.py) opens after this
+    # many reported failures for the cooldown
+    "rpc.batch.deadline_s": 5.0,
+    "rpc.batch.max_retries": 4,
+    "rpc.breaker.trip_threshold": 3,
+    "rpc.breaker.cooldown_s": 5.0,
+    # the range lifecycle (kv/allocator.py): the decayed per-range QPS and
+    # the logical size past which a range splits (pairs under a quarter
+    # of the QPS and half the size merge), the merge queue's switch, and
+    # whether the queues start with their node
+    "kv.range.split_qps_threshold": 2500.0,
+    "kv.range.max_bytes": 64 << 20,
+    "kv.range.merge_enabled": True,
+    "kv.allocator.enabled": True,
+    # the cross-session commit train (kv/coalesce.py) under DB's
+    # non-transactional put/delete/get, and its cap on ops per batch
+    "kv.batch.coalesce.enabled": False,
+    "kv.batch.coalesce.max_ops": 128,
 }
 
 # enumerated string settings: the values each accepts
@@ -176,6 +195,13 @@ _BOUNDS: dict[str, tuple] = {
     "changefeed.fanout.max_subscribers": (1, None),
     "changefeed.fanout.max_consecutive_sheds": (1, None),
     "sql.matview.staging_bytes": (4096, None),
+    "rpc.batch.deadline_s": (0.05, 300.0),
+    "rpc.batch.max_retries": (1, 64),
+    "rpc.breaker.trip_threshold": (1, 100),
+    "rpc.breaker.cooldown_s": (0.01, 600.0),
+    "kv.range.split_qps_threshold": (0.001, 1e9),
+    "kv.range.max_bytes": (256, None),
+    "kv.batch.coalesce.max_ops": (2, None),
 }
 
 _values: dict[str, Any] = {}

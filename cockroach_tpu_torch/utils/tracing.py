@@ -13,10 +13,14 @@ operation, and the registry of open spans.
   The storage slice starts no trace of its own, so its leaf spans record
   nothing; the call sites stay where the reference has them.
 - ``Span.to_dict`` is the recording a diagnostics bundle keeps.
+- Propagation across a KV Batch RPC (kv/rpc.py): ``context()`` is the
+  current span's (trace id, span id) for the request envelope;
+  ``remote_span`` opens the server's span under that remote parent (a
+  no-op without one); ``graft`` hangs the recording the server shipped
+  back under the caller's current span.
 
-The reference's cross-node propagation (``remote_span``, ``graft``,
-``context``) and its ring of finished roots serve modules the port has
-not got (flow/disthost.py, kv/rpc.py); they are not copied.
+The reference's ring of finished roots serves modules the port has not
+got (flow/disthost.py); it is not copied.
 """
 
 from __future__ import annotations
@@ -101,6 +105,23 @@ class Span:
             d["error"] = self.error
         return d
 
+    @staticmethod
+    def from_dict(d: dict) -> "Span":
+        """A recording shipped back by a server, as a span (``graft``)."""
+        s = Span(
+            name=str(d.get("name", "?")),
+            trace_id=int(d.get("traceId", 0)),
+            span_id=int(d.get("spanId", 0)),
+            parent_id=int(d.get("parentId", 0)),
+            start_wall=float(d.get("startWallMs", 0.0)) / 1e3,
+            duration=float(d.get("durationMs", 0.0)) / 1e3,
+            tags=dict(d.get("tags") or {}),
+            records=list(d.get("records") or ()),
+            error=d.get("error"),
+        )
+        s.children = [Span.from_dict(c) for c in d.get("children", ())]
+        return s
+
 
 MAX_CHILDREN = 128  # per-span child cap (the reference's)
 
@@ -120,12 +141,24 @@ class Tracer:
     def span(self, name: str, **tags):
         yield from self._run_span(Span(name=name, tags=dict(tags)))
 
-    def _run_span(self, s: Span):
+    @contextmanager
+    def remote_span(self, name: str, ctx: dict | None, **tags):
+        """The server's span under a remote caller's (``ctx`` from
+        ``context``); with ``ctx=None`` a no-op yielding None."""
+        if ctx is None:
+            yield None
+            return
+        remote = (int(ctx.get("traceId", 0)), int(ctx.get("spanId", 0)))
+        yield from self._run_span(Span(name=name, tags=dict(tags)), remote)
+
+    def _run_span(self, s: Span, remote_parent: tuple[int, int] | None = None):
         parent = self._current.get()
         s.span_id = _next_id()
         s.start = time.perf_counter()
         s.start_wall = time.time()
-        if parent is not None:
+        if remote_parent is not None:
+            s.trace_id, s.parent_id = remote_parent
+        elif parent is not None:
             s.trace_id = parent.trace_id
             s.parent_id = parent.span_id
             if len(parent.children) < MAX_CHILDREN:
@@ -160,6 +193,27 @@ class Tracer:
         parent.children.append(s)
         return s
 
+    def context(self) -> dict | None:
+        """The current span's (trace id, span id) for a wire envelope;
+        None when nothing is traced."""
+        s = self._current.get()
+        if s is None:
+            return None
+        return {"traceId": s.trace_id, "spanId": s.span_id}
+
+    def graft(self, payload: dict | None) -> Span | None:
+        """Hang a remote recording (a server's ``to_dict``) under the
+        current span; a no-op outside a span or for a bad payload."""
+        cur = self._current.get()
+        if not payload or cur is None:
+            return None
+        try:
+            s = Span.from_dict(payload)
+        except (TypeError, ValueError, KeyError):
+            return None
+        cur.children.append(s)
+        return s
+
     def inflight(self) -> list[Span]:
         """Open spans, oldest first (node_inflight_trace_spans). The
         returned Span objects are live: readers must not mutate them."""
@@ -184,6 +238,18 @@ def synthetic_span(parent: Span, name: str, duration_s: float,
 
 def inflight() -> list[Span]:
     return DEFAULT.inflight()
+
+
+def remote_span(name: str, ctx: dict | None, **tags):
+    return DEFAULT.remote_span(name, ctx, **tags)
+
+
+def context() -> dict | None:
+    return DEFAULT.context()
+
+
+def graft(payload: dict | None) -> Span | None:
+    return DEFAULT.graft(payload)
 
 
 @contextmanager

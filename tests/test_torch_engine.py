@@ -218,7 +218,21 @@ def test_port_imports_neither_jax_nor_the_reference():
             "cockroach_tpu_torch/sql/schemachange.py",
             "cockroach_tpu_torch/utils/external_storage.py",
             "cockroach_tpu_torch/plan/indexopt.py",
-            "cockroach_tpu_torch/bench/tpch_kv.py"} <= names
+            "cockroach_tpu_torch/bench/tpch_kv.py",
+            "cockroach_tpu_torch/utils/retry.py",
+            "cockroach_tpu_torch/kv/dist.py",
+            "cockroach_tpu_torch/kv/loadstats.py",
+            "cockroach_tpu_torch/kv/queues.py",
+            "cockroach_tpu_torch/kv/allocator.py",
+            "cockroach_tpu_torch/kv/rpc.py",
+            "cockroach_tpu_torch/kv/dialer.py",
+            "cockroach_tpu_torch/kv/coalesce.py",
+            "cockroach_tpu_torch/kv/replication.py",
+            "cockroach_tpu_torch/kv/tsdb.py",
+            "cockroach_tpu_torch/kv/upgrade.py",
+            "cockroach_tpu_torch/flow/gossip.py",
+            "cockroach_tpu_torch/bench/load.py",
+            "cockroach_tpu_torch/bench/ycsb.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "cockroach_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"

@@ -251,9 +251,12 @@ def test_plan_cache_rebinds_q6_literals(tcat):
     ("select range_id from crdb_internal.hot_ranges", "kv/loadstats.py"),
 ])
 def test_unported_statement_raises_typed_error(stmt, module, tmp_path):
-    """crdb_internal.hot_ranges (kv/loadstats.py) still raises the typed
-    error; the statements whose modules are now ported give the
-    reference's result (or error) and leave byte-equal engines."""
+    """Every statement's module is now ported: each gives the reference's
+    result (or error) and leaves byte-equal engines. The hot_ranges case
+    holds crdb_internal.hot_ranges to the reference over a single-store
+    session and over a DistSender session (kv/dist.py), and keeps the
+    UnportedError mechanism, now with nothing listed: a table named in
+    ``UNPORTED`` raises it, an unknown one fails as in the reference."""
     saved = [(ext, ext._NODELOCAL_BASE) for ext in (jext, text)]
     for ext, _ in saved:
         ext.set_nodelocal_base(str(tmp_path))
@@ -261,9 +264,7 @@ def test_unported_statement_raises_typed_error(stmt, module, tmp_path):
         j, t = pair()
         run_both(j, t, "create table t (a int primary key)")
         if module == "kv/loadstats.py":
-            with pytest.raises(UnportedError,
-                               match=module.replace(".", r"\.")):
-                t.execute(stmt)
+            hot_ranges_parity(j, t, stmt)
         else:
             if stmt.startswith("restore"):
                 run_both(j, t, "backup to 'nodelocal://1/b'")
@@ -276,6 +277,52 @@ def test_unported_statement_raises_typed_error(stmt, module, tmp_path):
     assert isinstance(UnportedError("x", module), BindError)
     # the session goes on serving
     assert t.execute("select count(*) as n from t")["n"].tolist() == [0]
+
+
+def hot_ranges_parity(j, t, stmt):
+    from cockroach_tpu.kv import dist as jdist
+    from cockroach_tpu_torch.kv import dist as tdist
+    from cockroach_tpu_torch.sql import crdb_internal
+
+    assert crdb_internal.UNPORTED == {}
+    run_both(j, t, stmt)
+    engines_equal(j, t)
+    sessions = []
+    for dist, sess, kw in ((jdist, jSession, {}),
+                           (tdist, Session, {"device": "cpu"})):
+        meta = dist.Meta(first_store=1)
+        stores = [dist.Store(i + 1, meta, key_width=24, val_width=128,
+                             memtable_size=4096, **kw) for i in range(2)]
+        ds = dist.DistSender(stores, meta)
+        clock = (jClock if dist is jdist else tClock)()
+        db = (jDB if dist is jdist else tDB)(ds, clock)
+        sessions.append((sess(db=db, **kw), ds, stores))
+    (jd, jds, jst), (td, tds, tst) = sessions
+    run_both(jd, td, "create table h (a int primary key)")
+    run_both(jd, td, "insert into h values (1), (2), (3)")
+    for ds in (jds, tds):
+        ds.split_at(b"\x05")
+        ds.move_range(ds.meta.lookup(b"\x05").range_id, 2)
+    got = run_both(jd, td, "select range_id, start_key, end_key, store_id, "
+                           "qps, size_bytes, leaseholder "
+                           "from crdb_internal.hot_ranges")
+    assert got["range_id"].tolist() == [1, 2]
+    assert got["store_id"].tolist() == [1, 2]
+    for js, ts_ in zip(jst, tst):
+        want = js.engine.export_span(None, None)
+        have = ts_.engine.export_span(None, None)
+        for k in FIELDS:
+            assert np.asarray(have[k]).tobytes() == np.asarray(
+                want[k]).tobytes(), k
+    # the mechanism stays: a listed table raises the typed error naming
+    # its module; an unknown name fails as the reference's does
+    crdb_internal.UNPORTED["crdb_internal.not_yet"] = "kv/x.py"
+    try:
+        with pytest.raises(UnportedError, match=r"kv/x\.py"):
+            t.execute("select a from crdb_internal.not_yet")
+    finally:
+        crdb_internal.UNPORTED.clear()
+    run_both(j, t, "select a from crdb_internal.no_such_table")
 
 
 @pytest.mark.parametrize("stmt,want", [

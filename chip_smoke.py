@@ -78,11 +78,12 @@ back every acknowledged insert; the ``{"sql": ...}`` line
 
 The warm menu (``sql/warmmenu.py``), statement diagnostics
 (``sql/diagnostics.py``) and the rest of crdb_internal, after the SQL
-phase: a ``PgServer`` over a fresh copy of the SF1 host catalog warms its
-menu (the 22 TPC-H texts, q5 under the cost-based join order in a
-second build, and the ladder course) before it accepts a connection;
+phase: ``Node.start`` serves pgwire over a fresh copy of the SF1 host
+catalog and warms its menu (``warmmenu.warm_node``: the 22 TPC-H texts,
+q5 under the cost-based join order, and the ladder course) before it
+returns;
 each item's status, runs and captures and the plan cache's bytes within
-its budget, nothing evicted and no entry at 0 bytes; three serving runs
+its budget, nothing evicted and no entry at 0 bytes; two serving runs
 of each text over the wire, none of a compiled item capturing a graph,
 each equal to the hand-built plan (q1, q3, q9, q18 to the oracle);
 EXPLAIN ANALYZE (DEBUG) of q3 naming its bundle; the four new
@@ -100,8 +101,8 @@ the kernel table). The control plane (``kv/liveness.py``,
 ALTER TABLE ADD a STRING column (customer) and an INT column (stock,
 claimed by node 1 of two liveness records, which dies after chunk 50;
 node 2 adopts it once node 1 expires, and node 1's late checkpoint is
-fenced), 20 transactions and the consistency checks on the new
-descriptors, DROP COLUMN, BACKUP to ``nodelocal://``, 10 transactions,
+fenced), 10 transactions and the consistency checks on the new
+descriptors, DROP COLUMN, BACKUP to ``nodelocal://``, 5 transactions,
 RESTORE with every table's digest back to the backup's and the old
 engine freed, a tenant's isolation and a revoked capability, and
 ``bench/load.run_tenant_overload`` at the reference's defaults (every
@@ -127,7 +128,8 @@ seconds, peak memory, beside the one-device median); after the SF10
 phase, all 22 queries at sf=0.01 (seed 11) over 1, 3 and 8 shards equal
 to the one-device card run, the 8-shard runs equal to the CPU's with the
 same capacity factor, explain_distributed equal to the CPU's text, the
-skewed-window retry at the CPU's factor; then BASELINE config #3's three
+skewed-window retry at the CPU's factor (the CPU's half in a spawned
+process beside the card's); then BASELINE config #3's three
 nodes as 3 shards: each of q3, q9, q18 at SF10 over its host tables, or
 at the largest scale whose predicted footprint (its SF1 peak of reserved
 memory, grown as the capacities do: doubled per exchange and rounded to
@@ -168,17 +170,38 @@ held to a host model after the timed window; K1 and K2 launches, every
 K2 merge of the phase held to ``merge_perm_plain`` and counted against
 K2's launches); the range lifecycle under skew (load
 splits, a lease transfer, moves onto idle stores with rows, seconds and
-device bytes, the re-merge once the load decays; every read equal to the
-model; ``crdb_internal.hot_ranges`` and SHOW RANGES through a Session);
-a BatchServer per node, two gossip infoStores, a NodeDialer and a
-LeaseRouter: 1,000 range-addressed batches, node 1 closed, the put in
-flight typed ambiguous, the router rerouted to node 2 after its lease
-failover with no double apply; ``bench/load.run_coalesce_ab`` at
-bench.py's defaults; a ReplicationStream into a standby engine equal to
-the source at the cutover frontier; ``TimeSeriesDB.record`` every second
-and ``run_upgrades`` twice; TPC-H q1, q3, q9, q18 at SF0.1 over three
+device bytes, the re-merge once the load decays, run by the
+RangeLifecycle that ``Node.start`` builds over the DistSender; every
+read equal to the model; ``/hot_ranges`` from the node's admin port,
+``crdb_internal.hot_ranges`` and SHOW RANGES through a Session equal to
+Meta); two ``Node``s over the cluster (kv, gossip and HTTP ports, lease
+loops) and a LeaseRouter: 250 range-addressed batches, node 1 crashed,
+the put in flight typed ambiguous, the router rerouted to node 2 after
+its lease loop's failover with no double apply;
+``bench/load.run_coalesce_ab`` at bench.py's defaults but one round of
+three; a ReplicationStream into a standby engine equal to the source at
+the cutover frontier; ``TimeSeriesDB.record`` every second and
+``run_upgrades`` twice; TPC-H q1, q3, q9, q18 at SF0.1 over three
 stores with lineitem split in three, held to the oracle; the ``{"dist":
-...}`` line (``dist_launches``). Result
+...}`` line (``dist_launches``).
+
+The node and SQL across processes (``server/node.py``, ``http.py``,
+``debugzip.py``, ``cli.py``, ``flow/dcn.py``, ``wire.py``,
+``disthost.py``; the ``node`` and ``hosts`` phases, after ``dist``): ``python
+-m cockroach_tpu_torch.cli --start`` as a child on the card (readiness
+seconds; pgwire CREATE, INSERT and a SELECT reading every row back; the
+admin endpoints; ``cli hot-ranges`` and ``cli debug zip`` with the
+reference's members; SIGINT and exit 0) and ``cli --demo-tpch 0.01 -e
+<q1>`` on the card equal to ``--cpu``; then two ``HostFlowServer``
+processes over TPC-H SF1 (generated while the node phase runs) and this
+process as the gateway: q1 and the hash-repartitioned join across them
+equal to one device, q1 with host 2 killed mid-flow degraded onto host
+1, rows/s beside one device's, frames and bytes streamed, the framing's
+cost per batch against a socket's; the ``{"node": ...}`` and
+``{"hosts": ...}`` lines (``node_launches`` and ``hosts_launches``
+count the kernels' launches in the child processes too: each CLI child
+reports its counts at exit, each host process before its kill or stop).
+Result
 lines are compact JSON with floats to 4 significant digits, and the
 script prints its byte count before the kernel table: all of it has to
 fit in the 24 KB a remote run returns.
@@ -643,7 +666,9 @@ DIST_KEYS = 1 << 20  # the ycsb phase's keys and operations
 DIST_OPS = 512
 DIST_LIFE_KEYS = 1 << 16  # the lifecycle's keyspace, the stream's span
 DIST_LIFE_OPS = 2000
-DIST_RPC_BATCHES = 1000
+DIST_RPC_BATCHES = 250  # a depth cut from 1,000 for the default run's budget
+DIST_HB_S = 1.0  # the nodes' heartbeat and lease-loop interval
+DIST_COALESCE = {"rounds": 1}  # bench.py's 3 rounds before node and hosts
 DIST_SQL_SF = 0.1
 
 
@@ -751,18 +776,24 @@ def dist_ycsb(dev, n_keys: int, ops: int) -> dict:
 def dist_lifecycle(dev, n_keys: int, n_ops: int, seed: int = 7):
     """Step 2: tests/test_ranger.py's skewed workload (80% of the puts on
     the first fifth of the keyspace) over DIST_STORES stores holding
-    n_keys ingested rows, two liveness records and a LeaseManager, on
-    manual clocks: load splits, a lease transfer and a hot range moved
-    to an idle store, then the re-merge once the load decays. Every read
-    equals the dict model; crdb_internal.hot_ranges and SHOW RANGES
-    through a Session equal the lifecycle's payload and Meta."""
+    n_keys ingested rows, on manual clocks, under node 1: ``Node.start``
+    over the cluster's DB wires the DistSender's lease guard and builds
+    the RangeLifecycle (as the reference's node does; the phase ticks it
+    rather than its timer, and places stores 2 and 3 on node 2). Load
+    splits, a lease transfer and a hot range moved to an idle store,
+    then the re-merge once the load decays. Every read equals the dict
+    model; ``/hot_ranges`` from node 1's admin port,
+    crdb_internal.hot_ranges and SHOW RANGES through a Session equal the
+    lifecycle's payload and Meta."""
     import random
+    import urllib.request
     from types import SimpleNamespace
 
-    from cockroach_tpu_torch.kv import allocator, liveness, loadstats
+    from cockroach_tpu_torch.kv import liveness, loadstats
     from cockroach_tpu_torch.kv.dist import make_cluster
     from cockroach_tpu_torch.kv.hlc import ManualClock
     from cockroach_tpu_torch.kv.txn import DB
+    from cockroach_tpu_torch.server.node import Node
     from cockroach_tpu_torch.sql.session import Session
     from cockroach_tpu_torch.utils import metric, settings
 
@@ -784,15 +815,21 @@ def dist_lifecycle(dev, n_keys: int, n_ops: int, seed: int = 7):
     load = loadstats.RangeLoadStats(half_life_s=5.0, sample_size=32,
                                     seed=3, clock=clk)
     ds.load = load
-    nl1 = liveness.NodeLiveness(db, 1, ttl_ms=120_000)
+    t0 = time.perf_counter()
+    node = Node(1, db=db, heartbeat_interval_s=DIST_HB_S, ttl_ms=120_000,
+                metrics_interval_s=3600.0, adopt_interval_s=3600.0,
+                device=dev).start(
+                    gossip_port=None, http_port=0)
+    out["node_start_s"] = time.perf_counter() - t0
+    life = node.ranger
+    if life is None or ds.lease_check is None:
+        raise AssertionError("Node.start wired no lifecycle or lease guard")
+    life.stop()  # ticked below: the same decisions run after run
+    life.store_nodes = {1: 1, 2: 2, 3: 2}  # stores 2 and 3 are node 2's
+    lm = node.leases
     nl2 = liveness.NodeLiveness(db, 2, ttl_ms=120_000)
-    nl1.heartbeat()
     nl2.heartbeat()
-    lm = liveness.LeaseManager(nl1)
     lm.acquire(1)
-    life = allocator.RangeLifecycle(ds, load=load, leases=lm, node_id=1,
-                                    store_nodes={1: 1, 2: 2, 3: 2},
-                                    clock=clk)
     moves = []
     move = ds.move_range
 
@@ -843,6 +880,16 @@ def dist_lifecycle(dev, n_keys: int, n_ops: int, seed: int = 7):
         if dict(db.scan(b"y", b"z")) != model:
             raise AssertionError("reads after the splits != the model")
         report = life.hot_ranges()["hotRanges"]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{node.admin.port}/hot_ranges",
+                timeout=30) as r:
+            served = json.loads(r.read())["hotRanges"]
+        if (sorted((h["rangeId"], h["storeId"], h["leaseholder"])
+                   for h in served)
+                != sorted((d.range_id, d.store_id,
+                           lm.holder(d.range_id).node_id) for d in descs)):
+            raise AssertionError(f"/hot_ranges {served} != Meta {descs}")
+        out["hot_ranges_http"] = len(served)
         sess = Session(db=db, device=dev)
         sess.catalog._crdb_node = SimpleNamespace(ranger=life)
         hot_t = sess.execute("select * from crdb_internal.hot_ranges")
@@ -878,63 +925,99 @@ def dist_lifecycle(dev, n_keys: int, n_ops: int, seed: int = 7):
     finally:
         settings.reset("kv.range.split_qps_threshold")
         ds.move_range = move
-    return out, db, ds, lm, nl1, nl2, model
+        t0 = time.perf_counter()
+        node.stop()
+        out["node_stop_s"] = time.perf_counter() - t0
+    return out, db, ds, model
 
 
-def dist_failover(db, ds, lm1, nl1, nl2, batches: int) -> dict:
-    """Step 3: a BatchServer per node over the cluster's DB (each with
-    its node's lease guard), two gossip infoStores exchanging until they
-    agree, one NodeDialer and one LeaseRouter. `batches` range-addressed
-    puts go to node 1; then node 1's server closes: the put in flight
-    surfaces as AmbiguousResultError, and a read through the router
-    retries while node 1's liveness expires and node 2 fences it and
-    takes the lease; the read lands on node 2 (the reroute), shows the
-    ambiguous put absent, and it is re-sent. Every key holds exactly one
-    version."""
+def _wait(cond, what: str, timeout_s: float = 30.0) -> float:
+    """Seconds until cond() holds; raises after timeout_s."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def crash_node(node) -> None:
+    """A node's process dies with its store left as it was: its loops
+    stop without a clean ``stop`` (nothing released or unwired, the
+    liveness record left to expire) and its Batch server
+    closes under its clients' open connections."""
+    node._stop.set()
+    for t in node._threads:
+        t.join(timeout=5)
+    node.kv_rpc.close()
+    node.kv_rpc = None
+
+
+def dist_failover(db, ds, batches: int) -> dict:
+    """Step 3: two Nodes over the cluster's DB, started with kv_port=0,
+    gossip_port=0, http_port=0 and the range in lease_ranges, as
+    tests/test_chaos.py wires them (their lease loops acquire and
+    advertise the lease, their Batch servers carry the lease guard, node
+    1 gossips with node 2; the allocator is off while they start, so no
+    second lifecycle splits the range under the step). A LeaseRouter over
+    node 2's gossip and dialer sends `batches` range-addressed puts to
+    node 1; node 2 refuses the range. Then node 1 crashes (its loops
+    stop, its Batch server closes): the put in flight surfaces as
+    AmbiguousResultError, and a read through the router retries while
+    node 1's record expires and node 2's lease loop fences it and takes
+    the lease; the read lands on node 2 (the reroute), shows the
+    ambiguous put absent, and it is re-sent; node 1's next heartbeat is
+    fenced. Every key holds exactly one version."""
     import base64
     import threading
 
-    from cockroach_tpu_torch.flow.gossip import Gossip
-    from cockroach_tpu_torch.kv import dialer as kdialer
     from cockroach_tpu_torch.kv import liveness
     from cockroach_tpu_torch.kv.dist import LeaseRouter
-    from cockroach_tpu_torch.kv.rpc import AmbiguousResultError, BatchServer
+    from cockroach_tpu_torch.kv.rpc import AmbiguousResultError
+    from cockroach_tpu_torch.server.node import Node
+    from cockroach_tpu_torch.utils import settings
+    from cockroach_tpu_torch.utils.retry import RangeRetryBudget
 
     def e(b):
         return base64.b64encode(b).decode()
 
-    def guard(lm):
-        def check(req):
-            rid = req.get("range")
-            if rid is not None:
-                lm.check(int(rid))
-        return check
-
+    dev = ds.device
     (rid,) = [d.range_id for d in ds.meta.snapshot()]
-    if lm1.holder(rid).node_id != 1:
-        lm1.transfer(rid, 1)
-    lm1.acquire(rid)
-    lm2 = liveness.LeaseManager(nl2)
-    servers = [BatchServer(db, lease_check=guard(lm1)),
-               BatchServer(db, lease_check=guard(lm2))]
-    g1, g2 = Gossip(1), Gossip(2)
-    g1.serve()
-    g2_addr = g2.serve()
-    dialer = kdialer.NodeDialer(g1, trip_threshold=2, cooldown_s=5.0)
-    out = {}
+    kw = dict(db=db, heartbeat_interval_s=DIST_HB_S, ttl_ms=120_000,
+              metrics_interval_s=3600.0, adopt_interval_s=3600.0,
+              lease_ranges=[rid], device=dev)
+    lm1 = liveness.LeaseManager(liveness.NodeLiveness(db, 1,
+                                                      ttl_ms=120_000))
+    lm1.liveness.heartbeat()
+    if getattr(lm1.holder(rid), "node_id", None) != 1:
+        lm1.transfer(rid, 1)  # the lifecycle may have left it on node 2
+    out: dict = {}
+    nodes = []
+    settings.set("kv.allocator.enabled", False)
     try:
-        kdialer.advertise(g1, 1, servers[0].addr)
-        kdialer.advertise(g2, 2, servers[1].addr)
-        rec = lm1.holder(rid)
-        g1.add_info(f"lease/{rid}", f"{rec.node_id}:{rec.epoch}")
-        rounds = 0
-        while g1.keys() != g2.keys() and rounds < 10:
-            g1.exchange(g2_addr)
-            rounds += 1
-        if g1.keys() != g2.keys():
-            raise AssertionError("gossip never converged")
-        out["gossip_rounds"] = rounds
-        router = LeaseRouter(g1, dialer, resolve_timeout_s=10.0)
+        # node 2 starts first, so the sender carries node 2's routing
+        # guard: both nodes route through this one DistSender, and node
+        # 1's guard would refuse node 2's own lease write once node 1 is
+        # fenced (ROADMAP Queue 3 item 36)
+        t0 = time.perf_counter()
+        n2 = Node(2, **kw).start(gossip_port=0, kv_port=0, http_port=0)
+        nodes.append(n2)
+        n1 = Node(1, gossip_peers=[n2.gossip_addr()], **kw).start(
+            gossip_port=0, kv_port=0, http_port=0)
+        nodes.append(n1)
+        out["nodes_start_s"] = time.perf_counter() - t0
+        settings.reset("kv.allocator.enabled")
+        out["lease_s"] = _wait(
+            lambda: str(n2.gossip.get_info(f"lease/{rid}") or "")
+            .startswith("1:")
+            and n2.gossip.get_info("node/1/kv") is not None,
+            "node 2 to learn node 1's lease and address")
+        # the read below retries every 50 ms until node 2's lease loop
+        # (every DIST_HB_S) has fenced node 1 and taken the lease: a
+        # budget for the 10 s deadline, not the default 16 tokens
+        router = LeaseRouter(n2.gossip, n2.dialer,
+                             budget=RangeRetryBudget(budget=400.0),
+                             resolve_timeout_s=10.0)
         t0 = time.perf_counter()
         for i in range(batches):
             router.batch(rid, [{"op": "put", "key": e(b"rpc%05d" % i),
@@ -942,12 +1025,12 @@ def dist_failover(db, ds, lm1, nl1, nl2, batches: int) -> dict:
         out["batches"] = batches
         out["batches_per_s"] = batches / (time.perf_counter() - t0)
         try:
-            dialer.dial(2).batch([{"op": "put", "key": e(b"rpcno"),
-                                   "value": e(b"x")}], range_id=rid)
+            n2.dialer.dial(2).batch([{"op": "put", "key": e(b"rpcno"),
+                                      "value": e(b"x")}], range_id=rid)
             raise AssertionError("node 2 served a range it does not hold")
         except liveness.NotLeaseHolderError:
             pass
-        servers[0].close()
+        crash_node(n1)
         t0 = time.perf_counter()
         try:
             router.batch(rid, [{"op": "put", "key": e(b"rpc%05d" % batches),
@@ -967,12 +1050,8 @@ def dist_failover(db, ds, lm1, nl1, nl2, batches: int) -> dict:
 
         th = threading.Thread(target=read)
         th.start()
-        db.clock.advance(2 * nl1.ttl_ms)  # node 1 stopped heartbeating
-        nl2.heartbeat()
-        rec2 = lm2.acquire(rid)  # fences node 1, takes the lease
-        g2.add_info(f"lease/{rid}", f"{rec2.node_id}:{rec2.epoch}")
-        g1.exchange(g2_addr)
-        th.join(timeout=30)
+        db.clock.advance(2 * n1.liveness.ttl_ms)  # node 1's record lapses
+        th.join(timeout=60)
         if "err" in done or "out" not in done:
             raise AssertionError(f"the router never rerouted: {done}")
         if done["out"] != [{"value": None}] or router.leaseholder(rid) != 2:
@@ -981,7 +1060,7 @@ def dist_failover(db, ds, lm1, nl1, nl2, batches: int) -> dict:
         router.batch(rid, [{"op": "put", "key": e(b"rpc%05d" % batches),
                             "value": e(b"resent")}])
         try:
-            nl1.heartbeat()
+            n1.liveness.heartbeat()
             raise AssertionError("node 1 was not fenced")
         except liveness.EpochFencedError:
             pass
@@ -994,11 +1073,11 @@ def dist_failover(db, ds, lm1, nl1, nl2, batches: int) -> dict:
                                  f"{counts.max()}: a double apply")
         out["versions_per_key"] = int(counts.max())
     finally:
-        dialer.close()
-        for srv in servers:
-            srv.close()
-        g1.close()
-        g2.close()
+        settings.reset("kv.allocator.enabled")
+        t0 = time.perf_counter()
+        for n in reversed(nodes):
+            n.stop()
+        out["nodes_stop_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1119,14 +1198,15 @@ def run_dist_phase(card: str, dev="cuda", n_keys: int = DIST_KEYS,
         y = dist_ycsb(dev, n_keys, ops)
         secs["ycsb"] = time.perf_counter() - t
         t = time.perf_counter()
-        life, db, ds, lm, nl1, nl2, model = dist_lifecycle(
-            dev, life_keys_n, life_ops)
+        life, db, ds, model = dist_lifecycle(dev, life_keys_n, life_ops)
         secs["lifecycle"] = time.perf_counter() - t
         t = time.perf_counter()
-        rpc = dist_failover(db, ds, lm, nl1, nl2, batches)
+        rpc = dist_failover(db, ds, batches)
         secs["failover"] = time.perf_counter() - t
         t = time.perf_counter()
-        coal = run_coalesce_ab(device=dev, **(coalesce_kw or {}))
+        coal = run_coalesce_ab(device=dev, **(DIST_COALESCE
+                                               if coalesce_kw is None
+                                               else coalesce_kw))
         if not coal["coalesce_oracle_ok"] or coal["coalesce_errors"]:
             raise AssertionError(f"commit train: {coal}")
         secs["coalesce"] = time.perf_counter() - t
@@ -1643,7 +1723,10 @@ def run_tpch_phase(card: str, fusion: dict, sf: float = 1.0):
     emit({"tpch22": {"columns": ["cold_s", "warm_s", "rows", "host_syncs"],
                      **tpch22}, "card": card},
          {"tpch22_warm_s": {q: v[1] for q, v in tpch22.items()}})
-    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS)
+    # q3 alone profiled each way, as at SF10 (a depth cut for the 1000 s
+    # budget: q9's and q18's profiles went)
+    fusion[f"sf{sf:g}"] = fusion_compare(cat, runs=DEPTH_RUNS,
+                                         profiled=("q3",))
     log(f"SF{sf:g} fusion: q3 q9 q18 fused == unfused")
     out["merge_join"] = merge_vs_hash(cat)
     out["ladder"] = res
@@ -2381,6 +2464,7 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
 
 MENU_BUDGET_S = 600.0  # the menu's wall budget here (the setting's default
 # is 30 s, less than the 22 texts' cold runs at SF1 take)
+MENU_SERVING_RUNS = 2  # each text served after the menu (a depth cut from 3)
 NEW_VTABLES = ("crdb_internal.node_metrics",
                "crdb_internal.node_inflight_trace_spans",
                "crdb_internal.cluster_load",
@@ -2399,12 +2483,13 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
                    hand: dict | None = None) -> dict:
     """The warm menu on the card over a fresh copy of the SF1 host catalog
     (no device columns, no cached plan, no shared graph: a server's cold
-    start): a PgServer with ``sql.warmup.menu.enabled`` builds its menu,
-    the 22 TPC-H texts as the explicit course, before it accepts a
-    connection; every item's status, runs and captures, and the cache's
+    start): with ``sql.warmup.menu.enabled``, ``Node.start(pg_port=0,
+    http_port=0)`` serves pgwire over the catalog and builds the menu
+    (``warmmenu.warm_node``), the 22 TPC-H texts as the explicit course,
+    before it returns; every item's status, runs and captures, and the cache's
     bytes (what each entry holds) against its budget, none evicted and
-    none at 0 bytes; then over the wire three serving runs of each text,
-    each run's ms and new captures (0 for every compiled item) and its
+    none at 0 bytes; then over the wire MENU_SERVING_RUNS serving runs of
+    each text, each run's ms and new captures (0 for every compiled item) and its
     result equal to the hand-built plan (q1, q3, q9, q18 also to the
     oracle); EXPLAIN ANALYZE (DEBUG) of q3 and its bundle's sections; the
     four new crdb_internal tables' row counts; then bench/warmup's cold
@@ -2420,10 +2505,9 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
     from cockroach_tpu_torch.bench.tpch_sql import TPCH_SQL
     from cockroach_tpu_torch.bench.warmup import run_warmup_ab
     from cockroach_tpu_torch.flow import dispatch
-    from cockroach_tpu_torch.server.pgwire import PgServer
+    from cockroach_tpu_torch.server.node import Node
     from cockroach_tpu_torch.sql import (diagnostics, plancache, sqlstats,
                                          warmmenu)
-    from cockroach_tpu_torch.sql.session import Session
     from cockroach_tpu_torch.utils import settings
 
     t_phase = time.perf_counter()
@@ -2442,15 +2526,17 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
     settings.set("sql.warmup.menu.budget_s", MENU_BUDGET_S)
     served: dict = {}
     try:
-        t0 = time.perf_counter()
-        boot = Session(catalog=fresh, device=dev)
-        boot.close()
         menu = [(TPCH_SQL[q], {"sql.opt.join_order": order})
                 for q, order in SQL_JOIN_ORDER.items()]
         menu += [TPCH_SQL[q] for q in queries if q not in SQL_JOIN_ORDER]
-        srv = PgServer(catalog=fresh, db=boot.db, device=dev, menu=menu)
+        t0 = time.perf_counter()
+        # Node.start serves pgwire over the catalog and builds the menu
+        # (sql/warmmenu.warm_node) before it returns
+        node = Node(1, catalog=fresh, menu=menu, ttl_ms=60_000,
+                    metrics_interval_s=3600.0, device=dev).start(
+                        gossip_port=None, pg_port=0, http_port=0)
         build_s = time.perf_counter() - t0
-        srv.serve_background()
+        srv = node.pg
         rows = {r["fingerprint"]: r for r in warmmenu.menu_rows()}
         item = {q: rows[sqlstats.fingerprint(TPCH_SQL[q])] for q in queries}
         held = {e.fingerprint: e.bytes for e in cache.entries()}
@@ -2478,7 +2564,7 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
                 runs = []
                 _join_order(conn, q)
                 try:
-                    for _ in range(3):
+                    for _ in range(MENU_SERVING_RUNS):
                         c0 = (dispatch.captures() if on_card
                               else dispatch.compiles())
                         ms, got = wire_ms(conn, TPCH_SQL[q])
@@ -2502,7 +2588,7 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
                 vtables[name.split(".")[1]] = len(next(iter(got.values())))
         finally:
             conn.close()
-            srv.close()
+            node.stop()
         per_q = {}
         bad = []
         for q in queries:
@@ -2538,7 +2624,8 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
     finally:
         for name in ("sql.warmup.menu.enabled", "sql.warmup.menu.budget_s"):
             settings.reset(name)
-    log("menu: 22 texts x 3 serving runs == hand-built (ladder == oracle), "
+    log(f"menu: 22 texts x {MENU_SERVING_RUNS} serving runs == hand-built "
+        "(ladder == oracle), "
         "no compiled item captured a graph while serving; EXPLAIN ANALYZE "
         f"(DEBUG) bundle {bundle_id}; vtables {vtables}")
     cache.clear()
@@ -2554,8 +2641,8 @@ def run_menu_phase(card: str, cat, dev="cuda", warmup_sf: float = 0.05,
     log(f"warmup A/B sf={warmup_sf:g}: checksums equal, cold "
         f"{cold['off']['cold_s']}s -> {cold['on']['cold_s']}s")
     out = {"columns": ["status", "runs", "menu_captures", "menu_s",
-                       "ms1", "caps1", "ms2", "caps2", "ms3", "caps3",
-                       "equal"],
+                       *(f"{k}{i}" for i in range(1, MENU_SERVING_RUNS + 1)
+                         for k in ("ms", "caps")), "equal"],
            **per_q,
            "join_order": SQL_JOIN_ORDER, "build_s": build_s,
            "items": courses, "plan_cache": plans,
@@ -2755,8 +2842,10 @@ def run_tpcc_phase(card: str, dev="cuda", warehouses: int = TPCC_W,
 
 JOBS_TTL_MS = 500  # the two nodes' liveness ttl
 JOBS_CRASH_AFTER = 50  # node 1 crashes after this chunk of the stock ALTER
-JOBS_MIX_TXNS = 20  # TPC-C transactions on the new descriptors
-JOBS_LOST_TXNS = 10  # transactions after the backup, gone at the restore
+# TPC-C transactions on the new descriptors, and after the backup (gone at
+# the restore): depth cuts from 20 and 10 for the default run's budget
+JOBS_MIX_TXNS = 10
+JOBS_LOST_TXNS = 5
 JOBS_SMALL_CRASH_AFTER = 2  # TPCC_SMALL's stock: 2000 rows, 4 chunks
 
 
@@ -3170,7 +3259,7 @@ def run_jobs_phase(card: str, dev="cuda", warehouses: int = 1,
 
 VIEWS_N, VIEWS_ROUNDS, VIEWS_WRITES = 1000, 8, 64
 FANOUT_SUBSCRIBERS = 1000
-FANOUT_DURATION_S = 3.0  # bench.py's 10 s, cut by the default run's budget
+FANOUT_DURATION_S = 2.0  # bench.py's 10 s, cut by the default run's budget
 
 
 def run_views_phase(card: str, dev="cuda", views: int = VIEWS_N,
@@ -3417,12 +3506,42 @@ def skewed_window(cat):
     return rel.window(["k"], [("o", False)], [("s", "sum", "q")])
 
 
+def distsql_cpu_half(sf: float, threads: int = 4) -> dict:
+    """The CPU's half of check_distsql_parity, in a process of its own:
+    each query's explain_distributed text, its 8-shard result (columns as
+    object arrays) and capacity factor; under "skew" the skewed window's
+    sorted rows, factor and attempts."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.parallel.mesh import make_mesh
+    from cockroach_tpu_torch.parallel.planner import DistributedQuery
+
+    torch.set_num_threads(threads)
+    cpu = gen_tpch(sf=sf, seed=DIST_SEED, device="cpu")
+    cpu8 = make_mesh(8, device="cpu")
+    out = {}
+    for q in sorted(Q.QUERIES):
+        crel = Q.QUERIES[q](cpu)
+        cq = DistributedQuery(crel.plan, cpu, cpu8)
+        res = cq.run()
+        out[q] = (crel.explain_distributed(),
+                  {k: np.asarray(v, dtype=object) for k, v in res.items()},
+                  cq.factor)
+    dq = DistributedQuery(skewed_window(cpu).plan, cpu, cpu8)
+    out["skew"] = (sorted_rows(dq.run()), dq.factor, dq.attempts)
+    return out
+
+
 def check_distsql_parity(dev, sf: float = 0.01) -> dict:
     """All 22 queries at `sf` (seed 11) through DistributedQuery on meshes
     of 1, 3 and 8 shards on the card, each equal to the single-device
     card run, the 8-shard runs equal to the CPU's 8-shard runs with the
     same capacity factor, explain_distributed equal to the CPU's text;
-    the skewed-window retry ending at the CPU's factor."""
+    the skewed-window retry ending at the CPU's factor. The CPU's half
+    runs in a spawned process (distsql_cpu_half) beside the card's."""
+    import concurrent.futures
+    import multiprocessing
+
     from cockroach_tpu_torch.bench import queries as Q
     from cockroach_tpu_torch.bench.tpch import gen_tpch
     from cockroach_tpu_torch.flow import dispatch
@@ -3430,47 +3549,53 @@ def check_distsql_parity(dev, sf: float = 0.01) -> dict:
     from cockroach_tpu_torch.parallel.planner import DistributedQuery
 
     t0 = time.perf_counter()
-    card = gen_tpch(sf=sf, seed=DIST_SEED, device=dev)
-    cpu = gen_tpch(sf=sf, seed=DIST_SEED, device="cpu")
-    meshes = {d: make_mesh(d, device=dev) for d in DIST_MESHES}
-    cpu8 = make_mesh(8, device="cpu")
-    caps = dispatch.captures()
-    retried = {}
-    for q in sorted(Q.QUERIES):
-        rel, crel = Q.QUERIES[q](card), Q.QUERIES[q](cpu)
-        if rel.explain_distributed() != crel.explain_distributed():
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        on_cpu = pool.submit(distsql_cpu_half, sf)
+        card = gen_tpch(sf=sf, seed=DIST_SEED, device=dev)
+        meshes = {d: make_mesh(d, device=dev) for d in DIST_MESHES}
+        caps = dispatch.captures()
+        retried = {}
+        on_card = {}
+        for q in sorted(Q.QUERIES):
+            rel = Q.QUERIES[q](card)
+            want = rel.run()
+            factors = []
+            for d, mesh in meshes.items():
+                dq = DistributedQuery(rel.plan, card, mesh)
+                got = dq.run()
+                bad = first_difference(got, want, rtol=DIST_RTOL)
+                if bad is not None:
+                    raise AssertionError(f"{q} over {d} shards != one device "
+                                         f"on the card: {bad}")
+                factors.append(dq.factor)
+            on_card[q] = (rel.explain_distributed(), got, factors[-1])
+            if max(factors) > 1:
+                retried[q] = factors
+        dq = DistributedQuery(skewed_window(card).plan, card, meshes[8])
+        skew_card = (sorted_rows(dq.run()), dq.factor, dq.attempts)
+        captures = dispatch.captures() - caps
+        cpu = on_cpu.result(timeout=900)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for q, (text, got, factor) in on_card.items():
+        ctext, cgot, cfactor = cpu[q]
+        if text != ctext:
             raise AssertionError(f"{q}: explain_distributed card != CPU")
-        want = rel.run()
-        factors = []
-        for d, mesh in meshes.items():
-            dq = DistributedQuery(rel.plan, card, mesh)
-            got = dq.run()
-            bad = first_difference(got, want, rtol=DIST_RTOL)
-            if bad is not None:
-                raise AssertionError(
-                    f"{q} over {d} shards != one device on the card: {bad}")
-            factors.append(dq.factor)
-        cq = DistributedQuery(crel.plan, cpu, cpu8)
-        bad = first_difference(got, cq.run(), rtol=DIST_RTOL)
-        if bad is not None or cq.factor != factors[-1]:
+        bad = first_difference(got, cgot, rtol=DIST_RTOL)
+        if bad is not None or cfactor != factor:
             raise AssertionError(f"{q} over 8 shards card != CPU: {bad}, "
-                                 f"factor {factors[-1]} vs {cq.factor}")
-        if max(factors) > 1:
-            retried[q] = factors
-    skew = {}
-    for name, c, mesh in (("card", card, meshes[8]), ("cpu", cpu, cpu8)):
-        rel = skewed_window(c)
-        dq = DistributedQuery(rel.plan, c, mesh)
-        skew[name] = (dq.run(), dq.factor, dq.attempts)
-    if skew["card"][1] != skew["cpu"][1] or skew["card"][1] == 1:
-        raise AssertionError(f"skewed retry: factor {skew['card'][1]} on the "
-                             f"card, {skew['cpu'][1]} on the CPU")
-    if sorted_rows(skew["card"][0]) != sorted_rows(skew["cpu"][0]):
+                                 f"factor {factor} vs {cfactor}")
+    skew_cpu = cpu["skew"]
+    if skew_card[1] != skew_cpu[1] or skew_card[1] == 1:
+        raise AssertionError(f"skewed retry: factor {skew_card[1]} on the "
+                             f"card, {skew_cpu[1]} on the CPU")
+    if skew_card[0] != skew_cpu[0]:
         raise AssertionError("skewed retry: card rows != CPU rows")
     out = {"sf": sf, "queries": len(Q.QUERIES), "meshes": list(DIST_MESHES),
-           "retried": retried, "skew_factor": skew["card"][1],
-           "skew_attempts": skew["card"][2],
-           "captures": dispatch.captures() - caps,
+           "retried": retried, "skew_factor": skew_card[1],
+           "skew_attempts": skew_card[2], "captures": captures,
            "s": time.perf_counter() - t0}
     log(f"distsql: 22 queries over {list(DIST_MESHES)} shards equal one "
         f"device, 8 shards equal the CPU, skewed retry factor "
@@ -4134,6 +4259,530 @@ def time_kernels(dev, errs: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The node and its entry points; SQL across processes
+
+NODE_ROWS = 200  # rows the node phase inserts over pgwire
+NODE_DEMO_SF = 0.01  # the CLI's --demo-tpch scale, card against CPU
+# the reference's debug zip members (cockroach_tpu/server/debugzip.py's
+# _ENDPOINTS, which this script cannot import)
+ZIP_FILES = ("metrics.txt", "nodes.json", "jobs.json", "settings.json",
+             "statements.json", "hot_ranges.json", "contention.json",
+             "spans.json", "diagnostics.json", "load.json")
+NODE_ENDPOINTS = ("/health", "/_status/nodes", "/_status/jobs",
+                  "/_status/statements", "/_status/vars", "/hot_ranges")
+HOSTS = 2  # HostFlowServer processes of the hosts phase
+HOSTS_SF = 1.0
+HOSTS_RTOL = 1e-9  # shard-order FLOAT sums (tests/test_torch_disthost.py)
+
+
+# A CLI child: the module run as ``python -m`` runs it; at exit the
+# storage kernels' launches in that process, on a line of stderr.
+CLI_CHILD = """
+import atexit, json, runpy, sys
+
+def report():
+    from cockroach_tpu_torch.storage import cuda_merge, cuda_scan
+    print("child launches " + json.dumps({
+        "scan_filter": cuda_scan.scan_filter.launches,
+        "merge_path": cuda_merge.merge_perm.launches}),
+        file=sys.stderr, flush=True)
+
+atexit.register(report)
+runpy.run_module("cockroach_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _cli(args: list, dev) -> subprocess.Popen:
+    """``python -m cockroach_tpu_torch.cli`` in a child process, on the
+    card (``--cpu`` when `dev` is the CPU), reporting its kernel launches
+    at exit (``CLI_CHILD``)."""
+    cpu = ["--cpu"] if torch.device(dev).type == "cpu" else []
+    if args and args[0] in ("hot-ranges", "debug"):
+        cpu = []
+    return subprocess.Popen(
+        [sys.executable, "-c", CLI_CHILD, *args, *cpu],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _child_launches(stderr: str, what: str) -> dict:
+    """The launch counts a CLI child printed at exit."""
+    for line in reversed(stderr.splitlines()):
+        if line.startswith("child launches "):
+            return json.loads(line[len("child launches "):])
+    raise AssertionError(f"{what} reported no launch counts")
+
+
+def _add_launches(into: dict, more: dict) -> dict:
+    return {k: into.get(k, 0) + n for k, n in more.items()}
+
+
+def _finish(p: subprocess.Popen, what: str, timeout: float = 300.0):
+    """(stdout, stderr) of a child that must exit 0."""
+    try:
+        so, se = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise AssertionError(f"{what}: no exit in {timeout:.0f}s")
+    if p.returncode != 0:
+        raise AssertionError(f"{what} exited {p.returncode}: {se[-800:]}")
+    return so, se
+
+
+def _http_json(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        body = r.read()
+        if r.status != 200:
+            raise AssertionError(f"{path}: HTTP {r.status}")
+    return body.decode() if path == "/_status/vars" else json.loads(body)
+
+
+def run_node_phase(card: str, dev="cuda") -> dict:
+    """The node's entry point on the card: ``python -m
+    cockroach_tpu_torch.cli --start --pg-port 0 --http-port 0`` as a
+    child process (the readiness line and its seconds); over pgwire
+    CREATE TABLE, NODE_ROWS rows in four INSERTs and a SELECT that reads
+    every one back; /health, /_status/nodes, /_status/jobs,
+    /_status/statements, /_status/vars and /hot_ranges; ``cli
+    hot-ranges --url`` and ``cli debug zip --url`` (the archive holds
+    the reference's members); SIGINT, on which the child stops its node
+    and exits 0. Beside it ``cli --demo-tpch 0.01 -e <q1>`` on the card
+    and with ``--cpu``: equal rendered tables. Prints the ``{"node":
+    ...}`` line."""
+    import re
+    import signal
+    import zipfile
+
+    from cockroach_tpu_torch.bench.tpch_sql import TPCH_SQL
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    demo_args = ["--demo-tpch", str(NODE_DEMO_SF), "-e", TPCH_SQL["q1"]]
+    demo = {"card": _cli(demo_args, dev), "cpu": _cli(demo_args, "cpu")}
+    t0 = time.perf_counter()
+    p = _cli(["--start", "--pg-port", "0", "--http-port", "0"], dev)
+    verbs: dict = {}
+    children: dict = {}
+    try:
+        line = p.stdout.readline()
+        out["ready_s"] = time.perf_counter() - t0
+        m = re.fullmatch(r"node 1 serving: pgwire 127\.0\.0\.1:(\d+) "
+                         r"http 127\.0\.0\.1:(\d+)\n", line)
+        if not m:
+            p.kill()
+            raise AssertionError(f"readiness line {line!r}: "
+                                 f"{p.stderr.read()[-800:]}")
+        pg, http = int(m.group(1)), int(m.group(2))
+        os.makedirs(KV_DIR, exist_ok=True)
+        zpath = os.path.join(KV_DIR, "node_debug.zip")
+        url = f"http://127.0.0.1:{http}"
+        # the verbs' processes start now: they reach the node while the
+        # pgwire statements run
+        t_verbs = time.perf_counter()
+        verbs = {"hot_ranges": _cli(["hot-ranges", "--url", url], dev),
+                 "zip": _cli(["debug", "zip", zpath, "--url", url], dev)}
+        conn = PgClient(("127.0.0.1", pg))
+        try:
+            t0 = time.perf_counter()
+            conn.query("create table node_t (k int primary key, v int, "
+                       "s string)")
+            want = {k: (k * 7 % 1000, f"s{k % 13}") for k in range(NODE_ROWS)}
+            keys = sorted(want)
+            for part in range(4):
+                chunk = keys[part::4]
+                conn.query("insert into node_t values " + ", ".join(
+                    f"({k}, {want[k][0]}, '{want[k][1]}')" for k in chunk))
+            out["insert_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            got = conn.query("select k, v, s from node_t order by k")
+            out["select_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            conn.close()
+        back = {int(k): (int(v), s) for k, v, s in
+                zip(got["k"], got["v"], got["s"])}
+        if back != want:
+            raise AssertionError(f"{len(back)} of {NODE_ROWS} inserts read "
+                                 "back, or read back changed")
+        out["rows_read_back"] = len(back)
+        pay = {path: _http_json(http, path) for path in NODE_ENDPOINTS}
+        if pay["/health"] != {"nodeId": 1, "isLive": True}:
+            raise AssertionError(f"/health {pay['/health']}")
+        if [(n["nodeId"], n["isLive"]) for n in
+                pay["/_status/nodes"]["nodes"]] != [(1, True)]:
+            raise AssertionError(f"/_status/nodes {pay['/_status/nodes']}")
+        fps = [r["fingerprint"] for r in
+               pay["/_status/statements"]["statements"]]
+        if not any("node_t" in f for f in fps):
+            raise AssertionError(f"/_status/statements lacks node_t: {fps}")
+        if "# TYPE sql_queries counter" not in pay["/_status/vars"]:
+            raise AssertionError("/_status/vars lacks sql_queries")
+        if pay["/hot_ranges"] != {"hotRanges": []} or "jobs" not in \
+                pay["/_status/jobs"]:
+            raise AssertionError(f"/hot_ranges or /_status/jobs: {pay}")
+        out["endpoints"] = {k: len(json.dumps(v)) for k, v in pay.items()}
+        hot, se = _finish(verbs["hot_ranges"], "cli hot-ranges")
+        children = _add_launches(children,
+                                 _child_launches(se, "cli hot-ranges"))
+        _, se = _finish(verbs["zip"], "cli debug zip")
+        children = _add_launches(children,
+                                 _child_launches(se, "cli debug zip"))
+        out["verbs_s"] = time.perf_counter() - t_verbs
+        if "rangeId" not in hot or "(0 rows)" not in hot:
+            raise AssertionError(f"cli hot-ranges printed {hot!r}")
+        with zipfile.ZipFile(zpath) as z:
+            names = sorted(z.namelist())
+        os.remove(zpath)
+        if names != sorted("debug/" + n for n in ZIP_FILES):
+            raise AssertionError(f"debug zip holds {names}")
+        out["zip_files"] = len(names)
+        t0 = time.perf_counter()
+        p.send_signal(signal.SIGINT)
+        so, se = _finish(p, "the node's child", timeout=60)
+        out["stop_s"] = time.perf_counter() - t0
+        children = _add_launches(children,
+                                 _child_launches(se, "the node's child"))
+        if "node 1 stopped" not in so:
+            raise AssertionError("the child exited without stopping its node")
+    except BaseException:
+        for c in [*demo.values(), *verbs.values()]:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        raise
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    t0 = time.perf_counter()
+    shown = {}
+    for k, v in demo.items():
+        what = f"cli --demo-tpch ({k})"
+        shown[k], se = _finish(v, what)
+        children = _add_launches(children, _child_launches(se, what))
+    # the launches of every child: added to this process's by main()
+    out["child_launches"] = children
+    out["demo_wait_s"] = time.perf_counter() - t0
+    if shown["card"] != shown["cpu"] or "(4 rows)" not in shown["card"]:
+        raise AssertionError(f"demo q1 on the card {shown['card']!r} != "
+                             f"the CPU's {shown['cpu']!r}")
+    out["demo_q1_equal"] = True
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    emit({"node": out}, {"node": {k: out[k] for k in (
+        "ready_s", "insert_ms", "select_ms", "rows_read_back", "verbs_s",
+        "stop_s", "demo_q1_equal", "child_launches", "phase_s")}})
+    return out
+
+
+def _host_main(q, stop, sf: float, dev: str) -> None:
+    """A host process of the hosts phase: TPC-H at `sf` generated from the
+    seed on `dev`, a HostFlowServer over it; its address on `q`, then,
+    for each message on `stop` (a queue of its own: a process killed
+    while it waits on a shared event would wedge that event), what its
+    outboxes have sent and the kernels' launches in this process, until
+    the message is "stop"."""
+    from cockroach_tpu_torch.bench.tpch import gen_tpch
+    from cockroach_tpu_torch.flow.disthost import HostFlowServer
+
+    t0 = time.perf_counter()
+    cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=dev)
+    srv = HostFlowServer(cat, device=dev).serve_background()
+    q.put((tuple(srv.addr), time.perf_counter() - t0))
+    while True:
+        msg = stop.get()
+        q.put({"sent": dict(srv.sent), "launches": _launches()})
+        if msg == "stop":
+            break
+    srv.close()
+
+
+class HostPool:
+    """HOSTS spawned host processes (``_host_main``), started before the
+    node phase so their catalogs generate while it runs; the gateway's
+    own catalog generates on a thread meanwhile."""
+
+    def __init__(self, dev, sf: float = HOSTS_SF, n: int = HOSTS):
+        import multiprocessing as mp
+        import threading
+
+        from cockroach_tpu_torch.bench.tpch import gen_tpch
+
+        ctx = mp.get_context("spawn")
+        self.closed = False
+        self.procs = []
+        for _ in range(n):
+            q, stop = ctx.Queue(), ctx.Queue()
+            p = ctx.Process(target=_host_main, args=(q, stop, sf, str(dev)),
+                            daemon=True)
+            p.start()
+            self.procs.append((q, stop, p))
+        self.cat = None
+
+        def gen():
+            self.cat = gen_tpch(sf=sf, seed=TPCH_SEED, device=dev)
+
+        self.thread = threading.Thread(target=gen, daemon=True)
+        self.thread.start()
+
+    def ready(self, timeout: float = 900.0):
+        """(addresses, each host's generation seconds, the gateway's
+        catalog)."""
+        got = [q.get(timeout=timeout) for q, _, _ in self.procs]
+        self.thread.join(timeout=timeout)
+        if self.cat is None:
+            raise AssertionError("the gateway's catalog never generated")
+        return [a for a, _ in got], [s for _, s in got], self.cat
+
+    def counts(self, i: int) -> dict:
+        """Host i's sent streams and kernel launches so far."""
+        q, stop, _p = self.procs[i]
+        stop.put("counts")
+        return q.get(timeout=60)
+
+    def kill(self, i: int) -> None:
+        p = self.procs[i][2]
+        p.kill()
+        p.join(timeout=30)
+
+    def close(self) -> list:
+        """Stop every host; each live one's last ``counts``."""
+        self.closed = True
+        for _q, stop, p in self.procs:
+            if p.is_alive():
+                stop.put("stop")
+        sent = []
+        for q, _stop, p in self.procs:
+            if p.is_alive():
+                try:
+                    sent.append(q.get(timeout=60))
+                except Exception:  # noqa: BLE001 - a dead host reports nothing
+                    sent.append(None)
+            else:
+                sent.append(None)
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        return sent
+
+
+def framing_cost(cat, dev) -> dict:
+    """One 2^20-row batch of four lineitem columns (INT, DECIMAL, DATE,
+    dictionary STRING) framed on the card and unframed back (ms each,
+    mean of 5 after one warm-up), beside the same bytes over a loopback
+    socket: which of the two sets a stream's pace."""
+    import socket
+    import threading
+
+    from cockroach_tpu_torch.coldata.batch import from_host
+    from cockroach_tpu_torch.flow import dcn
+
+    li = cat.get("lineitem")
+    names = ("l_orderkey", "l_extendedprice", "l_shipdate", "l_returnflag")
+    n = min(1 << 20, li.num_rows)
+    sch = li.schema.select(tuple(li.schema.index(c) for c in names))
+    b = from_host(sch, {c: np.asarray(li.columns[c])[:n] for c in names},
+                  device=dev)
+    dicts = {3: li.dictionaries["l_returnflag"]}
+    payload = dcn._encode_batch(b, sch, dicts)
+    dcn._decode_batch(payload, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        payload = dcn._encode_batch(b, sch, dicts)
+    enc_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dcn._decode_batch(payload, dev)
+    _sync(dev)
+    dec_ms = (time.perf_counter() - t0) / 5 * 1e3
+    a, c = socket.socketpair()
+    try:
+        got = {}
+
+        def drain():
+            for _ in range(5):
+                got["n"] = len(dcn._recv_batch_msg(c))
+
+        th = threading.Thread(target=drain)
+        th.start()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dcn._send_msg(a, payload)
+        th.join()
+        sock_ms = (time.perf_counter() - t0) / 5 * 1e3
+    finally:
+        a.close()
+        c.close()
+    return {"rows": n, "bytes": len(payload), "encode_ms": enc_ms,
+            "decode_ms": dec_ms, "socket_ms": sock_ms,
+            "paced_by": "framing" if enc_ms + dec_ms > sock_ms
+            else "socket"}
+
+
+def run_hosts_phase(card: str, pool: HostPool, dev="cuda") -> dict:
+    """SQL across processes on the card (flow/disthost.py): HOSTS
+    HostFlowServer processes, each over TPC-H SF1 generated from the seed
+    (tests/test_dcn.py's shape at full scale), and this process as the
+    gateway: q1 as remote partial aggregations over lineitem shards and
+    the final stage here (cold, then timed warm); the hash-repartitioned
+    join of tests/test_dcn.py; q1 again with host 2 killed once the flow
+    is set up on both hosts (at its first stream attach), so the gateway
+    cancels and degrades onto host 1 (the re-planned query drains one
+    stream, and host 1 sends rows: a fallback onto the gateway alone
+    fails the gate). Each result equals the one-device
+    result on the card (FLOAT within HOSTS_RTOL; the join as a multiset
+    of rows). Reports seconds, lineitem rows/s beside one device's,
+    frames, rows and bytes streamed, the framing's cost per batch
+    against the socket's, and ``distsql_degraded_queries``. Prints the
+    ``{"hosts": ...}`` line."""
+    from cockroach_tpu_torch.bench import queries as Q
+    from cockroach_tpu_torch.flow import disthost
+    from cockroach_tpu_torch.flow.runtime import run_operator
+    from cockroach_tpu_torch.ops import expr as ex
+    from cockroach_tpu_torch.plan import builder
+    from cockroach_tpu_torch.plan import spec as S
+    from cockroach_tpu_torch.utils import metric
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        addrs, gen_s, cat = pool.ready()
+        out["wait_s"] = time.perf_counter() - t0
+        out["host_gen_s"] = gen_s
+        rows = cat.get("lineitem").num_rows
+        q1 = Q.q1(cat).plan
+        agg = q1.input if isinstance(q1, S.Sort) else q1
+        plans = {"q1": agg, "join": S.HashJoin(
+            probe=S.TableScan("lineitem", ("l_orderkey", "l_extendedprice")),
+            build=S.Filter(S.TableScan("orders",
+                                       ("o_orderkey", "o_totalprice")),
+                           ex.Cmp("lt", ex.ColRef(1), ex.lit(10000.0))),
+            probe_keys=(0,), build_keys=(0,))}
+        one, one_s = {}, {}
+        for name, plan in plans.items():
+            run_operator(builder.build(plan, cat))  # captures
+            t0 = time.perf_counter()
+            one[name] = run_operator(builder.build(plan, cat))
+            _sync(dev)
+            one_s[name] = time.perf_counter() - t0
+        s0 = disthost.stream_stats()
+        d0 = metric.DIST_DEGRADED.value
+        runs = {}
+
+        def by_groups(res):
+            keys = list(res)[:2]
+            n = len(res[keys[0]])
+            order = sorted(range(n), key=lambda i: tuple(
+                res[k][i] for k in keys))
+            return {k: np.asarray(v)[order] for k, v in res.items()}
+
+        def check(name, got):
+            want = one[name]
+            if name == "join":
+                ok = same_multiset(got, want) and len(
+                    next(iter(want.values()))) > 0
+            else:
+                ok = first_difference(by_groups(got), by_groups(want),
+                                      HOSTS_RTOL) is None
+            if not ok:
+                raise AssertionError(f"hosts {name} != one device")
+
+        for name, fn in (("q1", disthost.run_distributed_hosts),
+                         ("join", disthost.run_distributed_join)):
+            times = []
+            for _ in range(2 if name == "q1" else 1):
+                t0 = time.perf_counter()
+                got = fn(plans[name], cat, addrs)
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+                check(name, got)
+            runs[name] = times
+        if metric.DIST_DEGRADED.value != d0:
+            raise AssertionError("a healthy run degraded")
+        s1 = disthost.stream_stats()
+        sent0 = pool.counts(0)["sent"]
+        killed = {}
+        orig = disthost.attach_stream
+
+        def attach(addr, *a, **kw):
+            if not killed and tuple(addr) == tuple(addrs[1]):
+                # both hosts hold the flow's fragments now; host 2's
+                # counts are read just before its kill
+                killed["counts"] = pool.counts(1)
+                t0 = time.perf_counter()
+                pool.kill(1)
+                killed["kill_s"] = time.perf_counter() - t0
+            return orig(addr, *a, **kw)
+
+        disthost.attach_stream = attach
+        try:
+            t0 = time.perf_counter()
+            got = disthost.run_distributed_hosts(plans["q1"], cat, addrs)
+            _sync(dev)
+            runs["q1_degraded"] = [time.perf_counter() - t0]
+        finally:
+            disthost.attach_stream = orig
+        check("q1", got)
+        degraded = metric.DIST_DEGRADED.value - d0
+        if not killed or degraded != 1:
+            raise AssertionError(f"host 2 killed {bool(killed)}, degraded "
+                                 f"{degraded} times (want 1)")
+        # degraded onto host 1, not run on the gateway alone: the
+        # re-planned query drained one stream, and host 1 sent rows
+        s2 = disthost.stream_stats()
+        sent1 = pool.counts(0)["sent"]
+        survivor = {"gateway_streams": s2["streams"] - s1["streams"],
+                    "gateway_frames": s2["frames"] - s1["frames"],
+                    "host1_streams": sent1["streams"] - sent0["streams"],
+                    "host1_rows": sent1["rows"] - sent0["rows"]}
+        if (survivor["gateway_streams"] != 1
+                or survivor["gateway_frames"] <= 0
+                or survivor["host1_streams"] < 1
+                or survivor["host1_rows"] <= 0):
+            raise AssertionError(f"the degraded q1 did not run on host 1: "
+                                 f"{survivor}")
+        out.update({
+            "runs_s": runs, "one_device_s": one_s,
+            "q1_rows_per_s": rows / runs["q1"][-1],
+            "q1_one_device_rows_per_s": rows / one_s["q1"],
+            "join_rows_per_s": rows / runs["join"][0],
+            "join_one_device_rows_per_s": rows / one_s["join"],
+            "gateway_streams": {k: s1[k] - s0[k] for k in s1},
+            "degraded_queries": degraded, "degraded_onto": survivor,
+            "framing": framing_cost(cat, dev),
+        })
+    finally:
+        final = pool.close()
+    # host 2's counts from just before its kill, host 1's at its stop
+    hosts = [final[0], killed.get("counts")]
+    if any(h is None for h in hosts):
+        raise AssertionError(f"a host reported no counts: {hosts}")
+    out["hosts_sent"] = [h["sent"] for h in hosts]
+    out["rows_streamed"] = sum(h["rows"] for h in out["hosts_sent"])
+    out["bytes_framed"] = sum(h["bytes"] for h in out["hosts_sent"])
+    # the launches of both hosts: added to this process's by main()
+    out["child_launches"] = _add_launches(hosts[0]["launches"],
+                                          hosts[1]["launches"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    emit({"hosts": out}, {"hosts": {
+        "runs_s": runs, "one_device_s": one_s,
+        "q1_rows_per_s": [out["q1_rows_per_s"],
+                          out["q1_one_device_rows_per_s"]],
+        "rows_streamed": out["rows_streamed"],
+        "bytes_framed": out["bytes_framed"],
+        "degraded": degraded, "degraded_onto": survivor,
+        "framing": out["framing"], "child_launches": out["child_launches"],
+        "phase_s": out["phase_s"]}})
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4144,10 +4793,11 @@ def card_line() -> str:
 
 PHASES = ("kernels", "tpch", "distsql_sf1", "kv", "sql", "menu", "tpcc",
           "jobs", "views", "fanout", "sf10", "distsql", "tpcds", "ycsb",
-          "dist", "parity")
+          "dist", "node", "hosts", "parity")
 # phases whose storage-kernel launches the kernel table reports
 LAUNCH_PHASES = ("tpch", "kv", "sql", "menu", "tpcc", "jobs", "views",
-                 "fanout", "sf10", "distsql", "tpcds", "dist")
+                 "fanout", "sf10", "distsql", "tpcds", "dist", "node",
+                 "hosts")
 
 
 def parse_args(argv=None):
@@ -4307,6 +4957,19 @@ def main(argv=None) -> int:
     ycsb = run("ycsb", lambda: run_ycsb(card))
     gc.collect()
     run("dist", lambda: run_dist_phase(card))
+    # the hosts generate their SF1 catalogs while the node phase runs
+    pool = HostPool(dev) if "hosts" in phases else None
+    try:
+        for name, fn in (("node", lambda: run_node_phase(card)),
+                         ("hosts", lambda: run_hosts_phase(card, pool))):
+            got = run(name, fn)
+            if got is not None:  # the path's child processes too
+                launches[name] = _add_launches(launches[name],
+                                               got["child_launches"])
+    finally:
+        if pool is not None and not pool.closed:
+            pool.close()
+    gc.collect()
     run("parity", check_parity)
     for k in kernels:
         name = k["name"]

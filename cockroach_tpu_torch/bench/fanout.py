@@ -253,8 +253,27 @@ def run_fanout(subscribers: int = 1000, duration_s: float = 10.0,
         truth = {(int(e["ts"]), e["key"]): e["value"] for e in oracle}
         sustained = sum(1 for c in fast if c.resolved >= hi
                         and c.error is None)
-        sampled = [c for c in fast[:oracle_sample]] + flap2
-        oracle_ok = bool(sampled) and all(c.events == truth for c in sampled)
+        sampled = [(f"fast{i}", c)
+                   for i, c in enumerate(fast[:oracle_sample])]
+        sampled += [(f"flapper{i}", c) for i, c in enumerate(flap2)]
+        oracle_ok = bool(sampled) and all(c.events == truth
+                                          for _, c in sampled)
+        # what a failed oracle saw: each sampled stream that differs, with
+        # the eviction reason its error frame gave, if any
+        misses = [{"consumer": who,
+                   "error": None if c.error is None
+                   else c.error.get("reason"),
+                   "missing": len(truth.keys() - c.events.keys()),
+                   "extra": len(c.events.keys() - truth.keys()),
+                   "resolved": c.resolved >= hi}
+                  for who, c in sampled if c.events != truth]
+        # fast and reconnected consumers the hub evicted, by the reason it
+        # recorded (its goodbye frame is best-effort and often lost)
+        readers_evicted: dict[str, int] = {}
+        for sub in fast_subs + flap2_subs:
+            if sub.evict_error is not None:
+                why = sub.evict_error.reason
+                readers_evicted[why] = readers_evicted.get(why, 0) + 1
         delivered = sum(c.delivered for c in fast) + \
             sum(c.delivered for c in flap2)
         lag_sorted = sorted(lags)
@@ -299,4 +318,6 @@ def run_fanout(subscribers: int = 1000, duration_s: float = 10.0,
         "d2h_bytes_per_scan": scans["d2h_bytes"] / max(1, scans["scans"]),
         "copies_per_scan": scans["copies"] / max(1, scans["scans"]),
         "fanout_oracle_ok": bool(oracle_ok),
+        "readers_evicted": readers_evicted,
+        "oracle_misses": misses,
     }

@@ -119,6 +119,24 @@ def exec_lock():
         _exec_lock.release()
 
 
+@contextlib.contextmanager
+def exec_released():
+    """Within the block this thread holds none of ``exec_lock`` (every
+    level of it released, then taken back): an operator waiting on
+    another process's stream (flow/disthost.py) lets the device serve
+    other work meanwhile — on a host, the very streams it waits for."""
+    depth = getattr(_exec_depth, "n", 0)
+    for _ in range(depth):
+        _exec_lock.release()
+    _exec_depth.n = 0
+    try:
+        yield
+    finally:
+        for _ in range(depth):
+            _exec_lock.acquire()
+        _exec_depth.n = depth
+
+
 def note(n: int = 1) -> None:
     """Record n dispatches issued outside a ``jit`` wrapper."""
     global _total

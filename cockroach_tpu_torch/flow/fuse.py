@@ -21,9 +21,8 @@ time (plan/builder.py, behind ``sql.distsql.fusion.enabled``):
 ``_post_run_updates`` still reaches each member's deferred counters, and
 stats collection falls back to per-operator pulls as ``_consume`` does.
 ``plan_fusion_groups`` mirrors the pass over the PLAN tree for EXPLAIN.
-The reference's HashBucketOp and stream synchronizers belong to its
-multi-device path, which the port has not brought over (ROADMAP Queue 1);
-their branches wait with them.
+A hash-bucket stream (a cross-host repartition) is a chain link; the
+stream synchronizers are barriers whose inputs fuse on their own.
 """
 
 from __future__ import annotations
@@ -34,9 +33,12 @@ from .operators import (
     AggregateOp,
     DistinctOp,
     FilterOp,
+    HashBucketOp,
     HashJoinOp,
     LimitOp,
     MergeJoinOp,
+    OrderedSyncOp,
+    ParallelUnorderedSyncOp,
     ProjectOp,
     ScalarAggregateOp,
     ScanOp,
@@ -49,7 +51,7 @@ from .operators import (
 )
 
 # stateless per-tile chain links the pass collapses
-_CHAIN = (FilterOp, ProjectOp)
+_CHAIN = (FilterOp, ProjectOp, HashBucketOp)
 # buffering consumers that fuse their own spool chain (_consume); their
 # children are never wrapped: the consumer drives the composition
 _CONSUMERS = (AggregateOp, ScalarAggregateOp, SortOp, TopKOp, WindowOp,
@@ -245,7 +247,7 @@ def _rewrite(op: Operator, parent_fuses: bool, jrun: int = 0) -> Operator:
     if isinstance(op, LimitOp):
         op.child = _rewrite(op.child, parent_fuses=False)
         return op
-    if isinstance(op, UnionOp):
+    if isinstance(op, (UnionOp, OrderedSyncOp, ParallelUnorderedSyncOp)):
         op._children = [_rewrite(c, parent_fuses=False)
                         for c in op._children]
         return op

@@ -216,6 +216,13 @@ def current_query() -> BytesMonitor | None:
     return _CURRENT_QUERY.get()
 
 
+def refresh_gauges() -> None:
+    """Re-publish the root monitor's gauges (the node's metrics scraper
+    calls this, so a quiet node still exports truthful values)."""
+    with _TREE_LOCK:
+        _update_gauges()
+
+
 def root_budget() -> int:
     from ..utils import settings
 

@@ -4,7 +4,9 @@ ScanOp (resident and streaming), FilterOp, ProjectOp, LimitOp,
 AggregateOp (sort-groupby, string_agg on the host), SmallGroupAggregateOp
 (dense codes), ScalarAggregateOp, SortOp, TopKOp, DistinctOp, HashJoinOp
 (unique-build, existence and duplicate-key joins, over exact packed or
-hashed keys), WindowOp, UnionOp and MergeJoinOp.
+hashed keys), WindowOp, UnionOp and MergeJoinOp; and the distribution
+operators: ScanOp's shards, HashBucketOp, RemoteStreamOp, OrderedSyncOp,
+ParallelUnorderedSyncOp and the partial and final aggregation stages.
 
 Two execution paths per operator, as in the reference:
 
@@ -29,9 +31,7 @@ that fits the data. Past its budget (``sql.distsql.workmem_rows`` or the
 in its external variant (``flow/external.py``): SortOp the external sort,
 HashJoinOp the Grace hash join, AggregateOp and DistinctOp the Grace
 aggregation; those are barriers. WindowOp and MergeJoinOp's build have
-no external variant, as in the reference. Partial-mode aggregation, a
-distributed stage, raises NotImplementedError until the multi-device
-slice.
+no external variant, as in the reference.
 """
 
 from __future__ import annotations
@@ -83,10 +83,12 @@ def _spool_cap(op: Operator, tiles: list[Batch]) -> int:
 
 
 def _source_device(op: Operator) -> torch.device:
-    """The device of the table under an operator chain."""
+    """The device of the source under an operator chain: its table's, or
+    a remote stream's own."""
     while not isinstance(op, SourceOperator):
         op = op.children()[0]
-    return op.table.device
+    table = getattr(op, "table", None)
+    return table.device if table is not None else op.device
 
 
 def _identity_fn(b):
@@ -339,12 +341,18 @@ class ScanOp(SourceOperator):
       ``_next_pow2(max(4096, min(2^20, rows // 64)))``, or the
       operator's tile if larger. Only tables with host columns stream:
       a KV table decodes whole.
+
+    ``shard=(i, n)`` scans one of n shards (a host's share of a
+    cross-host query, flow/disthost.py): live rows of rank
+    ``[i*rows//n, (i+1)*rows//n)``, the last shard unbounded above.
     """
 
     def __init__(self, table: Table, columns: tuple[str, ...] | None = None,
-                 tile: int | None = None):
+                 tile: int | None = None,
+                 shard: tuple[int, int] | None = None):
         super().__init__()
         self.table = table
+        self.shard = shard
         _wire_source_metadata(self, table, columns or table.schema.names)
         self.tile = tile
         self._batch = None
@@ -367,6 +375,18 @@ class ScanOp(SourceOperator):
         self.stats.host_syncs += (getattr(self.table, "host_syncs", 0)
                                   - table_syncs)
 
+    def _shard_bounds(self) -> tuple[int, int | None] | None:
+        """Rank range [lo, hi) of this shard; the last shard is unbounded
+        above (hi None): num_rows counts the newest visible rows now, and
+        the scan's snapshot may hold more (an older snapshot, a txn's own
+        inserts), which must still land in some shard."""
+        if self.shard is None:
+            return None
+        i, n = self.shard
+        rows = self.table.num_rows
+        return (i * rows // n,
+                None if i == n - 1 else (i + 1) * rows // n)
+
     def _init_resident(self):
         names = self.output_schema.names
         if hasattr(self.table, "columns"):
@@ -375,6 +395,18 @@ class ScanOp(SourceOperator):
             b = self.table.device_batch(names, persistent=True)
         # the batch stays at its address: graphs read it by reference
         dispatch.mark_static(b)
+        bounds = self._shard_bounds()
+        if bounds is not None:
+            # shard by live-row rank, not position: a KV table's live rows
+            # sit at scattered positions of its merged view (a host
+            # table's are a prefix, where rank is position). The new mask
+            # is not marked static: graphs copy it in at each call.
+            lo, hi = bounds
+            rank = torch.cumsum(b.mask.to(torch.int64), 0) - 1
+            keep = b.mask & (rank >= lo)
+            if hi is not None:
+                keep = keep & (rank < hi)
+            b = b.with_mask(keep)
         self._batch = b
         cap = self._batch.capacity
         tile = self.tile
@@ -391,6 +423,9 @@ class ScanOp(SourceOperator):
     def _init_streaming(self):
         t = self.table
         nrows = t.num_rows
+        lo, hi = self._shard_bounds() or (0, None)
+        hi = nrows if hi is None else hi
+        nrows = hi - lo
         # big tiles amortize launches; about 64 tiles per table keeps the
         # pipeline busy at any scale
         auto = _next_pow2(max(1 << 12, min(1 << 20, nrows // 64)))
@@ -399,8 +434,9 @@ class ScanOp(SourceOperator):
             names = self.output_schema.names
             self._stream = TileStream(
                 self.output_schema,
-                {n: np.asarray(t.columns[n]) for n in names},
-                {n: np.asarray(t.valids[n]) for n in names if n in t.valids},
+                {n: np.asarray(t.columns[n])[lo:hi] for n in names},
+                {n: np.asarray(t.valids[n])[lo:hi]
+                 for n in names if n in t.valids},
                 nrows, tile, resolve_device(t.device or "cuda"))
         self._stream.reset()
         self._prefetched = None
@@ -496,6 +532,82 @@ class IndexScanOp(SourceOperator):
 
 # ---------------------------------------------------------------------------
 # Streaming ops
+
+
+class HashBucketOp(OneInputOperator):
+    """One outgoing stream of a HashRouter (colflow/routers.go:420): mask
+    away the rows whose key-hash bucket is not `part` of `n_parts`. A
+    producer runs one HashBucketOp per consumer over the same scan;
+    together they partition the input exactly (the join and aggregation
+    hash, so co-partitioned sides land on the same peer)."""
+
+    def __init__(self, child: Operator, keys: tuple[int, ...],
+                 n_parts: int, part: int):
+        from ..ops import hashing
+
+        super().__init__(child)
+        self.output_schema = child.output_schema
+        schema = child.output_schema
+        for k in keys:
+            if schema.types[k].family is Family.STRING:
+                raise TypeError(
+                    "cross-host repartition on STRING keys is not "
+                    "supported (dictionary codes are per-process)")
+        types = [schema.types[k] for k in keys]
+
+        def raw(b: Batch) -> Batch:
+            h = hashing.hash_columns([b.cols[k] for k in keys], types)
+            return b.with_mask(
+                b.mask & (hashing.bucket(h, n_parts) == part))
+
+        self._key = dispatch.kernel_key(
+            "hashbucket", schema, tuple(keys), n_parts, part)
+        self._raw = raw
+        self._fn = dispatch.jit(raw, key=self._key)
+
+    def stream_parts(self):
+        return _compose_parts(self, self.child, self._raw, key=self._key)
+
+    def _next(self):
+        b = self.child.next_batch()
+        return None if b is None else self._fn(b)
+
+
+class RemoteStreamOp(SourceOperator):
+    """Leaf that attaches to a peer host's registered flow stream at init
+    and pulls its batches onto ``device`` — the Inbox half of a
+    host-to-host stream (colrpc/inbox.go:48; plan/spec.RemoteStream)."""
+
+    def __init__(self, addr, flow_id: str, stream_id: int, schema,
+                 device="cuda"):
+        from .dcn import runtime_dictionaries
+
+        super().__init__()
+        self.addr = tuple(addr)
+        self.flow_id = flow_id
+        self.stream_id = stream_id
+        self.output_schema = schema
+        self.device = resolve_device(device)
+        # STRING columns' dictionaries ride the stream's batches: parents
+        # hold these objects, which fill in place at the first batch
+        self.dictionaries = runtime_dictionaries(schema)
+        self._inbox = None
+
+    def init(self):
+        from .disthost import attach_stream
+
+        self._inbox = attach_stream(self.addr, self.flow_id,
+                                    self.stream_id, self.output_schema,
+                                    dictionaries=self.dictionaries,
+                                    device=self.device)
+        super().init()
+
+    def _next(self):
+        return self._inbox.next_batch()
+
+    def close(self):
+        if self._inbox is not None:
+            self._inbox.close()
 
 
 class FilterOp(OneInputOperator):
@@ -640,11 +752,17 @@ class LimitOp(OneInputOperator):
 
 
 class AggregateOp(OneInputOperator):
-    """GROUP BY aggregation (hashAggregator analog), complete mode: each
-    input tile reduces to a partial-state tile by sort_groupby; the spool
-    merges down (concat + sort_groupby over the state layout) when it
-    outgrows ``sql.distsql.workmem_rows`` or its byte account, and once at
-    the end, then the states finalize.
+    """GROUP BY aggregation (hashAggregator analog). Each input tile
+    reduces to a partial-state tile by sort_groupby; the spool merges down
+    (concat + sort_groupby over the state layout) when it outgrows
+    ``sql.distsql.workmem_rows`` or its byte account, and once at the end,
+    then the states finalize. ``mode``, as CRDB's local and final stages
+    around a shuffle:
+
+    - complete: input rows -> final results;
+    - partial: input rows -> state columns (a remote fragment's output);
+    - final: state columns in the partial layout (of ``input_schema``,
+      the schema the aggregates were written over) -> final results.
 
     When a merge-down does not shrink under budget (the group count
     itself exceeds it), the spooled state tiles and the rest of the
@@ -660,12 +778,12 @@ class AggregateOp(OneInputOperator):
         mode: str = "complete",
         ordered: bool = False,
         prefix_live: bool = False,
+        input_schema: Schema | None = None,
     ):
         super().__init__(child)
-        if mode != "complete":
-            raise NotImplementedError(
-                f"{mode}-mode aggregation is a distributed stage, which "
-                "waits for the port's multi-device slice (ROADMAP Queue 1)")
+        if mode not in ("complete", "partial", "final"):
+            raise ValueError(f"aggregation mode {mode!r}")
+        self.mode = mode
         self.group_cols = group_cols
         self.aggs = aggs
         # string_agg runs OUTSIDE the device state pipeline, as in the
@@ -676,6 +794,10 @@ class AggregateOp(OneInputOperator):
         self._sagg = [(j, a) for j, a in enumerate(aggs)
                       if a.func == "string_agg"]
         if self._sagg:
+            if mode != "complete":
+                raise ValueError(
+                    "string_agg runs in complete mode only (distributed "
+                    "plans run it locally)")
             aggs = tuple(agg_ops.AggSpec("count", a.col, a.name)
                          if a.func == "string_agg" else a for a in aggs)
         # ordered: equal group keys arrive adjacent (clustered scan); the
@@ -683,24 +805,35 @@ class AggregateOp(OneInputOperator):
         # live-prefix too, dropping the dead-row compaction sort.
         self.ordered = ordered
         self.prefix_live = prefix_live
-        base = child.output_schema
+        base = input_schema if input_schema is not None \
+            else child.output_schema
         self.base_schema = base
         self.partial_specs, self.state_schema, self.final_map = (
             agg_ops.partial_layout(base, group_cols, aggs))
         k = len(group_cols)
         self.num_keys = k
         self.merge_specs = agg_ops.merge_specs_for(self.partial_specs, k)
-        self.output_schema = agg_ops.agg_output_schema(base, group_cols,
-                                                       self.aggs)
-        self.dictionaries = {
-            group_cols.index(gi): d
-            for gi, d in child.dictionaries.items() if gi in group_cols
-        }
-        _refuse_runtime_keys(child, group_cols, "grouping by")
-        self.key_stats = {
-            group_cols.index(gi): s
-            for gi, s in child.col_stats.items() if gi in group_cols
-        }
+        self.output_schema = (
+            self.state_schema if mode == "partial" else
+            agg_ops.agg_output_schema(
+                base, group_cols, self.aggs,
+                "final" if mode == "final" else "complete"))
+        if mode == "final":
+            # the child emits the state layout: its keys are 0..k-1
+            self.dictionaries = {i: d for i, d in child.dictionaries.items()
+                                 if i < k}
+            self.key_stats = {i: s for i, s in child.col_stats.items()
+                              if i < k}
+        else:
+            self.dictionaries = {
+                group_cols.index(gi): d
+                for gi, d in child.dictionaries.items() if gi in group_cols
+            }
+            _refuse_runtime_keys(child, group_cols, "grouping by")
+            self.key_stats = {
+                group_cols.index(gi): s
+                for gi, s in child.col_stats.items() if gi in group_cols
+            }
         # STRING group keys without numeric stats still pack tight: the
         # dictionary size bounds the code range
         for pos, d in self.dictionaries.items():
@@ -714,8 +847,8 @@ class AggregateOp(OneInputOperator):
             self.dictionaries[k + j] = d
         self.in_stats = {
             gi: s for gi, s in child.col_stats.items() if gi in group_cols
-        }
-        for gi in group_cols:
+        } if mode != "final" else {}
+        for gi in group_cols if mode != "final" else ():
             if gi in child.dictionaries:
                 self.in_stats.setdefault(
                     gi, (0, max(0, len(child.dictionaries[gi]) - 1)))
@@ -783,6 +916,9 @@ class AggregateOp(OneInputOperator):
             # a plain pull: every input tile hands its (group key,
             # string) pairs to the host before its device partial
             source = self._sagg_source()
+        elif self.mode == "final":
+            # state tiles arrive in the partial layout already
+            source = _consume(self, "final", _identity_fn)
         else:
             source = _consume(self, "partial", self._partial,
                               self._partial_fn)
@@ -833,8 +969,13 @@ class AggregateOp(OneInputOperator):
         if not tiles:
             self._close_spool()
             return None
-        acc = tiles[0] if len(tiles) == 1 else self._merge_down(tiles)
+        # one tile is fully grouped unless it came from a final-mode
+        # child (exchanged state rows may repeat group keys)
+        acc = (tiles[0] if len(tiles) == 1 and self.mode != "final"
+               else self._merge_down(tiles))
         self._close_spool()  # the spool tiles are dead
+        if self.mode == "partial":
+            return acc
         out = self._finalize_fn(acc)
         if self._sagg:
             out = self._attach_saggs(out)
@@ -1863,6 +2004,268 @@ class UnionOp(Operator):
     def close(self):
         for c in self._children:
             c.close()
+
+
+class OrderedSyncOp(Operator):
+    """Merge-ordered fan-in — the OrderedSynchronizer analog (colexec/
+    ordered_synchronizer.eg.go): K inputs, each sorted on `keys`, merge
+    into one sorted stream, incrementally. Per round one tile is pulled
+    from each input that needs one, the buffered rows merge (concat and
+    one sort), and the rows at or below the barrier — the smallest of the
+    inputs' largest buffered keys — go out (no later row can sort before
+    them). Rows past the barrier carry to the next round in one tile.
+
+    It streams when the key list packs into 64-bit words (int, date,
+    string and bool keys: barriers compare lexicographically across the
+    words); float keys spool every input and sort once — the same
+    result, not streamed."""
+
+    def __init__(self, children_ops: tuple[Operator, ...], keys):
+        super().__init__()
+        assert children_ops, "ordered fan-in needs at least one input"
+        self._children = list(children_ops)
+        self.keys = tuple(keys)
+        self.output_schema = children_ops[0].output_schema
+        self.dictionaries = dict(children_ops[0].dictionaries)
+        self.col_stats = {}
+        self._rank_tables = {
+            k.col: children_ops[0].dictionaries[k.col].ranks
+            for k in self.keys
+            if k.col in children_ops[0].dictionaries
+        }
+
+    def children(self):
+        return list(self._children)
+
+    def _packed_words(self, b: Batch):
+        """Packed sort-key words per row, each as a signed-comparable
+        int64 (lexicographic across the list), or None when an operand is
+        not a 64-bit word (float keys)."""
+        ops = sort_ops.pack_sort_operands(
+            b, self.output_schema, self.keys, self._rank_tables,
+            include_mask=False)
+        if any(o.dtype != torch.int64 for o in ops):
+            return None
+        return [sort_ops.sortable(o) for o in ops]
+
+    @staticmethod
+    def _lex_max(words, live):
+        """Lexicographic max of multi-word keys over the live rows, on the
+        device: each word fixed greedily, narrowing the candidates."""
+        sel = live
+        out = []
+        lowest = torch.iinfo(torch.int64).min
+        for w in words:
+            m = torch.where(sel, w, torch.full_like(w, lowest)).max()
+            out.append(m)
+            sel = sel & (w == m)
+        return out
+
+    @staticmethod
+    def _lex_le(words, barrier):
+        """Rowwise (w0, w1, ...) <= (b0, b1, ...)."""
+        lt = torch.zeros(words[0].shape, dtype=torch.bool,
+                         device=words[0].device)
+        eq = torch.ones_like(lt)
+        for w, b in zip(words, barrier):
+            lt = lt | (eq & (w < b))
+            eq = eq & (w == b)
+        return lt | eq
+
+    def init(self):
+        for c in self._children:
+            c.init()
+        self._bufs: list[Batch | None] = [None] * len(self._children)
+        self._done = [False] * len(self._children)
+        self._carry: Batch | None = None
+        self._flushed = False
+        probe = empty_batch(self.output_schema, 16, "cpu")
+        self._streaming = self._packed_words(probe) is not None
+        self._spooled = None
+        super().init()
+
+    def _fallback_next(self):
+        if self._spooled is None:
+            tiles = []
+            for c in self._children:
+                while True:
+                    b = c.next_batch()
+                    if b is None:
+                        break
+                    tiles.append(b)
+            if not tiles:
+                self._spooled = ()
+                return None
+            big = concat(tiles, capacity=_spool_cap(self, tiles))
+            self._spooled = (sort_ops.sort_batch(
+                big, self.output_schema, self.keys, self._rank_tables),)
+        if self._spooled:
+            out, self._spooled = self._spooled[0], ()
+            return out
+        return None
+
+    def _round(self):
+        """One round: pull the missing tiles, merge, split at the barrier;
+        the batch to emit, or None when nothing is left."""
+        for i, c in enumerate(self._children):
+            if not self._done[i] and self._bufs[i] is None:
+                b = c.next_batch()
+                if b is None:
+                    self._done[i] = True
+                else:
+                    self._bufs[i] = b
+        tiles = [b for b in self._bufs if b is not None]
+        parts = ([self._carry] if self._carry is not None else []) + tiles
+        if not parts:
+            return None
+        cap = _spool_cap(self, parts)
+        merged = sort_ops.sort_batch(
+            concat(parts, capacity=cap), self.output_schema, self.keys,
+            self._rank_tables)
+        if all(self._done):
+            # the final flush: every row is safe
+            self._carry = None
+            self._bufs = [None] * len(self._children)
+            self._flushed = True
+            return merged
+        words = self._packed_words(merged)
+        # the barrier: the lexicographic min, over the inputs not yet
+        # exhausted, of their buffered max key
+        barrier = None
+        for i in range(len(self._children)):
+            if self._done[i] or self._bufs[i] is None:
+                continue
+            bw = self._packed_words(self._bufs[i])
+            bar = self._lex_max(bw, self._bufs[i].mask)
+            if barrier is None:
+                barrier = bar
+            else:
+                le = self._lex_le([x[None] for x in bar],
+                                  [x[None] for x in barrier])[0]
+                barrier = [torch.where(le, x, y)
+                           for x, y in zip(bar, barrier)]
+        safe = self._lex_le(words, barrier)
+        out = merged.with_mask(merged.mask & safe)
+        # the carry keeps the tail in order (compact keeps row order); it
+        # is bounded by the tiles' capacities, so cap always fits
+        self._carry = compact(merged.with_mask(merged.mask & ~safe),
+                              capacity=cap)
+        self._bufs = [None] * len(self._children)
+        return out
+
+    def _next(self):
+        if not self._streaming:
+            return self._fallback_next()
+        if self._flushed:
+            return None
+        return self._round()
+
+    def close(self):
+        for c in self._children:
+            c.close()
+
+
+class ParallelUnorderedSyncOp(Operator):
+    """Unordered fan-in with one puller thread per input — the
+    ParallelUnorderedSynchronizer analog (colexec/parallel_unordered_
+    synchronizer.go:66): batches surface in arrival order through a
+    bounded queue, so the inputs overlap their waits. Remote inboxes need
+    it (draining one after another would serialize the hosts' compute
+    and network time). The consumer owns each batch it takes: a puller
+    does not pull again until its batch was taken."""
+
+    _QUEUE_DEPTH = 4  # per-input backpressure (bounded buffering)
+    _DONE = object()
+
+    def __init__(self, children_ops: tuple[Operator, ...]):
+        super().__init__()
+        assert children_ops, "fan-in needs at least one input"
+        self._children = list(children_ops)
+        self.output_schema = children_ops[0].output_schema
+        for c in children_ops[1:]:
+            assert len(c.output_schema) == len(self.output_schema), \
+                "fan-in inputs must have equal arity"
+        self.dictionaries = dict(children_ops[0].dictionaries)
+        self.col_stats = {}
+        self._threads: list = []
+
+    def children(self):
+        return list(self._children)
+
+    def init(self):
+        import queue
+        import threading
+
+        # a re-init (the runtime's capacity retry) must not leave the
+        # previous run's pullers racing the new ones on the children
+        self._shutdown_pullers()
+        for c in self._children:
+            c.init()
+        self._q = queue.Queue(
+            maxsize=self._QUEUE_DEPTH * len(self._children))
+        self._stop = threading.Event()
+        self._live = len(self._children)
+        self._threads = []
+        for c in self._children:
+            t = threading.Thread(target=self._pull, args=(c,),
+                                 name="unordered-sync", daemon=True)
+            t.start()
+            self._threads.append(t)
+        super().init()
+
+    def _pull(self, child: Operator) -> None:
+        try:
+            while not self._stop.is_set():
+                b = child.next_batch()
+                if b is None:
+                    break
+                # a tile a graph's next replay overwrites is copied out
+                self._q.put(dispatch.own(b))
+        except BaseException as e:  # noqa: BLE001 - forwarded to the consumer through the queue
+            self._q.put(e)
+            return
+        self._q.put(self._DONE)
+
+    def _next(self):
+        while self._live > 0:
+            # waiting on the inputs: the device lock goes to other work
+            with dispatch.exec_released():
+                item = self._q.get()
+            if item is self._DONE:
+                self._live -= 1
+                continue
+            if isinstance(item, BaseException):
+                self._stop.set()
+                raise item
+            return item
+        return None
+
+    def _shutdown_pullers(self) -> None:
+        """Stop and join the pullers, draining the queue while joining so
+        a producer blocked in put() gets room to see the stop."""
+        if not self._threads:
+            return
+        import queue
+
+        self._stop.set()
+        for t in self._threads:
+            while t.is_alive():
+                try:
+                    while True:
+                        self._q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.05)
+        self._threads = []
+
+    def close(self):
+        # children first: closing a remote inbox closes its socket, the
+        # one thing that unblocks a puller parked in recv
+        if self._threads:
+            self._stop.set()
+        for c in self._children:
+            c.close()
+        self._shutdown_pullers()
 
 
 class MergeJoinOp(OneInputOperator):

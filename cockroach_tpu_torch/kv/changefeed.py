@@ -57,7 +57,8 @@ _stats = {"scans": 0, "rows": 0, "d2h_bytes": 0, "copies": 0}
 
 
 def scan_stats() -> dict:
-    """Process totals of ``_scan``: scans, rows returned, device-to-host
+    """Process totals of ``_scan``: scans (one per engine: a cluster
+    scans store by store), rows returned, device-to-host
     bytes and copies (one per scan unless a selection outgrew the learned
     capacity)."""
     with _stats_mu:
@@ -113,53 +114,90 @@ def _scan(db: DB, lo_ts: int, hi_ts: int,
     the intent list into the resolved frontier (kvserver/closedts): the
     frontier must not advance past an unresolved intent, or its eventual
     commit would fall behind an already-emitted resolved checkpoint and
-    the event would be skipped forever."""
+    the event would be skipped forever.
+
+    Over a cluster (``kv/dist.DistSender``) the scan runs store by store,
+    as ``DistSender.scan_batch`` does: a value longer than ``val_width``
+    sits in the value heap of the store that holds its version, and its
+    slot holds an offset into that heap, which the stores' merged view
+    cannot tell apart. The views are taken under the sender mutex, so a
+    range move never shows its rows twice or not at all."""
     eng = db.engine
-    kw, vw = eng.key_width, eng.val_width
+    stores = getattr(eng, "stores", None)
     with dispatch.exec_lock():
         # the snapshot is taken under the engine mutex (the merged view
         # consults and refills the overlay cache); the block it returns
         # is immutable, so the selection below runs without the mutex
         with eng.mu:
-            view = eng._merged_view()
-        if view is None or view.capacity == 0:
-            return [], []
-        in_span = view.mask
-        if start is not None or end is not None:
-            words = K.key_words(view.key)
-            in_span = in_span & K.words_in_range(
-                words,
-                K.words_tensor(K.encode_bound(start, kw), eng.device),
-                K.words_tensor(K.encode_bound(end, kw), eng.device))
-        intent = view.txn != 0
-        pick = in_span & (intent | ((view.ts > int(lo_ts))
-                                    & (view.ts <= int(hi_ts))))
-        caps = _caps.setdefault(eng, {})
-        cap = caps.get((start, end), _MIN_CAP)
-        copies = 0
-        while True:
-            host = _pack(view, pick, cap).cpu().numpy()
-            copies += 1
-            n = int(host[0, :8].view("<i8")[0])
-            if n <= cap:
-                break
-            while cap < n:
-                cap *= 2
-        if lo_ts > 0:
-            # a replay of the whole history (a view's prime, an oracle's
-            # scan from 0) is a one-off: it does not size later polls
-            cap = _MIN_CAP
-            while cap < n:
-                cap *= 2
-            caps[(start, end)] = cap
+            if stores is None:
+                views = [(eng, eng._merged_view())]
+            else:
+                views = []
+                for s in stores.values():
+                    with s.engine.mu:
+                        views.append((s.engine, s.engine._merged_view()))
+        picked = [(e, _select(e, v, lo_ts, hi_ts, start, end))
+                  for e, v in views]
+    versions: list[tuple[int, bytes, bytes | None]] = []
+    intents: list[tuple[int, bytes]] = []
+    for e, (host, n) in picked:
+        if n:
+            v, i = _decode(e, host[1:1 + n])
+            versions.extend(v)
+            intents.extend(i)
+    if len(picked) > 1:
+        versions.sort(key=lambda x: (x[0], x[1]))
+    return versions, intents
+
+
+def _select(eng, view, lo_ts: int, hi_ts: int, start, end):
+    """(packed host rows, n): the span's versions in (lo_ts, hi_ts] and
+    its intents from one engine's merged view, one copy to the host (two
+    when the selection outgrew the capacity learned for the span)."""
+    if view is None or view.capacity == 0:
+        return None, 0
+    kw = eng.key_width
+    in_span = view.mask
+    if start is not None or end is not None:
+        words = K.key_words(view.key)
+        in_span = in_span & K.words_in_range(
+            words,
+            K.words_tensor(K.encode_bound(start, kw), eng.device),
+            K.words_tensor(K.encode_bound(end, kw), eng.device))
+    intent = view.txn != 0
+    pick = in_span & (intent | ((view.ts > int(lo_ts))
+                                & (view.ts <= int(hi_ts))))
+    caps = _caps.setdefault(eng, {})
+    cap = caps.get((start, end), _MIN_CAP)
+    copies = 0
+    while True:
+        host = _pack(view, pick, cap).cpu().numpy()
+        copies += 1
+        n = int(host[0, :8].view("<i8")[0])
+        if n <= cap:
+            break
+        while cap < n:
+            cap *= 2
+    if lo_ts > 0:
+        # a replay of the whole history (a view's prime, an oracle's
+        # scan from 0) is a one-off: it does not size later polls
+        cap = _MIN_CAP
+        while cap < n:
+            cap *= 2
+        caps[(start, end)] = cap
     with _stats_mu:
         _stats["scans"] += 1
         _stats["rows"] += n
         _stats["d2h_bytes"] += int(host.nbytes)
         _stats["copies"] += copies
-    rows = host[1:1 + n]
-    if n == 0:
-        return [], []
+    return host, n
+
+
+def _decode(eng, rows: np.ndarray):
+    """Packed rows of one engine -> (versions ordered by (ts, key),
+    intents); a value past ``val_width`` resolves from that engine's
+    heap."""
+    kw, vw = eng.key_width, eng.val_width
     keys = rows[:, :kw]
     o = kw + vw
     vlen = np.ascontiguousarray(rows[:, o:o + 4]).view("<i4")[:, 0]

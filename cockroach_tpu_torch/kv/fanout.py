@@ -24,7 +24,10 @@ peers. The CockroachDB discipline this module reduces:
   — bit-identical to a direct ``changes_between`` scan after dedup;
 - **liveness**: sends carry a deadline and idle connections heartbeat a
   resolved checkpoint, so a dead socket is detected within
-  heartbeat + deadline and its sender thread reaped — never leaked.
+  heartbeat + deadline and its sender thread reaped — never leaked. The
+  poll loop's reaper judges a write in flight, not a sender between
+  writes: under load a healthy sender can wait past the deadline for the
+  hub lock or the interpreter, and its consumer is not at fault.
 
 Eviction never blocks the emit path: the poll loop only flags the
 subscriber, drops its buffered (not in-flight) bytes and, for wedged
@@ -48,6 +51,7 @@ mutex, the query path's order, and never the hub's state lock.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import itertools
 import json
 import threading
@@ -108,6 +112,9 @@ class Subscriber:
         self.sheds = 0
         self.created_s = time.time()
         self.last_send_s = time.time()
+        # wall time the sender's current socket write began, None between
+        # writes; the sender alone writes it, the reaper reads it
+        self.send_since: float | None = None
         self.wake = threading.Event()
         self.on_close = on_close
         self.thread: threading.Thread | None = None
@@ -187,6 +194,16 @@ class Subscriber:
             if self.on_close is not None:
                 self.on_close()
 
+    @contextlib.contextmanager
+    def _writing(self):
+        """Marks one socket write (and its fault site) in flight for the
+        reaper."""
+        self.send_since = time.time()
+        try:
+            yield
+        finally:
+            self.send_since = None
+
     def _send_catchup(self, lo: int, hi: int) -> int:
         """Re-feed (lo, hi] from the engine — the shed consumer's path
         back to live. Returns the scan's actual resolved timestamp."""
@@ -200,7 +217,7 @@ class Subscriber:
         total = sum(len(p) for p in payloads)
         # the rescan trades buffer residency for a transiently
         # re-materialized batch: charge it for the send's lifetime
-        with flowmem.staged("changefeed", total):
+        with flowmem.staged("changefeed", total), self._writing():
             faults.fire("changefeed.subscriber.send")
             _send_frames(self.conn, payloads)
         metric.CHANGEFEED_EVENTS_EMITTED.inc(len(payloads))
@@ -214,8 +231,9 @@ class Subscriber:
             return
         total = sum(e[3] for e in batch)
         try:
-            faults.fire("changefeed.subscriber.send")
-            _send_frames(self.conn, [e[2] for e in batch])
+            with self._writing():
+                faults.fire("changefeed.subscriber.send")
+                _send_frames(self.conn, [e[2] for e in batch])
             done = time.monotonic()
             metric.CHANGEFEED_SEND_LAG_SECONDS.observe_many(
                 [max(0.0, done - e[4]) for e in batch])
@@ -238,9 +256,10 @@ class Subscriber:
         hb = float(settings.get("changefeed.fanout.heartbeat_s"))
         if resolved <= fr and time.time() - last < hb:
             return
-        faults.fire("changefeed.frontier.checkpoint")
-        _send_msg(self.conn, json.dumps(
-            {"resolved": max(resolved, fr)}).encode("utf-8"))
+        with self._writing():
+            faults.fire("changefeed.frontier.checkpoint")
+            _send_msg(self.conn, json.dumps(
+                {"resolved": max(resolved, fr)}).encode("utf-8"))
         with self.hub._mu:
             racesan.note_write(self, "frontier")
             self.frontier = max(resolved, fr)
@@ -370,11 +389,15 @@ class FanoutHub:
             racesan.note_write(self, "_subs")
             self._subs[sub.id] = sub
             metric.CHANGEFEED_SUBSCRIBERS.set(len(self._subs))
-        if start_sender:
-            t = threading.Thread(target=sub._run, daemon=True,
-                                 name=f"fanout-sender-{sub.id}")
-            sub.thread = t
-            t.start()
+            if start_sender:
+                # started under the lock close() lists the subscribers
+                # under, so close() never joins a sender not yet started
+                # (the reference publishes it first: ROADMAP Queue 3
+                # item 38)
+                t = threading.Thread(target=sub._run, daemon=True,
+                                     name=f"fanout-sender-{sub.id}")
+                t.start()
+                sub.thread = t
         sub.wake.set()  # serve the catch-up scan promptly
         return sub
 
@@ -496,16 +519,21 @@ class FanoutHub:
                     self._enqueue_locked(sub, batch)
                 if batch or advanced:
                     wake.append(sub)
-            # liveness reaper: pending-or-idle makes no difference — a
-            # healthy sender heartbeats, so a stale last_send means a
-            # dead socket or a wedged consumer
+            # liveness reaper: a write in flight past the deadline means
+            # a dead socket or a wedged consumer. A sender between writes
+            # is not judged: with a thousand sender threads on one
+            # interpreter a healthy one can wait past the deadline for
+            # the hub lock or the GIL, and the reference's test of a
+            # stale last_send_s evicted consumers that read promptly
+            # (ROADMAP Queue 3 item 39)
             for sub in subs:
                 if sub.state == EVICTED or sub.conn is None:
                     # local consumers have no socket to go dead; their
                     # ladder ends at shed->catch-up, never the reaper
                     continue
                 racesan.note_read(sub, "frontier")
-                if tnow - sub.last_send_s > deadline:
+                since = sub.send_since
+                if since is not None and tnow - since > deadline:
                     self._evict_locked(
                         sub, f"no successful send in {deadline:.1f}s")
                     dead.append(sub)

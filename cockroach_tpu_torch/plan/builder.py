@@ -1,10 +1,11 @@
 """Plan -> operator tree — the colbuilder.NewColOperator analog; the port
-of ``cockroach_tpu.plan.builder`` for one device: TableScan, IndexScan,
-Filter, Project, Aggregate, ScalarAggregate, Sort, TopK, Limit,
-Distinct, Window, HashJoin, MergeJoin, Union, and Exchange as the
-identity. The multi-device nodes raise NotImplementedError. Then,
-as in the reference, the fusion pass (flow/fuse.py) collapses stateless
-per-tile chains.
+of ``cockroach_tpu.plan.builder``: TableScan (whole or one shard),
+IndexScan, Filter, Project, Aggregate (complete, partial or final),
+ScalarAggregate, Sort, TopK, Limit, Distinct, Window, HashJoin,
+MergeJoin, Union, the cross-host nodes HashBucket, RemoteStream and
+StreamUnion (flow/disthost.py), and Exchange as the identity (the
+in-process shuffle is planned by parallel/). Then, as in the reference,
+the fusion pass (flow/fuse.py) collapses stateless per-tile chains.
 """
 
 from __future__ import annotations
@@ -125,15 +126,21 @@ def _has_param(x) -> bool:
 
 def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     if isinstance(plan, S.TableScan):
-        if plan.shard is not None:
-            raise NotImplementedError(
-                "sharded scans wait for the port's multi-device slice "
-                "(ROADMAP Queue 1)")
         return ops.ScanOp(catalog.get(plan.table), plan.columns,
-                          tile=settings.get("sql.distsql.tile_size"))
+                          tile=settings.get("sql.distsql.tile_size"),
+                          shard=plan.shard)
     if isinstance(plan, S.IndexScan):
         return ops.IndexScanOp(catalog.get(plan.table), plan.index, plan.lo,
                                plan.hi, plan.columns)
+    if isinstance(plan, S.HashBucket):
+        return ops.HashBucketOp(_build(plan.input, catalog, params),
+                                plan.keys, plan.n_parts, plan.part)
+    if isinstance(plan, S.RemoteStream):
+        return ops.RemoteStreamOp(plan.addr, plan.flow_id, plan.stream_id,
+                                  plan.schema, device=catalog.device)
+    if isinstance(plan, S.StreamUnion):
+        return ops.ParallelUnorderedSyncOp(
+            tuple(_build(p, catalog, params) for p in plan.inputs))
     if isinstance(plan, S.Filter):
         return ops.FilterOp(_build(plan.input, catalog, params),
                             plan.predicate, params=params)
@@ -157,13 +164,11 @@ def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
             _clustered_input(plan.input, plan.group_cols, catalog)
             if plan.mode in ("complete", "partial") else (False, False))
         return ops.AggregateOp(child, plan.group_cols, plan.aggs, plan.mode,
-                               ordered=ordered, prefix_live=prefix_live)
+                               ordered=ordered, prefix_live=prefix_live,
+                               input_schema=plan.base_schema)
     if isinstance(plan, S.ScalarAggregate):
-        if plan.mode != "complete":
-            raise NotImplementedError(
-                f"{plan.mode}-mode aggregation is a distributed stage, "
-                "which waits for the port's multi-device slice (ROADMAP "
-                "Queue 1)")
+        # as in the reference: the planners make complete scalar
+        # aggregates only (parallel/ lowers the distributed ones itself)
         return ops.ScalarAggregateOp(_build(plan.input, catalog, params), plan.aggs)
     if isinstance(plan, S.Sort):
         return ops.SortOp(_build(plan.input, catalog, params), plan.keys)
@@ -190,6 +195,4 @@ def _build(plan: S.PlanNode, catalog: Catalog, params=None) -> Operator:
     if isinstance(plan, S.Exchange):
         # single-device build: the shuffle is the identity
         return _build(plan.input, catalog, params)
-    raise NotImplementedError(
-        f"plan node {type(plan).__name__} (the distribution nodes) waits "
-        "for the port's multi-device slice (ROADMAP Queue 1)")
+    raise TypeError(f"unknown plan node {plan}")

@@ -453,19 +453,12 @@ def _sqlstate_for(e: Exception) -> str:
 
 
 class PgServer:
-    """Accept loop: one thread + one Session per connection.
-
-    Readiness: when ``sql.warmup.menu.enabled`` is set, the server warms
-    its menu (sql/warmmenu.build_menu, with `menu` as the explicit
-    course) before it opens its socket, so its first connection finds
-    the menu's plans and graphs built; ``close`` stops an item still
-    running past the menu's budget. A CUDA graph has no persistent form,
-    so every server start pays for its menu."""
+    """Accept loop: one thread + one Session per connection. The warm
+    menu is not the server's: ``server/node.Node.start`` builds it
+    (sql/warmmenu.warm_node) before the node reports readiness."""
 
     def __init__(self, catalog=None, db=None, host: str = "127.0.0.1",
-                 port: int = 0, session_factory=None, device="cuda",
-                 menu=None):
-        self.menu_run = None
+                 port: int = 0, session_factory=None, device="cuda"):
         if session_factory is None:
             # bootstrap the shared catalog and store ONCE (a new store on
             # `device` when none is given); per-connection sessions reuse
@@ -475,10 +468,6 @@ class PgServer:
             boot.close()
             self._factory = lambda: Session(catalog=catalog, db=db,
                                             bootstrap=False, device=device)
-            from ..sql import warmmenu
-
-            self.menu_run = warmmenu.build_menu(catalog, db, menu,
-                                                block=True)
         else:
             self._factory = session_factory
         self._srv = socket.create_server((host, port))
@@ -523,8 +512,6 @@ class PgServer:
             threading.Thread(target=run, daemon=True).start()
 
     def close(self) -> None:
-        if self.menu_run is not None:
-            self.menu_run.stop_join()
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)

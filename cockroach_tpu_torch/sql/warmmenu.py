@@ -6,8 +6,9 @@ because its execution engine is interpreted. The port's first execution
 of a statement instead builds its operator tree, captures a CUDA graph
 per new signature (flow/dispatch.py) and, in a second run, re-captures
 what its learned capacities re-specialize. This module moves that cost
-off the serving path: ``server/pgwire.PgServer`` calls :func:`build_menu`
-before it accepts a connection, and a bounded background pool runs a
+off the serving path: ``server/node.Node.start`` calls :func:`warm_node`
+(which calls :func:`build_menu`) before the node reports readiness, as
+the reference's node does, and a bounded background pool runs a
 *menu* of statements into the same plan cache (sql/plancache.py) and
 process-global graph cache the serving path reads.
 
@@ -61,6 +62,7 @@ from ..coldata.types import Family
 from ..utils import faults, locks, log, metric, settings
 
 __all__ = ["build_menu", "menu_rows", "note_serving_hit", "reset",
+           "warm_node",
            "MenuRun"]
 
 # bounded background pool: the statements' device work runs one at a
@@ -319,4 +321,19 @@ def build_menu(catalog, db, statements=None, block: bool = True
                  items=len(rows), compiled=compiled,
                  kernels=dispatch.compiles() - k0,
                  seconds=round(time.monotonic() - t_start, 3))
+    return run
+
+
+def warm_node(node) -> MenuRun | None:
+    """Server-start entry (server/node.py): warm the node's SQL catalog
+    over its store before the node reports readiness, with the node's
+    ``menu`` (if any) as the explicit course. The handle is kept on the
+    node, so ``Node.stop`` stops a budget-bound straggler at its next
+    statement boundary."""
+    catalog = getattr(node, "_sql_catalog", None)
+    if catalog is None:
+        return None
+    run = build_menu(catalog, node.db, getattr(node, "menu", None),
+                     block=True)
+    node._warmmenu_run = run
     return run

@@ -282,3 +282,11 @@ def node_cache() -> BlockCache:
                 _NODE_CACHE = BlockCache()
             c = _NODE_CACHE
     return c
+
+
+def refresh_gauges() -> None:
+    """Re-publish the node cache's byte gauge (the node's metrics
+    scraper)."""
+    c = _NODE_CACHE
+    if c is not None:
+        metric.BLOCKCACHE_BYTES.set(c._used)

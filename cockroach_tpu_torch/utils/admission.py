@@ -172,19 +172,46 @@ class _Waiter:
         self.lane = lane
 
 
+# the shed ladder's IO input: a zero-argument callable giving the serving
+# engine's L0 overload (0 healthy, 1.0 at the shed-LOW threshold, >= 2.0
+# sheds NORMAL too). server/node.py points it at its engine governor's
+# l0_overload; None (the default) reads as 0.
+_IO_HEALTH = None
+_IO_HEALTH_LOCK = threading.Lock()
+
+
+def set_io_health_provider(fn) -> None:
+    """Install (or with None, clear) the L0-health input of the shed
+    ladder: one per process, the serving node's engine."""
+    global _IO_HEALTH
+    with _IO_HEALTH_LOCK:
+        _IO_HEALTH = fn
+
+
+def io_overload() -> float:
+    with _IO_HEALTH_LOCK:
+        fn = _IO_HEALTH
+    if fn is None:
+        return 0.0
+    try:
+        return max(0.0, float(fn()))
+    except Exception:  # noqa: BLE001 - a mid-close engine reads as healthy
+        return 0.0
+
+
 def shed_floor() -> int:
     """The minimum priority currently admitted (the graceful-degradation
     ladder). Healthy -> LOW (everything admitted). Memory pressure past
-    admission.shed.mem_low sheds the analytical lane (floor NORMAL);
-    past admission.shed.mem_high only HIGH (txn control) still lands.
-    The reference also sheds by the serving node's L0 health
-    (``set_io_health_provider``, set by server/node.py, not ported)."""
+    admission.shed.mem_low, or IO overload >= 1, sheds the analytical
+    lane (floor NORMAL); past admission.shed.mem_high, or IO overload
+    >= 2, only HIGH (txn control) still lands."""
     from ..flow import memory as flowmem
 
     p = flowmem.mem_pressure()
-    if p >= settings.get("admission.shed.mem_high"):
+    io = io_overload()
+    if p >= settings.get("admission.shed.mem_high") or io >= 2.0:
         return HIGH
-    if p >= settings.get("admission.shed.mem_low"):
+    if p >= settings.get("admission.shed.mem_low") or io >= 1.0:
         return NORMAL
     return LOW
 
@@ -255,6 +282,16 @@ class WorkQueue:
             metric.ADMISSION_SQL_QUEUE_DEPTH.set(self._nwaiting)
             for lane, n in self._lane_waiting.items():
                 metric.ADMISSION_LANE_QUEUE_DEPTH.set(lane, n)
+
+    def refresh_gauges(self) -> None:
+        """Re-publish the gauges (the node's metrics scraper calls this, so
+        a quiet node still exports live values)."""
+        with self._lock:
+            if self._instrument:
+                metric.ADMISSION_SQL_SLOTS.set(self._slots)
+                for st in self._tenants.values():
+                    self._publish_tenant(st)
+            self._publish()
 
     def _publish_tenant(self, st: _TenantState) -> None:
         # called under self._lock
@@ -557,6 +594,14 @@ def sql_queue() -> WorkQueue:
         return _SQL_QUEUE
 
 
+def refresh_gauges() -> None:
+    """The metrics scraper's hook: keep the admission gauges live even
+    when no statement ran since the last scrape."""
+    q = _SQL_QUEUE
+    if q is not None:
+        q.refresh_gauges()
+
+
 @contextlib.contextmanager
 def sql_slot(priority: int = NORMAL, tenant_id: int | None = None,
              deadline: float | None = None):
@@ -625,6 +670,13 @@ class IOGovernor:
         self.compactions_deferred = 0
         self._last_compaction_t = 0.0
         self._pacing_wait_start: float | None = None
+
+    def l0_overload(self) -> float:
+        """The shed ladder's input (``set_io_health_provider``): 0 while
+        the run count is at or under the compaction trigger, 1.0 one
+        healthy threshold past it, 2.0 two."""
+        over = len(self.engine.runs) - self.engine.l0_trigger
+        return max(0.0, over / max(1, self.healthy_runs))
 
     def write_delay_s(self) -> float:
         over = len(self.engine.runs) - self.healthy_runs

@@ -1,8 +1,9 @@
 """Fault-injection hooks at the storage engine's, the external
 operators', SQL admission's, the warm menu's, the changefeed's, the
 materialized views', node liveness's, the KV RPC's, gossip's, the range
-lifecycle's and the commit train's sites, with the reference's site
-names. Every hook is a no-op until ``arm`` is called.
+lifecycle's, the commit train's and the cross-host flows' sites, with
+the reference's site names. Every hook is a no-op until ``arm`` is
+called.
 
 The liveness sites exist per node: ``fire_scoped`` fires the generic name
 and its node-scoped variant ``<site>.n<id>``, so a test can blackhole one
@@ -54,6 +55,8 @@ SITES: dict[str, str] = {
     "ranger.lease.transfer": "lease transfer write lost in flight",
     "kv.batch.coalesce": "coalesced-batch flush failure: every rider "
                          "degrades to its own per-session solo batch",
+    "flow.host.setup": "SetupFlow RPC failure at a host",
+    "flow.host.stream": "FlowStream attach/stream failure at a host",
 }
 
 # sites that also fire as ``<site>.n<id>`` (fire_scoped)

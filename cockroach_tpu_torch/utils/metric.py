@@ -246,6 +246,9 @@ AMBIGUOUS_RESULTS = Counter("kv_ambiguous_results")
 GOSSIP_INFOS_EVICTED = Counter("gossip_infos_evicted")
 REPLICATION_RECONNECTS = Counter("replication_stream_reconnects")
 KV_BATCH_COALESCED = Counter("kv_batch_coalesced")
+# the across-hosts plane (flow/disthost.py)
+DIST_DEGRADED = Counter("distsql_degraded_queries")
+DIST_FLOWS_CANCELLED = Counter("distsql_flows_cancelled")
 
 
 class Registry:
@@ -267,6 +270,37 @@ class Registry:
 
     def gauge(self, name: str, help: str = "") -> Gauge:
         return self._get_or_add(name, lambda: Gauge(name))
+
+    def scrape(self) -> str:
+        """Prometheus text exposition (the /_status/vars body)."""
+        out: list[str] = []
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            if isinstance(m, Counter):
+                out.append(f"# TYPE {name} counter")
+                out.append(f"{name} {m.value:g}")
+            elif isinstance(m, Gauge):
+                out.append(f"# TYPE {name} gauge")
+                out.append(f"{name} {m.value:g}")
+            elif isinstance(m, LabeledCounter):
+                out.append(f"# TYPE {name} counter")
+                for k, v in m.items():
+                    out.append(f'{name}{{{m.label}="{k}"}} {v:g}')
+            elif isinstance(m, LabeledGauge):
+                out.append(f"# TYPE {name} gauge")
+                for k, v in m.items():
+                    out.append(f'{name}{{{m.label}="{k}"}} {v:g}')
+            elif isinstance(m, Histogram):
+                out.append(f"# TYPE {name} histogram")
+                cum = 0
+                for b, c in zip(m.buckets, m.counts):
+                    cum += c
+                    out.append(f'{name}_bucket{{le="{b:g}"}} {cum}')
+                cum += m.counts[-1]
+                out.append(f'{name}_bucket{{le="+Inf"}} {cum}')
+                out.append(f"{name}_sum {m.sum:g}")
+                out.append(f"{name}_count {m.n}")
+        return "\n".join(out) + "\n"
 
     def _get_or_add(self, name: str, make):
         with self._lock:

@@ -151,6 +151,15 @@ _DEFAULTS: dict[str, Any] = {
     # non-transactional put/delete/get, and its cap on ops per batch
     "kv.batch.coalesce.enabled": False,
     "kv.batch.coalesce.max_ops": 128,
+    # the node's background metrics scraper (server/node.py): seconds
+    # between ticks, and the retention horizon it prunes the timeseries
+    # store to (0 keeps everything)
+    "ts.scrape_interval_seconds": 10.0,
+    "ts.retention_seconds": 600.0,
+    # end-to-end deadline of a cross-host distributed query (setup and
+    # stream drain, flow/disthost.py); on expiry the gateway cancels the
+    # remote flows and degrades
+    "sql.distsql.flow_deadline_s": 30.0,
 }
 
 # enumerated string settings: the values each accepts
@@ -202,6 +211,9 @@ _BOUNDS: dict[str, tuple] = {
     "kv.range.split_qps_threshold": (0.001, 1e9),
     "kv.range.max_bytes": (256, None),
     "kv.batch.coalesce.max_ops": (2, None),
+    "ts.scrape_interval_seconds": (0.1, None),
+    "ts.retention_seconds": (0.0, None),
+    "sql.distsql.flow_deadline_s": (0.1, 3600.0),
 }
 
 _values: dict[str, Any] = {}
@@ -219,6 +231,33 @@ def get(name: str):
 
 def set(name: str, value) -> None:  # noqa: A001 - SQL SET semantics
     _values[name] = _checked(name, value)
+    _notify(name, _values[name])
+
+
+_CHANGE_LISTENERS: list = []
+# a bare lock: utils/locks reads its settings from this module
+_LISTENERS_MU = threading.Lock()
+
+
+def on_change(cb) -> None:
+    """Subscribe cb(name, value) to every ``set`` and ``reset`` (the
+    gossip bridge: server/node.py publishes each change into its
+    infostore)."""
+    with _LISTENERS_MU:
+        _CHANGE_LISTENERS.append(cb)
+
+
+def remove_on_change(cb) -> None:
+    with _LISTENERS_MU:
+        if cb in _CHANGE_LISTENERS:
+            _CHANGE_LISTENERS.remove(cb)
+
+
+def _notify(name: str, value) -> None:
+    with _LISTENERS_MU:
+        snapshot = list(_CHANGE_LISTENERS)
+    for cb in snapshot:
+        cb(name, value)
 
 
 @contextlib.contextmanager
@@ -256,12 +295,18 @@ def _checked(name: str, value):
 
 def reset(name: str | None = None) -> None:
     """Restore one setting's default, or every setting's."""
+    # a RESET is a change like any SET: the listeners see it, or peers
+    # keep the overridden value
     if name is None:
+        names = list(_values)
         _values.clear()
+        for n in names:
+            _notify(n, get(n))
     else:
         if name not in _DEFAULTS:
             raise KeyError(name)
         _values.pop(name, None)
+        _notify(name, get(name))
 
 
 class Setting:

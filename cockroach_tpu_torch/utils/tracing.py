@@ -201,10 +201,16 @@ class Tracer:
             return None
         return {"traceId": s.trace_id, "spanId": s.span_id}
 
-    def graft(self, payload: dict | None) -> Span | None:
+    def current(self) -> Span | None:
+        return self._current.get()
+
+    def graft(self, payload: dict | None,
+              into: Span | None = None) -> Span | None:
         """Hang a remote recording (a server's ``to_dict``) under the
-        current span; a no-op outside a span or for a bad payload."""
-        cur = self._current.get()
+        current span, or under ``into`` (a flow inbox's trailer arrives on
+        a puller thread, not the span owner's); a no-op outside a span or
+        for a bad payload."""
+        cur = into if into is not None else self._current.get()
         if not payload or cur is None:
             return None
         try:
@@ -248,8 +254,12 @@ def context() -> dict | None:
     return DEFAULT.context()
 
 
-def graft(payload: dict | None) -> Span | None:
-    return DEFAULT.graft(payload)
+def current() -> Span | None:
+    return DEFAULT.current()
+
+
+def graft(payload: dict | None, into: Span | None = None) -> Span | None:
+    return DEFAULT.graft(payload, into)
 
 
 @contextmanager

@@ -310,7 +310,10 @@ def test_subscriber_send_fault_evicts_typed_then_resumes():
         sock.close()
         assert err is not None and err["error"] == "slow_consumer"
         assert "send failed" in err["reason"]
-        assert err["frontier"] == ckpt
+        # the sender may push one more checkpoint (a heartbeat's or a
+        # poll's) between the first drain's return and the fault: the
+        # frame names the last checkpoint the client received
+        _assert_names_last_delivered(err, ckpt, _r)
         hi = db.clock.now()
         sock2, frames2 = tcf.subscribe_rangefeed(srv.addr,
                                                  since=err["frontier"])
@@ -324,6 +327,39 @@ def test_subscriber_send_fault_evicts_typed_then_resumes():
     finally:
         srv.close()
     assert flowmem.staging_monitor("changefeed").used == 0
+
+
+def _assert_names_last_delivered(err, *delivered) -> None:
+    """The eviction frame's frontier is the newest resolved checkpoint
+    the client received before it (a frontier it never received would
+    let a reconnect skip or repeat versions)."""
+    assert err["frontier"] == max(delivered), (
+        f"eviction names {err['frontier']}, last delivered "
+        f"{max(delivered)}")
+
+
+class _NoSock:
+    def settimeout(self, _s):
+        pass
+
+
+@pytest.mark.parametrize("frontier,ok", [(7, True), (5, False), (9, False)])
+def test_eviction_frontier_check_refuses_an_undelivered_frontier(frontier,
+                                                                 ok):
+    """The check above accepts only the newest checkpoint delivered
+    before the error frame: with checkpoints 5 then 7 received, a frame
+    naming 7 passes, and one naming 5 (older than what was delivered) or
+    9 (never delivered) fails."""
+    frames = iter([{"resolved": 5}, {"ts": 6, "key": "s9", "value": "v"},
+                   {"resolved": 7},
+                   {"error": "slow_consumer", "frontier": frontier}])
+    _ev, r, err, _ = _drain(_NoSock(), frames, 1 << 62)
+    assert err is not None and r == 7
+    if ok:
+        _assert_names_last_delivered(err, 5, r)
+    else:
+        with pytest.raises(AssertionError, match="last delivered 7"):
+            _assert_names_last_delivered(err, 5, r)
 
 
 def test_subscribe_fault_is_retried():
@@ -373,6 +409,46 @@ def test_subscriber_going_live_mid_poll_loses_nothing(monkeypatch):
         got = sorted(json.loads(p)["key"] for _ts, _k, p, _n, _t in sub.buf)
         assert got == ["s0", "s1", "s2", "s3"]
     finally:
+        hub.close()
+        a.close()
+        b.close()
+
+
+def test_close_racing_a_registration_joins_a_started_sender(monkeypatch):
+    """A hub closed while a subscriber's sender is being started: close
+    waits for the registration and joins a started thread. The reference
+    publishes the sender before starting it, so a close in between
+    raised "cannot join thread before it is started" (ROADMAP Queue 3
+    item 38)."""
+    db = _tdb()
+    hub = fanout.FanoutHub(db, poll_interval_s=3600, device="cpu")
+    a, b = socket.socketpair()
+    errors = []
+    closer = []
+
+    def close():
+        try:
+            hub.close()
+        except Exception as e:  # noqa: BLE001 - the outcome under test
+            errors.append(e)
+
+    class SlowStart(threading.Thread):
+        def start(self):
+            if self.name.startswith("fanout-sender") and not closer:
+                closer.append(threading.Thread(target=close))
+                closer[0].start()
+                closer[0].join(timeout=0.3)  # close runs meanwhile
+            super().start()
+
+    monkeypatch.setattr(fanout.threading, "Thread", SlowStart)
+    try:
+        sub = hub.add_subscriber(a)
+        closer[0].join(timeout=30)
+        assert not closer[0].is_alive()
+        assert errors == []
+        assert sub is not None and not sub.thread.is_alive()
+    finally:
+        monkeypatch.undo()
         hub.close()
         a.close()
         b.close()
@@ -546,6 +622,77 @@ def test_dead_socket_reaped_and_census_clean():
     assert_no_leaks(before)
 
 
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_reaper_judges_a_write_in_flight_not_a_sender_between_writes(pkg):
+    """The poll loop's reaper evicts a registration whose socket write
+    has been in flight past the send deadline, and spares one that has
+    not written for as long but is between writes: under load (the
+    1000-subscriber fan-out bench on a busy host) a healthy sender waits
+    that long for the hub lock or the GIL, and the reference, which
+    judges ``last_send_s`` alone, evicted consumers that read promptly
+    (ROADMAP Queue 3 item 39). So the reference evicts both here, and is
+    held to that; the port evicts only the stalled write."""
+    from cockroach_tpu.kv import fanout as jfanout
+
+    if pkg == "port":
+        mod, db, kw = fanout, _tdb(), {"device": "cpu"}
+    else:
+        mod, db, kw = jfanout, _jdb(), {}
+    db.txn(lambda t: t.put(b"r1", b"v1"))
+    settings.set("changefeed.fanout.send_deadline_s", 1.0)
+    hub = mod.FanoutHub(db, poll_interval_s=3600, **kw)
+    pairs = [socket.socketpair() for _ in range(2)]
+    try:
+        idle, stuck = (hub.add_subscriber(a, start_sender=False)
+                       for a, _b in pairs)
+        stale = time.time() - 10
+        with hub._mu:
+            for sub in (idle, stuck):
+                sub.state = mod.LIVE
+                sub.last_send_s = stale
+        stuck.send_since = stale  # what the port's sender marks
+        hub._poll_once()
+        assert stuck.state == mod.EVICTED
+        assert "no successful send" in stuck.evict_error.reason
+        if pkg == "port":
+            assert idle.state == mod.LIVE and idle.evict_error is None
+        else:
+            assert idle.state == mod.EVICTED
+    finally:
+        hub.close()
+        for a, b in pairs:
+            a.close()
+            b.close()
+        settings.reset("changefeed.fanout.send_deadline_s")
+
+
+def test_stalled_write_is_reaped():
+    """A sender whose write stalls past the deadline (a delay fault at
+    changefeed.subscriber.send, inside the write's in-flight mark) is
+    evicted by the reaper while it is still stalled, with the reaper's
+    reason."""
+    settings.set("changefeed.fanout.send_deadline_s", 0.3)
+    db = _tdb()
+    db.txn(lambda t: t.put(b"w1", b"v1"))
+    hub = fanout.FanoutHub(db, poll_interval_s=0.05, device="cpu")
+    a, b = socket.socketpair()
+    faults.arm(5, {"changefeed.subscriber.send":
+                   FaultSpec(kind="delay", delay_s=4.0, max_fires=1)})
+    try:
+        sub = hub.add_subscriber(a)
+        t0 = time.time()
+        while sub.state != fanout.EVICTED and time.time() - t0 < 10:
+            time.sleep(0.02)
+        assert sub.state == fanout.EVICTED
+        assert time.time() - t0 < 3.5, "reaped only after the write"
+        assert "no successful send" in sub.evict_error.reason
+    finally:
+        faults.disarm()
+        hub.close()
+        b.close()
+        settings.reset("changefeed.fanout.send_deadline_s")
+
+
 def test_subscriber_limit_typed_refusal():
     db = _tdb()
     db.txn(lambda t: t.put(b"l1", b"v1"))
@@ -660,3 +807,43 @@ def test_long_values_resolve_from_the_heap():
     assert got["jax"][0]["value"] != v.decode()
     assert [(e["key"], e["ts"]) for e in got["torch"]] == [
         (e["key"], e["ts"]) for e in got["jax"]]
+
+
+def test_hub_over_a_cluster_resolves_long_values_like_one_engine():
+    """A fan-out hub over a three-store cluster (``kv/dist.DistSender``)
+    at ``val_width=16`` holding 40-byte values delivers the same events,
+    byte for byte, as the port's hub over one engine with the same
+    writes: the scan reads each store's values from that store's heap.
+    The reference is not the oracle here: its feed emits a long value's
+    heap slot (ROADMAP Queue 3 items 23 and 33), so the port's one-engine
+    hub is."""
+    from cockroach_tpu_torch.kv.dist import make_cluster, spread
+
+    ds = make_cluster(3, device="cpu", key_width=16, val_width=16,
+                      memtable_size=64)
+    spread(ds, [b"k3", b"k6"])
+    dbs = {"one": tDB(tEngine(key_width=16, val_width=16, memtable_size=64,
+                              device="cpu"), tClock()),
+           "cluster": tDB(ds, tClock())}
+    got = {}
+    for name, db in dbs.items():
+        for i in range(9):
+            db.txn(lambda t, i=i: t.put(b"k%d" % i, (b"%d" % i) * 40))
+        db.txn(lambda t: (t.put(b"k1", b"short"), t.delete(b"k4"),
+                          t.put(b"k7", b"y" * 41)))
+        srv = tcf.RangefeedServer(db, poll_interval_s=0.02, device="cpu")
+        try:
+            sock, frames = tcf.subscribe_rangefeed(srv.addr)
+            events, _r, err, _ = _drain(sock, frames, db.clock.now())
+            sock.close()
+        finally:
+            srv.close()
+        assert err is None
+        got[name] = events
+        raw, _ = tcf.changes_between(db, 0, db.clock.now(), raw=True)
+        got[name + "_raw"] = raw
+    assert len(ds.meta.snapshot()) == 3
+    assert {d.store_id for d in ds.meta.snapshot()} == {1, 2, 3}
+    assert got["cluster"] == got["one"]
+    assert got["cluster_raw"] == got["one_raw"]
+    assert {k: v for (_t, k), v in got["one"].items()}["k5"] == "5" * 40

@@ -635,3 +635,98 @@ def test_ycsb_e_over_three_stores_equals_one_engine():
     inserts = 96 - one["scans_checked"]
     assert inserts > 0
     assert sum(r[2] for r in three["ranges"]) == 3000 + 1 + inserts
+
+
+def _guard_scenario(ns, Node, settings, log):
+    """Node 1 started over a two-range cluster (``Node.start`` wires the
+    DistSender's routing guard) serves puts and a cross-range scan; once
+    its record has lapsed and node 2 has bumped its epoch, every piece
+    fails; a new node 1 at the bumped epoch fails too, on its stale
+    leases, its own re-acquire included (the guard refuses the lease
+    write; ROADMAP Queue 3 item 36). Returns the lease and liveness
+    reads the guard made while node 1 was live, after each range's first
+    piece."""
+    meta, stores, ds = mk(ns)
+    db = db_of(ns, ds)
+    left, right = meta.split_at(b"u0010")
+    ds.move_range(right.range_id, to_store=2)
+    kw = dict(db=db, heartbeat_interval_s=3600.0, ttl_ms=10_000,
+              metrics_interval_s=3600.0, adopt_interval_s=3600.0, **ns.dev)
+    reads = []
+    get = db.get
+
+    def counted(key, *a, **k):
+        if key[:4] in (b"\x01lse", b"\x01liv"):
+            reads.append(key)
+        return get(key, *a, **k)
+
+    db.get = counted
+    settings.set("kv.allocator.enabled", False)
+    try:
+        n1 = Node(1, **kw).start(gossip_port=None)
+        try:
+            for rid in (left.range_id, right.range_id):
+                log.call(n1.leases.acquire, rid)
+            log.call(db.put, b"u0001", b"first")
+            log.call(db.put, b"u0011", b"first")
+            reads.clear()
+            for i in range(20):
+                log.call(db.put, b"u%04d" % i, b"v%d" % i)
+            log.call(db.scan, b"u0005", b"u0015")
+            warm_reads = len(reads)
+            db.clock.advance(20_000)  # node 1's record lapses
+            nl2 = ns.live.NodeLiveness(db, 2, ttl_ms=10_000)
+            nl2.heartbeat()
+            log.call(nl2.increment_epoch, 1)
+            for fn, a in ((db.put, (b"u0002", b"stale")),
+                          (db.put, (b"u0012", b"stale")),
+                          (db.scan, (b"u0005", b"u0015"))):
+                log.call(fn, *a)
+        finally:
+            n1.stop()
+        n1 = Node(1, **kw).start(gossip_port=None)
+        try:
+            log.call(db.put, b"u0003", b"zombie")
+            for rid in (left.range_id, right.range_id):
+                log.call(n1.leases.acquire, rid)
+            log.call(db.put, b"u0003", b"again")
+            log.call(db.scan, b"u0000", b"u0020")
+        finally:
+            n1.stop()
+    finally:
+        settings.reset("kv.allocator.enabled")
+        db.get = get
+    return stores, warm_reads
+
+
+def test_node_routing_guard_fences_like_the_reference():
+    """Both packages' Node over the same cluster and writes: the same
+    results and typed refusals (EpochFencedError on every piece once node
+    1 is fenced, and for its new incarnation's stale leases), and the same
+    versions in every store but for their timestamps (each read of the
+    guard takes a clock reading, so the commit timestamps differ by the
+    reads). The reference's guard reads the lease and liveness records on
+    every piece; the port's answers a range's later pieces from the
+    node's last heartbeat while that record is live (ROADMAP Queue 3 item
+    37), so it reads none of them."""
+    from cockroach_tpu.server.node import Node as jNode
+    from cockroach_tpu.utils import settings as jsettings
+    from cockroach_tpu_torch.server.node import Node as tNode
+    from cockroach_tpu_torch.utils import settings as tsettings
+
+    jlog, tlog = Log(), Log()
+    jstores, jreads = _guard_scenario(J, jNode, jsettings, jlog)
+    tstores, treads = _guard_scenario(T, tNode, tsettings, tlog)
+
+    def untimed(log):  # a put answers its commit timestamp
+        return [("ok", "ts") if e[0] == "ok" and isinstance(e[1], int)
+                else e for e in log]
+
+    assert untimed(tlog) == untimed(jlog)
+    fenced = [e for e in tlog if e[0] == "err"]
+    assert [e[1] for e in fenced] == ["EpochFencedError"] * 8, tlog
+    for js, ts in zip(jstores, tstores, strict=True):
+        want, got = store_rows(js.engine), store_rows(ts.engine)
+        assert ({f: v for f, v in got.items() if f != "ts"}
+                == {f: v for f, v in want.items() if f != "ts"})
+    assert jreads > 0 and treads == 0, (jreads, treads)

@@ -22,6 +22,7 @@ the JAX reference on the CPU.
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu import coldata as jcd
 from cockroach_tpu.bench import queries as jQ
@@ -55,6 +56,17 @@ from cockroach_tpu_torch.utils import settings as tsettings
 from test_torch_joins import _catalogs, _rows
 from test_torch_sqlops import pair, same, same_host
 from test_torch_tpch import _tree
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.01, 7
 

@@ -34,6 +34,17 @@ from cockroach_tpu_torch.utils import settings as tsettings
 from test_torch_sqlops import pair, port_out, same, same_host
 from test_torch_tpch import _tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 TILE = 1024
 
 

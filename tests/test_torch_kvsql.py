@@ -50,6 +50,17 @@ from cockroach_tpu_torch.storage import rowcodec as trc
 from cockroach_tpu_torch.storage.lsm import Engine as tEngine
 from cockroach_tpu_torch.utils import settings as tsettings
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 FLOAT_RTOL = 1e-9  # tests/test_kvsql.py's bound for FLOAT aggregates
 SF, SEED = 0.002, 7
 LADDER = ("q1", "q3", "q9", "q18")

@@ -12,6 +12,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu import catalog as jcatalog
 from cockroach_tpu.bench import queries as jQ
@@ -31,6 +32,17 @@ from cockroach_tpu_torch.plan import spec as TS
 from cockroach_tpu_torch.sql.rel import Rel as TRel
 from cockroach_tpu_torch.utils import settings as tsettings
 from test_torch_tpch_ladder import plan_repr
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.005, 7
 PKG = {"ref": (jcatalog, jty, jex, JRel, jsettings),

@@ -27,6 +27,17 @@ from cockroach_tpu_torch.ops import keys as tkeys
 from cockroach_tpu_torch.ops import segscan as tseg
 from cockroach_tpu_torch.ops import sort as tsort
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 RTOL = 1e-12
 
 

@@ -12,6 +12,7 @@ which sums DECIMAL as floats, within test_tpcds's rtol=1e-9."""
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu.bench import tpcds as jtpcds
 from cockroach_tpu.flow.runtime import run_operator as jrun
@@ -26,6 +27,17 @@ from cockroach_tpu_torch.utils import settings as tsettings
 from test_torch_external import REF_ONLY, SF10_SCALING, both_settings
 from test_torch_external import structure
 from test_torch_tpch_ladder import plan_repr, tree_matches
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF = 0.01
 QUERIES = tuple(jtpcds.QUERIES)

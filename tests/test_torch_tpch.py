@@ -5,11 +5,12 @@ same join strategies and, after one run, the same learned join emission,
 results equal to the reference's run_operator (exactly, the
 FLOAT64 averages within rtol=1e-12), the numpy oracle equal to both; the
 duplicate-key join, right outer join, TopK, ScalarAggregate, Distinct
-and Union nodes equal the reference's, and the plans still outside the
-port (partial-mode aggregation) raise NotImplementedError."""
+and Union nodes equal the reference's, and so do the partial and final
+aggregation stages (the cross-host plane's, flow/disthost.py)."""
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu.bench import queries as jQ
 from cockroach_tpu.bench import tpch as jtpch
@@ -29,6 +30,17 @@ from cockroach_tpu_torch.plan import builder as tbuilder
 from cockroach_tpu_torch.plan import spec as S
 from cockroach_tpu_torch.sql.rel import Rel
 from cockroach_tpu_torch.utils import settings
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.005, 7
 QUERIES = ("q1", "q3")
@@ -209,7 +221,9 @@ def test_duplicate_key_join_raises(cats):
 
 def test_topk_and_other_nodes_raise(cats):
     """TopK, ScalarAggregate, Distinct and Union nodes build and equal the
-    reference's; partial-mode aggregation still raises."""
+    reference's; so do a partial-mode aggregation's state columns and a
+    ScalarAggregate planned as a partial stage (both builders make the
+    complete operator for it)."""
     from cockroach_tpu.ops import aggregation as jagg
     from cockroach_tpu.ops import sort as jsort
     from cockroach_tpu.plan import spec as JS
@@ -238,10 +252,27 @@ def test_topk_and_other_nodes_raise(cats):
         for name in want:
             np.testing.assert_array_equal(np.asarray(got[name]),
                                           np.asarray(want[name]))
-    with pytest.raises(NotImplementedError, match="distributed stage"):
-        tbuilder.build(S.Aggregate(tbase, (0,), (), mode="partial"), tcat)
-    with pytest.raises(NotImplementedError, match="distributed stage"):
-        tbuilder.build(S.ScalarAggregate(tbase, (), mode="partial"), tcat)
+    staged = [
+        (JS.Aggregate(jbase, (2,), (jagg.AggSpec("sum", 1, "s"),
+                                    jagg.AggSpec("avg", 1, "a")),
+                      mode="partial"),
+         S.Aggregate(tbase, (2,), (tagg.AggSpec("sum", 1, "s"),
+                                   tagg.AggSpec("avg", 1, "a")),
+                     mode="partial")),
+        (JS.ScalarAggregate(jbase, (jagg.AggSpec("max", 0, "m"),),
+                            mode="partial"),
+         S.ScalarAggregate(tbase, (tagg.AggSpec("max", 0, "m"),),
+                           mode="partial")),
+    ]
+    for jnode, tnode in staged:
+        want = jrun(jbuilder.build(jnode, jcat))
+        got = trun(tbuilder.build(tnode, tcat))
+        assert list(got) == list(want) and len(got[list(got)[0]]) > 0
+        order_w = np.lexsort([np.asarray(want[n]) for n in want][::-1])
+        order_g = np.lexsort([np.asarray(got[n]) for n in got][::-1])
+        for name in want:
+            np.testing.assert_array_equal(np.asarray(got[name])[order_g],
+                                          np.asarray(want[name])[order_w])
 
 
 def test_run_executes_optimized_plan(cats, monkeypatch):

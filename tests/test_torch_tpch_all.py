@@ -8,6 +8,7 @@ both packages, so scans, probes, the top-k fold, the scalar merge and the
 aggregation merge-down run over several tiles."""
 
 import pytest
+import torch
 
 from cockroach_tpu.bench import queries as jQ
 from cockroach_tpu.bench import tpch as jtpch
@@ -22,6 +23,17 @@ from cockroach_tpu_torch.plan import builder as tbuilder
 from cockroach_tpu_torch.utils import settings as tsettings
 from test_torch_tpch import _tree
 from test_torch_tpch_ladder import plan_repr, tree_matches
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.005, 7
 LADDER = ("q1", "q3", "q9", "q18")

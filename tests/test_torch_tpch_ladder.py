@@ -11,6 +11,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu.bench import queries as jQ
 from cockroach_tpu.bench import tpch as jtpch
@@ -23,6 +24,17 @@ from cockroach_tpu_torch.flow.runtime import host_syncs
 from cockroach_tpu_torch.flow.runtime import run_operator as trun
 from cockroach_tpu_torch.plan import builder as tbuilder
 from test_torch_tpch import _tree, fusion_matches
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.005, 7
 # case -> (query, keyword arguments)

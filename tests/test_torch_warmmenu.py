@@ -244,25 +244,29 @@ def test_item_past_the_byte_budget_is_skipped(monkeypatch):
 
 
 def test_server_warms_before_its_first_connection():
-    """PgServer builds the menu (explicit course first) before it opens
-    its socket, and close() leaves no warm-menu thread."""
-    from cockroach_tpu_torch.server.pgwire import PgServer
+    """Node.start builds the menu (explicit course first, through
+    warmmenu.warm_node) before it reports readiness, and stop() leaves no
+    warm-menu thread."""
+    from cockroach_tpu_torch.server.node import Node
 
     warmmenu.reset()
     cat = _tcat(seed=14)
     text = "select count(*) as n from menu_t where m_key >= 10"
     settings.set("sql.warmup.menu.enabled", True)
     try:
-        srv = PgServer(catalog=cat, device="cpu", menu=[text])
+        node = Node(node_id=14, ttl_ms=30000, metrics_interval_s=None,
+                    device="cpu", catalog=cat, menu=[text])
+        node.start(gossip_port=None, pg_port=0)
         try:
             rows = warmmenu.menu_rows()
             # rows land in the order the two workers finish their items
             assert sorted(r["source"] for r in rows) == [
                 "explicit"] + ["ladder"] * 4
             assert all(r["status"] == "compiled" for r in rows)
-            assert srv.menu_run is not None
+            assert node._warmmenu_run is not None
+            assert node.pg is not None
         finally:
-            srv.close()
+            node.stop()
         assert _menu_threads() == []
     finally:
         settings.reset("sql.warmup.menu.enabled")

@@ -14,6 +14,7 @@ cancels to near zero differs in its last bits."""
 
 import numpy as np
 import pytest
+import torch
 
 from cockroach_tpu import catalog as jcatalog
 from cockroach_tpu.bench import tpch as jtpch
@@ -38,6 +39,17 @@ from cockroach_tpu_torch.ops import window as twin
 from cockroach_tpu_torch.plan import builder as tbuilder
 from cockroach_tpu_torch.plan import spec as TS
 from cockroach_tpu_torch.sql.rel import Rel as TRel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: beside the other test workers, a full thread
+    pool per process oversubscribes the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 SF, SEED = 0.005, 7
 FLOAT_RTOL, FLOAT_ATOL = 1e-12, 1e-9

@@ -72,9 +72,12 @@ hand-built median; the 22 plans stay cached within the plan cache's
 byte budget (``plancache.MAX_DEVICE_FRACTION`` of the card); q6
 rebound with three literal sets captures no graph and equals the
 cache-off results; 4 connections at once run q1, q3, q18 and q6 (three
-literal sets) once, each equal to one connection; ``run_mixed_load`` with 8 sessions for 3 s at SF1 reads
-back every acknowledged insert; the ``{"sql": ...}`` line
-(``sql_launches`` in the kernel table).
+literal sets) once, each equal to one connection, then once more with
+``sql.distsql.sharedscan.enabled`` on (flow/sharedscan.py), equal again,
+printing the ``{"sharedscan": ...}`` line (scans attached to a live
+stream, tiles taken from one, both passes' seconds); ``run_mixed_load``
+with 8 sessions for 3 s at SF1 reads back every acknowledged insert; the
+``{"sql": ...}`` line (``sql_launches`` in the kernel table).
 
 The warm menu (``sql/warmmenu.py``), statement diagnostics
 (``sql/diagnostics.py``) and the rest of crdb_internal, after the SQL
@@ -2268,6 +2271,7 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
     from cockroach_tpu_torch.sql import parser as P
     from cockroach_tpu_torch.sql import plancache, sqlstats
     from cockroach_tpu_torch.sql.binder import Binder
+    from cockroach_tpu_torch.utils import metric
 
     t_phase = time.perf_counter()
     queries = sorted(TPCH_SQL, key=lambda q: int(q[1:]))
@@ -2391,31 +2395,54 @@ def run_sql_phase(card: str, cat, dev="cuda", sessions: int = 8,
             for t in texts:
                 conn.query(t)
         one_s = time.perf_counter() - t0
-        outs, errs = [], []
 
-        def client():
-            c = PgClient(srv.addr)
-            try:
-                for _ in range(reps):
-                    outs.append([c.query(t) for t in texts])
-            except Exception as e:  # noqa: BLE001 - re-raised below
-                errs.append(e)
-            finally:
-                c.close()
+        def four_conns(what: str) -> float:
+            outs, errs = [], []
 
-        threads = [threading.Thread(target=client) for _ in range(4)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        four_s = time.perf_counter() - t0
-        if errs:
-            raise errs[0]
-        if len(outs) != 4 * reps or any(o != single for o in outs):
-            raise AssertionError("4 concurrent connections != one")
-        log(f"SQL 4 connections x {reps} x {len(texts)} statements == one "
-            "connection")
+            def client():
+                c = PgClient(srv.addr)
+                try:
+                    for _ in range(reps):
+                        outs.append([c.query(t) for t in texts])
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    errs.append(e)
+                finally:
+                    c.close()
+
+            threads = [threading.Thread(target=client) for _ in range(4)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            secs = time.perf_counter() - t0
+            if errs:
+                raise errs[0]
+            if len(outs) != 4 * reps or any(o != single for o in outs):
+                raise AssertionError(
+                    f"4 concurrent connections{what} != one")
+            log(f"SQL 4 connections{what} x {reps} x {len(texts)} "
+                "statements == one connection")
+            return secs
+
+        four_s = four_conns("")
+        # the same four again over shared tile streams (flow/sharedscan.py)
+        attached0 = metric.SQL_SHARED_SCAN_ATTACHED.value
+        saved0 = metric.SQL_SHARED_SCAN_DISPATCHES_SAVED.value
+        conn.query("SET CLUSTER SETTING sql.distsql.sharedscan.enabled = "
+                   "true")
+        try:
+            shared_s = four_conns(" with sharedscan")
+        finally:
+            conn.query("SET CLUSTER SETTING sql.distsql.sharedscan.enabled "
+                       "= false")
+        sharedscan = {
+            "attached": int(metric.SQL_SHARED_SCAN_ATTACHED.value
+                            - attached0),
+            "dispatches_saved": int(
+                metric.SQL_SHARED_SCAN_DISPATCHES_SAVED.value - saved0),
+            "four_conns_s": shared_s, "off_s": four_s, "card": card}
+        emit({"sharedscan": sharedscan})
     finally:
         conn.close()
         srv.close()

@@ -20,8 +20,9 @@ lane between processes:
 Frames: a 4-byte little-endian length, then the payload; length 0 ends a
 stream (the changefeed, gossip and Batch RPC planes share these three
 frame functions). Every socket read is bounded by the socket's own
-timeout, which every caller sets: dials pass ``flow.dcn.io_timeout_s``
-to ``create_connection``, servers set it before the handshake read.
+timeout: dials pass ``flow.dcn.io_timeout_s`` to ``create_connection``,
+servers set it before the handshake read, and a socket that reaches a
+read without one gets that deadline there (``_recv_exact``).
 
 The batch format. The reference frames each batch as an Arrow IPC
 stream; the card machine has no ``pyarrow``, so the port writes its own
@@ -64,9 +65,13 @@ def _send_msg(sock: socket.socket, payload: bytes) -> None:
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    """Exactly n bytes; the deadline is the socket's own timeout, which
-    every caller sets (dials pass it to create_connection, servers set it
-    before the handshake read)."""
+    """Exactly n bytes, within the socket's own timeout. Dials pass one to
+    create_connection and most servers set one before their first read;
+    a socket that has none (an accepted connection inherits no timeout)
+    gets ``flow.dcn.io_timeout_s`` here, so a peer that stops mid-frame
+    raises ``socket.timeout`` instead of parking the thread for good."""
+    if sock.gettimeout() is None:
+        sock.settimeout(settings.get("flow.dcn.io_timeout_s"))
     buf = bytearray()
     while len(buf) < n:
         chunk = sock.recv(n - len(buf))
@@ -435,6 +440,7 @@ class FlowServer:
                     # end-of-stream marker; the inbox grafts it
                     _send_msg(conn,
                               json.dumps(osp.to_dict()).encode("utf-8"))
+            # crlint: allow-broad-except(accept loop survives any one connection/operator failure; logged below)
             except Exception as e:  # noqa: BLE001 - one connection's failure never ends the accept loop; logged
                 from ..utils import log
 

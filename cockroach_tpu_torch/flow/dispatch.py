@@ -240,7 +240,10 @@ def _register(t: torch.Tensor, kind: str) -> None:
 
 
 def _static_kind(t: torch.Tensor):
-    got = _static.get(_storage_ptr(t))
+    # under _lock: _register prunes freed entries from another thread
+    # (a ParallelUnorderedSyncOp producer's capture)
+    with _lock:
+        got = _static.get(_storage_ptr(t))
     if got is None or got[0]() is None:
         return None
     return got[1]

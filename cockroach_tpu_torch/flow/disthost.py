@@ -163,6 +163,7 @@ class HostFlowServer:
                     _send_msg(conn, json.dumps({
                         "error": str(e)}).encode("utf-8"))
                     return
+                # crlint: allow-broad-except(rejection reason is reported to the gateway over the wire)
                 except Exception as e:  # noqa: BLE001
                     # the gateway must learn WHY its fragment was rejected
                     # (unknown table, undecodable spec), not just see a
@@ -178,6 +179,7 @@ class HostFlowServer:
                 self._cancel_flow(conn, req)
             else:
                 _send_msg(conn, b'{"error": "unknown op"}')
+        # crlint: allow-broad-except(connection handler: error logged, socket severed below)
         except Exception as e:  # noqa: BLE001
             log.warning(log.OPS, "host flow connection failed",
                         error=f"{type(e).__name__}: {e}")

@@ -249,6 +249,7 @@ def stage_host(parts: HostPartitions, mask: np.ndarray, cols, pids,
     # 16-bit ids: numpy's stable sort is a radix sort at that width
     p = np.asarray(pids)[live].astype(np.int16)
     order = live[np.argsort(p, kind="stable")]
+    # crlint: allow-mem-accounting(partition bounds: nparts + 1 ints; the staged rows are charged to the spill-staging account by HostPartitions)
     bounds = np.concatenate(
         [[0], np.cumsum(np.bincount(p, minlength=parts.nparts))])
     _append_parts(parts, [(d[order], v[order]) for d, v in cols], bounds)
@@ -285,6 +286,7 @@ def stage_batch(op: Operator, batch: Batch, pids: torch.Tensor,
     moved += [e[order] for e in extra]
     host = host_arrays(op, [torch.bincount(key, minlength=n + 1)] + moved
                        + list(raw))
+    # crlint: allow-mem-accounting(partition bounds: nparts + 1 ints; the staged rows are charged to the spill-staging account by HostPartitions)
     bounds = np.concatenate([[0], np.cumsum(host[0][:n])])
     k = len(batch.cols)
     _append_parts(parts, [(host[1 + 2 * i], host[2 + 2 * i])
@@ -734,6 +736,7 @@ class GraceHashJoinOp(OneInputOperator):
 _TOP = -(1 << 63)  # bit 63 alone, as an int64
 
 
+# crlint: allow-mem-accounting(tile-width device temp for order-preserving key packing; the owning batch is charged by its operator account)
 def _primary_u64(batch: Batch, schema: Schema, key: sort_ops.SortKey,
                  rank_table=None) -> torch.Tensor:
     """Order-preserving 64-bit word of the primary sort key, as an int64

@@ -36,6 +36,8 @@ no external variant, as in the reference.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -78,6 +80,7 @@ def _canonical_cap(n: int) -> int:
 def _spool_cap(op: Operator, tiles: list[Batch]) -> int:
     """Canonical capacity fitting the spool's LIVE rows (concat compacts):
     one counted host sync for the whole spool."""
+    # crlint: allow-mem-accounting(one int64 per spooled tile, bounded by the spool's tile count)
     live = torch.stack([t.mask.sum(dtype=torch.int64) for t in tiles]).sum()
     return _canonical_cap(max(1, op.sync_int(live)))
 
@@ -132,12 +135,23 @@ def _slice_tile(tile: int, b: Batch, off: torch.Tensor) -> Batch:
     serves every tile of the table."""
     if tile == b.capacity:
         return b
+    # crlint: allow-mem-accounting(runs inside the dispatch.jit program that slices a resident tile: a tile-length index lane in its graph pool)
     idx = off + torch.arange(tile, device=off.device)
     return Batch(
         cols=tuple(Column(data=c.data.index_select(0, idx),
                           valid=c.valid.index_select(0, idx))
                    for c in b.cols),
         mask=b.mask.index_select(0, idx))
+
+
+def _tile_view(tile: int, b: Batch, off: int) -> Batch:
+    """Rows [off, off + tile) of a resident batch as views (the unfused
+    path: no launch)."""
+    end = off + tile
+    return Batch(
+        cols=tuple(Column(data=c.data[off:end], valid=c.valid[off:end])
+                   for c in b.cols),
+        mask=b.mask[off:end])
 
 
 class _FusedPull:
@@ -359,6 +373,9 @@ class ScanOp(SourceOperator):
         self._offset = 0
         self.streaming = False
         self._stream = None
+        self._shared = None
+        self._snap = None
+        self._persistent = False
 
     def init(self):
         self.streaming = (
@@ -370,10 +387,26 @@ class ScanOp(SourceOperator):
             self._init_streaming()
         else:
             self._init_resident()
+            # concurrent scans of the same resident table share one tile
+            # stream (flow/sharedscan.py): attach returns None for solo
+            if self._res_tile < self._batch.capacity:
+                from . import sharedscan
+
+                if self._shared is not None:  # re-init (capacity retry)
+                    sharedscan.detach(self, self._shared)
+                self._shared = sharedscan.attach(self)
         self._offset = 0
         super().init()
         self.stats.host_syncs += (getattr(self.table, "host_syncs", 0)
                                   - table_syncs)
+
+    def close(self):
+        if self._shared is not None:
+            from . import sharedscan
+
+            sharedscan.detach(self, self._shared)
+            self._shared = None
+        super().close()
 
     def _shard_bounds(self) -> tuple[int, int | None] | None:
         """Rank range [lo, hi) of this shard; the last shard is unbounded
@@ -389,10 +422,14 @@ class ScanOp(SourceOperator):
 
     def _init_resident(self):
         names = self.output_schema.names
-        if hasattr(self.table, "columns"):
-            b = self.table.device_batch(names)
-        else:
+        self._persistent = not hasattr(self.table, "columns")
+        if self._persistent:
             b = self.table.device_batch(names, persistent=True)
+            # the snapshot the table's buffers now hold (sharedscan's
+            # attach compares it; identity proves nothing here)
+            self._snap = self.table.decoded_snap
+        else:
+            b = self.table.device_batch(names)
         # the batch stays at its address: graphs read it by reference
         dispatch.mark_static(b)
         bounds = self._shard_bounds()
@@ -419,7 +456,9 @@ class ScanOp(SourceOperator):
             # argument), made once
             self._offs = torch.arange(0, cap, self._res_tile, device=dev)
             self._offs_for = (cap, self._res_tile, dev)
+        self._slice = functools.partial(_tile_view, self._res_tile)
 
+    # crlint: allow-host-sync(catalog columns are host-resident numpy)
     def _init_streaming(self):
         t = self.table
         nrows = t.num_rows
@@ -492,14 +531,18 @@ class ScanOp(SourceOperator):
         off = self._offset
         if off >= b.capacity:
             return None
-        self._offset += self._res_tile
         if self._res_tile == b.capacity:
+            self._offset += self._res_tile
             return b
-        end = off + self._res_tile
-        return Batch(
-            cols=tuple(Column(data=c.data[off:end], valid=c.valid[off:end])
-                       for c in b.cols),
-            mask=b.mask[off:end])
+        if self._shared is not None:
+            kind, t = self._shared.next_tile(self, off // self._res_tile)
+            if kind == "tile":
+                self._offset += self._res_tile
+                return t
+            # window trimmed past us, or the stream went stale: slice
+            # this tile solo (catch-up)
+        self._offset += self._res_tile
+        return self._slice(b, off)
 
 
 class IndexScanOp(SourceOperator):
@@ -991,6 +1034,7 @@ class AggregateOp(OneInputOperator):
             self._collect_sagg(b)
             yield self._partial_fn(b)
 
+    # crlint: allow-host-sync(string_agg host path: hashable python keys, one counted host read of the tile)
     def _host_rows(self, b: Batch, cols) -> tuple[np.ndarray, list]:
         """(live row indices, hashable per-row keys over `cols`, None for
         a NULL): one counted host read of the tile."""
@@ -1005,6 +1049,7 @@ class AggregateOp(OneInputOperator):
         keys = list(zip(*parts)) if parts else [()] * len(idx)
         return idx, keys
 
+    # crlint: allow-host-sync(string_agg host path: object-dtype strings cannot live on device)
     def _collect_sagg(self, b: Batch) -> None:
         """Append each live row's string to its group's list, in row
         order."""
@@ -1034,6 +1079,7 @@ class AggregateOp(OneInputOperator):
             joined = [spec.sep.join(store[key]) if store.get(key) else None
                       for key in keys]
             uniq = sorted({v for v in joined if v is not None})
+            # crlint: allow-host-sync(string_agg host path: runs once at finalize)
             self.dictionaries[k + j].reset(np.array(uniq, dtype=object))
             code_of = {v: c for c, v in enumerate(uniq)}
             codes = np.zeros(final.capacity, np.int32)
@@ -2221,6 +2267,7 @@ class ParallelUnorderedSyncOp(Operator):
                     break
                 # a tile a graph's next replay overwrites is copied out
                 self._q.put(dispatch.own(b))
+        # crlint: allow-broad-except(producer thread forwards the exception to the consumer via the queue)
         except BaseException as e:  # noqa: BLE001 - forwarded to the consumer through the queue
             self._q.put(e)
             return

@@ -83,6 +83,7 @@ class _ReadbackShrink:
             return
         if root is not None:
             root.stats.host_syncs += 1
+        # crlint: allow-host-sync(deferred shrink counts: ONE stacked sync at query end by design)  # crlint: allow-mem-accounting(one int32 per shrunk tile — bounded by the query's tile count)
         counts = torch.stack([c for *_, c in self._checks]).cpu().numpy()
         for (i, orig, cap, _), n in zip(self._checks, counts):
             if int(n) > cap:
@@ -120,6 +121,7 @@ class _Readback:
         self.done.record()
 
     def host(self) -> Batch:
+        # crlint: allow-host-sync(the readback's own wait: the pull loop starts tile k+1 before it waits on tile k's copy, so the wait overlaps device work)
         self.done.synchronize()
         return self.batch
 
@@ -186,6 +188,7 @@ def _run_operator(root: Operator) -> dict[str, np.ndarray]:
     if not outs:
         return {n: np.array([]) for n in root.output_schema.names}
     return {
+        # crlint: allow-mem-accounting(the query's result, already read back to the host tile by tile: one concat at query end)
         n: np.concatenate([o[n] for o in outs])
         for n in root.output_schema.names
     }

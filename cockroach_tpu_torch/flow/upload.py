@@ -14,10 +14,17 @@ it counts one host wait. The consumer's own waits for a tile whose fill
 has not finished are timed on the host clock (``fill_wait_s``). Copy
 time is read back from timing events after the query. On the CPU the
 tile is built in place (``from_host``).
+
+The worker's counters (``h2d_bytes``, ``host_waits``, the copy timings)
+are written under the stream's lock, and ``reset`` first waits for the
+last fill it submitted: a prefetch a consumer abandoned (a LIMIT that
+stopped the scan) is counted in the run that started it, never in the
+next one.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -40,6 +47,7 @@ def _copy_stream(device: torch.device) -> torch.cuda.Stream:
     return s
 
 
+# crlint: allow-mem-accounting(double-buffered stream tiles: two pinned host slots per column, their device copies and the padded tile's mask, bounded by the stream tile — at most 2^20 rows — and fixed for the stream's life)
 class TileStream:
     """Tiles [off, off + tile) of host columns as device batches of
     capacity `tile` (the last one padded: zero data, invalid, dead)."""
@@ -57,6 +65,8 @@ class TileStream:
         self.host_waits = 0
         self.fill_wait_s = 0.0
         self._timing: list = []
+        self._mu = threading.Lock()
+        self._last = None  # the worker's last submitted fill
         if self.cuda:
             self._copy = _copy_stream(device)
             self._worker = ThreadPoolExecutor(1)
@@ -77,10 +87,17 @@ class TileStream:
         return slot
 
     def reset(self) -> None:
-        """Start of a run: drop the last run's copy timings."""
-        self._timing = []
-        self.h2d_bytes = 0
-        self.host_waits = 0
+        """Start of a run: wait for the last run's fills to finish (the
+        worker runs them in order), then drop its counts and timings."""
+        if self._last is not None:
+            # an abandoned prefetch's failure belongs to the run that
+            # abandoned it: wait, do not raise
+            self._last.exception()
+            self._last = None
+        with self._mu:
+            self._timing = []
+            self.h2d_bytes = 0
+            self.host_waits = 0
         self.fill_wait_s = 0.0
 
     def upload(self, off: int):
@@ -89,13 +106,15 @@ class TileStream:
         n = min(self.tile, self.nrows - off)
         if not self.cuda:
             hi = off + n
-            self.h2d_bytes += self._tile_bytes()
+            with self._mu:
+                self.h2d_bytes += self._tile_bytes()
             return from_host(
                 self.schema, {c: a[off:hi] for c, a in self.cols.items()},
                 {c: v[off:hi] for c, v in self.valids.items()},
                 capacity=self.tile, device=self.device)
         k = (off // self.tile) % 2
-        return self._worker.submit(self._fill_and_copy, k, off, n)
+        self._last = self._worker.submit(self._fill_and_copy, k, off, n)
+        return self._last
 
     def _tile_bytes(self) -> int:
         nb = 0
@@ -107,7 +126,8 @@ class TileStream:
     def _fill_and_copy(self, k: int, off: int, n: int):
         done = self._done[k]
         if done is not None and not done.query():
-            self.host_waits += 1
+            with self._mu:
+                self.host_waits += 1
             done.synchronize()
         slot = self._slots[k]
         hi = off + n
@@ -131,8 +151,9 @@ class TileStream:
                    for name, (d, v) in slot.items()}
             end.record(self._copy)
         self._done[k] = end
-        self._timing.append((start, end))
-        self.h2d_bytes += self._tile_bytes()
+        with self._mu:
+            self._timing.append((start, end))
+            self.h2d_bytes += self._tile_bytes()
         return out, end, n
 
     def get(self, handle) -> Batch:
@@ -159,4 +180,6 @@ class TileStream:
 
     def copy_seconds(self) -> float:
         """Device time of this run's copies (call after a device sync)."""
-        return sum(s.elapsed_time(e) for s, e in self._timing) / 1e3
+        with self._mu:
+            timing = list(self._timing)
+        return sum(s.elapsed_time(e) for s, e in timing) / 1e3

@@ -404,6 +404,7 @@ class RangeLifecycle:
         while not self._stop.wait(self.interval_s):
             try:
                 self.scan_once()
+            # crlint: allow-broad-except(background scan loop must survive; logged)
             except Exception as e:  # noqa: BLE001 - the loop survives; logged
                 log.warning(log.OPS, "range lifecycle scan failed",
                             error=str(e))

@@ -79,6 +79,7 @@ def _as_bytes(t: torch.Tensor, width: int) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1, width)
 
 
+# crlint: allow-mem-accounting(one feed frame: at most cap + 1 packed rows of one poll's scan, bounded by the poll's row cap)
 def _pack(view, pick: torch.Tensor, cap: int) -> torch.Tensor:
     """On the view's device: the first min(n, cap) rows where `pick`
     (view order), packed as uint8 rows key | value | vlen (4) | ts (8) |

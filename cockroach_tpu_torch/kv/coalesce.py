@@ -294,6 +294,7 @@ class BatchCoalescer:
                 eng.wal_sync()
             # per-rider demux: a failed sync (an injected disk fault)
             # reaches every rider the way it reaches a solo caller
+            # crlint: allow-broad-except(per-rider demux: a failed sync — injected disk fault — reaches every rider the way it reaches a solo caller)
             except Exception as e:  # noqa: BLE001
                 for op in riders:
                     op.result = None
@@ -313,6 +314,7 @@ class BatchCoalescer:
                           else db.clock.now())
                     op.result = db.engine.get(op.key, ts=ts)
                 # per-rider demux: re-raised verbatim in the one session
+                # crlint: allow-broad-except(per-rider demux: the error is re-raised verbatim in the one submitting session)
                 except Exception as e:  # noqa: BLE001
                     op.error = e
                 op.filled = True
@@ -329,6 +331,7 @@ class BatchCoalescer:
             else:
                 op.result = db._get_solo(op.key, op.ts_arg)
         # per-rider demux: re-raised verbatim in the one session
+        # crlint: allow-broad-except(per-rider demux: the error is re-raised verbatim in the one submitting session)
         except Exception as e:  # noqa: BLE001
             op.error = e
         op.filled = True

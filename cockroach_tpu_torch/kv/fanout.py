@@ -431,6 +431,7 @@ class FanoutHub:
         while not self._stop.is_set():
             try:
                 self._poll_once()
+            # crlint: allow-broad-except(one bad poll must not kill every subscriber; logged)
             except Exception as e:
                 # one bad poll must not kill every subscriber: logged,
                 # and the next poll scans from the same watermarks

@@ -227,6 +227,7 @@ class Registry:
                     continue  # heartbeated between checks; leave it alone
             try:
                 out.append(self.adopt_and_resume(job.job_id))
+            # crlint: allow-broad-except(adoption failure is per-job; logged, loop continues)
             except Exception as e:  # adoption failure is per job: logged
                 log.warning(log.OPS, "orphan adoption failed",
                             job=job.job_id, error=str(e))

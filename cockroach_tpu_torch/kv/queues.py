@@ -118,6 +118,7 @@ class ReplicaQueue:
             log.warning(log.OPS, "queue item sent to purgatory",
                         queue=self.name, item=str(item), tries=tries,
                         error=str(e))
+        # crlint: allow-broad-except(queue processor drops the item with a failure metric + log)
         except Exception as e:  # noqa: BLE001 - dropped with a metric and a log
             self.failures.inc()
             log.warning(log.OPS, "queue item dropped", queue=self.name,

@@ -48,6 +48,7 @@ class ReplicationStream:
         # single writer: only the stream thread updates the frontier;
         # wait_for_frontier and cutover read an int snapshot (racesan's
         # lockset model has no single-writer case, so it is not tracked)
+        # crlint: allow-race-coverage(frontier is single-writer: only the stream thread RMWs it — see the allow-shared-state note at the apply site; wait_for_frontier/cutover poll a GIL-atomic int snapshot. racesan's Eraser lockset model has no single-writer exemption, so instrumenting this field would raise false DataRaceError under chaos)
         self.frontier = int(since)
         self.applied = 0
         self.reconnects = 0
@@ -96,6 +97,7 @@ class ReplicationStream:
                         return
                     if "resolved" in frame:
                         # single writer; a stale read only replays
+                        # crlint: allow-shared-state(single-writer RMW on the stream thread; readers tolerate a stale frontier — resubscribe just replays)
                         self.frontier = max(self.frontier,
                                             int(frame["resolved"]))
                     else:

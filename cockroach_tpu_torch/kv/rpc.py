@@ -157,6 +157,7 @@ class BatchServer:
                     resp = {"error": str(e), "code": "WriteIntentError",
                             "keys": [_b64(k) for k in e.keys],
                             "txns": list(e.txns)}
+                # crlint: allow-broad-except(server loop converts the error to a wire response for the client)
                 except Exception as e:  # noqa: BLE001 - a wire error reply
                     resp = {"error": f"{type(e).__name__}: {e}",
                             "code": "Internal"}

@@ -156,6 +156,7 @@ class KVTable:
         # and the mask, at the merged view's capacity
         self._scan_bufs: dict[int, Column] = {}
         self._scan_mask: torch.Tensor | None = None
+        self.decoded_snap = None
         # device -> host reads this table made (intent checks, row counts)
         self.host_syncs = 0
         need = rowcodec.value_width(schema)
@@ -569,13 +570,18 @@ class KVTable:
         ``host_syncs``). With `persistent`, the columns decode into
         buffers this table owns, one per column index, that keep their
         address from decode to decode (graphs read them by reference);
-        the next persistent decode overwrites the batch."""
+        the next persistent decode overwrites the batch, and
+        ``decoded_snap`` says which snapshot the buffers hold (the token
+        bracketing the decode; None when a write landed during it)."""
         names = names or self.schema.names
+        tok0 = self.snapshot_token() if persistent else None
         idxs = tuple(self.schema.index(n) for n in names)
         ts, txn = self.read_context()
         eng: Engine = self.db.engine
         view = eng._merged_view()
         if view is None:
+            if persistent:
+                self.decoded_snap = None  # not a decode into the buffers
             return empty_batch(self.schema.select(idxs), 1024, eng.device)
         sel, conflict = self._span_filter(view, ts, txn)
         self.host_syncs += 1
@@ -604,6 +610,9 @@ class KVTable:
             else:
                 cols[k] = Column(data=pk, valid=sel)
             batch = Batch(cols=tuple(cols), mask=batch.mask)
+        if persistent:
+            self.decoded_snap = (tok0 if tok0 == self.snapshot_token()
+                                 else None)
         return batch
 
 

@@ -188,6 +188,7 @@ def _record_contention(e: WriteIntentError, waiting_txn: int) -> None:
         from .contention import DEFAULT
 
         DEFAULT.record(e.keys, e.txns, waiting_txn)
+    # crlint: allow-broad-except(conflict path must not fail on observability; logged + counted)
     except Exception as rec_err:  # pragma: no cover - registry must not mask errors
         from ..utils import log
 

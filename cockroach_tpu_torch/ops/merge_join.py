@@ -84,6 +84,7 @@ def rank_tables_for(probe_schema: Schema, probe_key, probe_dicts,
             code = pd.code_of(str(v))
             ranks.append(pd.ranks[code] if code >= 0
                          else len(pd.values) + i)
+        # crlint: allow-host-sync(ranks is a host python list, not a device array)  # crlint: allow-mem-accounting(dictionary-sized rank table, metadata not query data)
         build_ranks.append(np.array(ranks, dtype=np.int32))
     return tuple(probe_ranks), tuple(build_ranks)
 
@@ -140,6 +141,7 @@ def lex_bsearch(sorted_lanes, query_lanes, side: str = "left"):
     return pos
 
 
+# crlint: allow-mem-accounting(traced kernel: index lanes are shaped like the build batch the operator already charged)
 def build_merge_index(build: Batch, schema: Schema, key, rank_table=None):
     """Sort build rows by exact (composite) key -> (sorted key lanes,
     original row index, active prefix). Inactive (dead or NULL-key) rows
@@ -157,6 +159,7 @@ def build_merge_index(build: Batch, schema: Schema, key, rank_table=None):
     return sks, order, prefix
 
 
+# crlint: allow-mem-accounting(traced kernel: buffers are device transients sized by out_capacity, which the dispatching operator reserves)
 def merge_join(
     probe: Batch,
     probe_schema: Schema,

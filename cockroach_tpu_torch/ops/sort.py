@@ -44,6 +44,7 @@ def sortable(op: torch.Tensor) -> torch.Tensor:
     return op
 
 
+# crlint: allow-mem-accounting(traced kernel: a permutation lane shaped like the charged input tile)
 def stable_argsort(operands: list[torch.Tensor]) -> torch.Tensor:
     """Permutation sorting rows lexicographically by `operands` (first
     most significant), ties in row order: stable passes, last key first."""
@@ -152,6 +153,7 @@ def sort_batch(
     )
 
 
+# crlint: allow-mem-accounting(traced kernel: k-selection transients shaped like the charged input tile)
 def topk_batch(
     batch: Batch,
     schema: Schema,

@@ -178,6 +178,7 @@ def _inverse_ranks(ranks: np.ndarray) -> np.ndarray:
     inv = _inverse_tables.get(key)
     if inv is None:
         inv = np.empty(len(ranks), dtype=np.int32)
+        # crlint: allow-host-sync(rank tables are host numpy)
         inv[np.asarray(ranks)] = np.arange(len(ranks), dtype=np.int32)
         _inverse_tables[key] = inv
         weakref.finalize(ranks, _inverse_tables.pop, key, None)

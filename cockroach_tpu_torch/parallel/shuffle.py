@@ -27,6 +27,7 @@ from ..storage.keys import flip
 from . import mesh as mesh_mod
 
 
+# crlint: allow-mem-accounting(shuffle program: send buffers are [D, send_cap] statics from make_shuffle capacities the planner budgets)
 def _send(batch: Batch, keys, types, hash_tables, D: int, send_cap: int,
           hot):
     """One shard's send side -> (send tree [D, send_cap, ...], rows kept
@@ -64,6 +65,7 @@ def _send(batch: Batch, keys, types, hash_tables, D: int, send_cap: int,
     return send, keep, overflow, live.sum(dtype=torch.int64)
 
 
+# crlint: allow-mem-accounting(shuffle program: the receive tile is the out_cap static make_shuffle's capacities budget)
 def _receive(flat: Batch, batch: Batch, keep, out_cap: int):
     """One shard's receive side: received rows (plus locally kept hot
     rows) compacted into an `out_cap` tile -> (batch, rows dropped)."""
@@ -147,6 +149,7 @@ def make_shuffle(
     return mesh_mod.program(run, mesh)
 
 
+# crlint: allow-mem-accounting(one count per shard)
 def gather_counts(per_shard: list, mesh) -> torch.Tensor:
     """Per-shard [1] counts -> one [D] tensor on the first shard's device
     (the reference's P(AXIS) overflow output)."""

@@ -169,6 +169,7 @@ class AdminServer:
         n = self.node
         try:
             live = n.liveness.is_live(n.node_id)
+        # crlint: allow-broad-except(liveness probe failure IS the not-live answer)
         except Exception:  # noqa: BLE001
             live = False
         out = {"nodeId": n.node_id, "isLive": bool(live)}
@@ -374,6 +375,7 @@ class AdminServer:
                         self._json({"error": f"unknown path {u.path}"}, 404)
                 except BrokenPipeError:
                     pass  # client went away mid-reply
+                # crlint: allow-broad-except(one bad request never kills serving; error is reported to the client)
                 except Exception as e:  # noqa: BLE001
                     try:
                         self._json({"error": f"{type(e).__name__}: {e}"}, 500)

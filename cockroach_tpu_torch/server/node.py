@@ -384,6 +384,7 @@ class Node:
                     continue  # a peer's lease write mid-commit
                 except (ConnectionError, OSError):
                     continue  # an injected transport fault
+                # crlint: allow-broad-except(lease loop must survive; logged)
                 except Exception as e:  # noqa: BLE001 - the loop survives; logged
                     log.warning(log.OPS, "lease acquire failed",
                                 range=rid, error=str(e))
@@ -430,6 +431,7 @@ class Node:
                     wall, _ = hlc.unpack(self.db.clock.now())
                     self.tsdb.prune_all(wall - int(retention * 1e3))
                     last_prune = time.monotonic()
+            # crlint: allow-broad-except(metric write must never kill the node; logged)
             except Exception as e:  # noqa: BLE001 - a metric write never kills the node; logged
                 log.warning(log.OPS, "tsdb poll failed", error=str(e))
 
@@ -439,6 +441,7 @@ class Node:
                 for j in self.jobs.adopt_orphans():
                     log.info(log.OPS, "re-adopted orphaned job",
                              job=j.job_id, state=j.state)
+            # crlint: allow-broad-except(adoption pass failure is logged, loop continues)
             except Exception as e:  # noqa: BLE001 - logged; the loop continues
                 log.warning(log.OPS, "adoption pass failed", error=str(e))
 
@@ -467,6 +470,7 @@ class Node:
                     self._applying_remote = True
                     settings.set(name, info)
                     applied[name] = info
+                # crlint: allow-broad-except(bad gossiped value is logged and pinned to avoid a retry storm)
                 except Exception as e:  # noqa: BLE001 - a bad value is logged and pinned
                     log.warning(log.OPS, "gossiped setting rejected",
                                 setting=name, error=str(e))

@@ -237,6 +237,7 @@ class _Conn:
                         self._run_query(sql_text)
                     else:
                         self._send(b"I", b"")  # EmptyQueryResponse
+                # crlint: allow-broad-except(query error becomes an ErrorResponse to the client)
                 except Exception as e:  # an ErrorResponse to the client
                     self._error(f"{type(e).__name__}: {e}",
                                 code=_sqlstate_for(e))
@@ -248,6 +249,7 @@ class _Conn:
                 # Sync would desync pipeline-mode clients' result queues)
                 try:
                     self._extended(tag, body)
+                # crlint: allow-broad-except(extended-protocol error becomes ONE ErrorResponse then discard-until-Sync)
                 except Exception as e:  # one ErrorResponse, then to Sync
                     self._ext_failed = True
                     self._error(f"{type(e).__name__}: {e}",
@@ -365,6 +367,7 @@ class _Conn:
 
         try:
             stmt = P.parse_statement(sql)
+        # crlint: allow-broad-except(describe-time parse failure means no row description, not an error)
         except Exception:  # unparsable: no row description, not an error
             return None
         if not isinstance(stmt, P.Select):
@@ -502,6 +505,7 @@ class PgServer:
                     _Conn(c, self._factory()).serve()
                 except (ConnectionError, OSError):
                     pass  # client went away: its problem, not the server's
+                # crlint: allow-broad-except(connection thread: failure logged, socket closed in finally)
                 except Exception as e:  # logged; the socket closes below
                     log.warning(log.OPS, "pgwire connection failed",
                                 error=f"{type(e).__name__}: {e}")

@@ -28,6 +28,7 @@ def enabled() -> bool:
     return bool(settings.get("storage.bulk_ingest.enabled"))
 
 
+# crlint: allow-mem-accounting(storage-plane kernel: one bool lane shaped like the sorted block already resident)
 def _dedup_sorted(block: mvcc.KVBlock) -> mvcc.KVBlock:
     """Mask away same-key duplicates in a canonically sorted block,
     keeping the first row of each key group (the latest-added batch's:

@@ -109,6 +109,7 @@ def _slice_window(block: mvcc.KVBlock, pos: int, size: int) -> mvcc.KVBlock:
     return block.map(lambda x: x[p:p + size])
 
 
+# crlint: allow-mem-accounting(storage-plane kernel: a candidate tile of cap rows, bounded by the scan's candidate cap)
 def _gather_rows(block: mvcc.KVBlock, m: torch.Tensor, cap: int
                  ) -> mvcc.KVBlock:
     """Compact the rows where `m` into a tile of `cap` (row order kept, so
@@ -195,6 +196,7 @@ class _TsCache:
         if len(self.batches) > self._MAX_BATCHES:
             self._fold()
 
+    # crlint: allow-mem-accounting(fold compacts already-resident ts-cache batches: a transient concat whose output is strictly smaller than its inputs)
     def _fold(self) -> None:
         ks = np.concatenate([k for k, _ in self.batches])
         ts = np.concatenate([t for _, t in self.batches])

@@ -57,6 +57,9 @@ SITES: dict[str, str] = {
                          "degrades to its own per-session solo batch",
     "flow.host.setup": "SetupFlow RPC failure at a host",
     "flow.host.stream": "FlowStream attach/stream failure at a host",
+    "flow.sharedscan.attach": "shared tile stream attach failure: the "
+                              "scan falls back to slicing its own tiles "
+                              "(identical results, the saving lost)",
 }
 
 # sites that also fire as ``<site>.n<id>`` (fire_scoped)

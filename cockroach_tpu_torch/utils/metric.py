@@ -246,6 +246,11 @@ AMBIGUOUS_RESULTS = Counter("kv_ambiguous_results")
 GOSSIP_INFOS_EVICTED = Counter("gossip_infos_evicted")
 REPLICATION_RECONNECTS = Counter("replication_stream_reconnects")
 KV_BATCH_COALESCED = Counter("kv_batch_coalesced")
+# shared tile streams (flow/sharedscan.py): scans that attached to a live
+# stream, and tiles a subscriber took from the stream instead of slicing
+SQL_SHARED_SCAN_ATTACHED = Counter("sql_shared_scan_attached")
+SQL_SHARED_SCAN_DISPATCHES_SAVED = Counter(
+    "sql_shared_scan_dispatches_saved")
 # the across-hosts plane (flow/disthost.py)
 DIST_DEGRADED = Counter("distsql_degraded_queries")
 DIST_FLOWS_CANCELLED = Counter("distsql_flows_cancelled")

@@ -151,6 +151,11 @@ _DEFAULTS: dict[str, Any] = {
     # non-transactional put/delete/get, and its cap on ops per batch
     "kv.batch.coalesce.enabled": False,
     "kv.batch.coalesce.max_ops": 128,
+    # shared tile streams (flow/sharedscan.py): concurrent resident scans
+    # of one table attach to one stream, and the stream's buffer window
+    # in tiles (a subscriber further behind slices its own tiles)
+    "sql.distsql.sharedscan.enabled": False,
+    "sql.distsql.sharedscan.window": 8,
     # the node's background metrics scraper (server/node.py): seconds
     # between ticks, and the retention horizon it prunes the timeseries
     # store to (0 keeps everything)
@@ -211,6 +216,7 @@ _BOUNDS: dict[str, tuple] = {
     "kv.range.split_qps_threshold": (0.001, 1e9),
     "kv.range.max_bytes": (256, None),
     "kv.batch.coalesce.max_ops": (2, None),
+    "sql.distsql.sharedscan.window": (1, None),
     "ts.scrape_interval_seconds": (0.1, None),
     "ts.retention_seconds": (0.0, None),
     "sql.distsql.flow_deadline_s": (0.1, 3600.0),
@@ -230,6 +236,7 @@ def get(name: str):
 
 
 def set(name: str, value) -> None:  # noqa: A001 - SQL SET semantics
+    # crlint: allow-shared-state(each access is one dict operation — get, store, pop, clear, copy —, atomic under the GIL; no read-modify-write spans two of them)  # crlint: allow-race-coverage(every access is a single GIL-atomic dict operation; a lock here would sit on the hottest read in the engine — every settings.get — to guard nothing a dict op does not already)
     _values[name] = _checked(name, value)
     _notify(name, _values[name])
 

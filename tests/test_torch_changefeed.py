@@ -147,6 +147,7 @@ def test_changefeed_job_resumes_exactly_once(tmp_path):
         ("u002", None)]
 
 
+@pytest.mark.chaos
 def test_frontier_checkpoint_fault_fails_job_then_resumes(tmp_path):
     """A failed checkpoint write (changefeed.frontier.checkpoint) fails
     the job with its events emitted and the error recorded, as in the
@@ -289,6 +290,7 @@ def test_reconnect_from_frontier_exactly_once():
         srv.close()
 
 
+@pytest.mark.chaos
 def test_subscriber_send_fault_evicts_typed_then_resumes():
     """A send that dies mid-stream (changefeed.subscriber.send) evicts
     the subscriber with a typed frame naming its frontier; reconnecting
@@ -362,6 +364,7 @@ def test_eviction_frontier_check_refuses_an_undelivered_frontier(frontier,
             _assert_names_last_delivered(err, 5, r)
 
 
+@pytest.mark.chaos
 def test_subscribe_fault_is_retried():
     db = _tdb()
     srv = tcf.RangefeedServer(db, poll_interval_s=0.02, device="cpu")
@@ -542,6 +545,7 @@ def test_ladder_terminal_rung_typed_eviction(ladder_knobs):
     assert flowmem.staging_monitor("changefeed").used == 0
 
 
+@pytest.mark.chaos
 def test_enqueue_fault_sheds_without_gap():
     """changefeed.fanout.enqueue: the batch never reaches the buffer, the
     subscriber sheds to a catch-up scan, and the stream still equals the

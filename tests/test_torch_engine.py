@@ -240,7 +240,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "cockroach_tpu_torch/flow/dcn.py",
             "cockroach_tpu_torch/flow/wire.py",
             "cockroach_tpu_torch/flow/disthost.py",
-            "cockroach_tpu_torch/coldata/arrow.py"} <= names
+            "cockroach_tpu_torch/coldata/arrow.py",
+            "cockroach_tpu_torch/flow/sharedscan.py",
+            "cockroach_tpu_torch/lint/core.py",
+            "cockroach_tpu_torch/lint/__main__.py",
+            "cockroach_tpu_torch/lint/sharedstate.py",
+            "cockroach_tpu_torch/lint/hostsync.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "cockroach_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -256,6 +261,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                 and "pyarrow" in ast.dump(n) for n in top), rel
 
 
+@pytest.mark.chaos
 def test_torn_wal_append_recovers(tmp_path):
     """A put whose WAL append tears (fault site storage.wal.append, kind
     partial) raises and leaves half a record; reopening truncates it and

@@ -201,6 +201,7 @@ def test_replay_cache_dedups_in_a_server_of_each_package():
     assert len(rows["ts"]) == 1  # applied exactly once
 
 
+@pytest.mark.chaos
 def test_ambiguous_mutation_is_typed_and_reads_stay_retryable():
     """Every retry of a stamped put fails on the wire (the server dropped
     each response after applying): the client raises AmbiguousResultError
@@ -243,6 +244,7 @@ def versions(db, key: bytes) -> int:
                for s in db.engine.stores.values())
 
 
+@pytest.mark.chaos
 def test_stamped_batch_over_a_cluster_is_whole_or_ambiguous(tmp_path):
     """A stamped batch over a DistSender lands as one sub-batch per
     range. Its response dropped after both applied, the re-sent stamp is

@@ -273,6 +273,7 @@ def test_liveness_scenario_equals_reference(scenario):
     engines_equal(jdb, tdb)
 
 
+@pytest.mark.chaos
 def test_scoped_heartbeat_fault_blackholes_one_node():
     """liveness.heartbeat.n<id> fails one node's heartbeats while its peer
     renews; an unknown scoped site is refused at arm time."""

@@ -390,6 +390,7 @@ def test_restart_resumes_from_frontier(sess):
     assert sess.catalog.tables["t"].read_ts is None
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", [
     "matview.flush", "matview.delta.apply", "matview.frontier.checkpoint"])
 def test_faulted_flush_resumes_from_frontier(sess, site):

@@ -156,6 +156,7 @@ def test_stream_from_a_distsender_cluster_into_one_engine():
         srv.close()
 
 
+@pytest.mark.chaos
 def test_stream_reconnects_from_frontier_after_source_restart():
     src, dst = tdb(), tdb(start=1)
     srv = RangefeedServer(src, poll_interval_s=0.02, device="cpu")
